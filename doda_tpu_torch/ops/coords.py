@@ -1,0 +1,102 @@
+"""Packed brick-coordinate keys, dedup and table lookup (one scene).
+
+Port of the packed single-key half of ``doda_tpu/ops/coords.py``. Brick
+coords are packed into one int32 key ``(x << 20) | (y << 10) | z``; coords
+outside [0, 1024) per axis count as invalid. Tables are sorted by that key,
+so table ids are ranks in the packed order, exactly as in the JAX package.
+Every miss (invalid point, absent neighbour, overflowed capacity) maps to
+the null id ``cap``.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+MAX_COORD = 2 ** 15 - 1
+SENTINEL = torch.iinfo(torch.int32).max
+PACK_BITS = 10
+_PACK_LIM = 1 << PACK_BITS
+
+
+class CoordTable(NamedTuple):
+    """A deduplicated coordinate table sorted by packed key.
+
+    coords : (cap, 3) int32 — unique coords; rows >= n hold MAX_COORD.
+    key    : (cap,) int32 — packed key of each row; SENTINEL past n.
+    n      : () int32 — number of valid rows (<= cap).
+    p2v    : (N,) int32 — input row -> table id; misses -> cap.
+    """
+
+    coords: torch.Tensor
+    key: torch.Tensor
+    n: torch.Tensor
+    p2v: torch.Tensor
+
+    @property
+    def cap(self) -> int:
+        return self.coords.shape[-2]
+
+    @property
+    def valid(self) -> torch.Tensor:
+        return torch.arange(self.cap, device=self.n.device) < self.n
+
+
+def pack_coords1(coords: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    """(..., 3) int coords -> one int32 key; invalid or out of range ->
+    SENTINEL."""
+    c = coords.to(torch.int32)
+    x, y, z = c[..., 0], c[..., 1], c[..., 2]
+    in_range = ((c >= 0) & (c < _PACK_LIM)).all(-1)
+    k = (x << (2 * PACK_BITS)) | (y << PACK_BITS) | z
+    return torch.where(valid & in_range, k, SENTINEL)
+
+
+def _unpack(k: torch.Tensor) -> torch.Tensor:
+    return torch.stack([k >> (2 * PACK_BITS),
+                        (k >> PACK_BITS) & (_PACK_LIM - 1),
+                        k & (_PACK_LIM - 1)], dim=-1)
+
+
+def unique_coords_packed(coords: torch.Tensor, valid: torch.Tensor,
+                         cap: int) -> CoordTable:
+    """Deduplicate (N, 3) coords into a sorted table of capacity ``cap``.
+
+    Keys beyond the first ``cap`` unique ones overflow into the null slot
+    and are dropped silently (``n`` is clamped to ``cap``)."""
+    dev = coords.device
+    n_pts = coords.shape[0]
+    ks, order = torch.sort(pack_coords1(coords, valid), stable=True)
+    valid_s = ks != SENTINEL
+    new = torch.ones_like(valid_s)
+    new[1:] = ks[1:] != ks[:-1]
+    new &= valid_s
+    vid_s = torch.cumsum(new, 0, dtype=torch.int32) - 1
+    n = (vid_s[-1] + 1).clamp(max=cap).to(torch.int32)
+    vid_s = torch.where(valid_s & (vid_s < cap), vid_s, cap)
+
+    slot = torch.where(new & (vid_s < cap), vid_s, cap).long()
+    table = torch.full((cap + 1, 3), MAX_COORD, dtype=torch.int32,
+                       device=dev)
+    table[slot] = _unpack(ks)
+    table = table[:cap]         # row cap took every non-new write
+
+    p2v = torch.empty(n_pts, dtype=torch.int32, device=dev)
+    p2v[order] = vid_s
+    key = pack_coords1(table, torch.arange(cap, device=dev) < n)
+    return CoordTable(coords=table, key=key, n=n, p2v=p2v)
+
+
+def lookup_packed(table: CoordTable, query_coords: torch.Tensor,
+                  query_valid: torch.Tensor) -> torch.Tensor:
+    """Table id of each query coord, ``cap`` where absent.
+
+    Table keys ascend (SENTINEL rows last), so a binary search finds each
+    query's only candidate row."""
+    cap = table.cap
+    qk = pack_coords1(query_coords, query_valid)
+    pos = torch.searchsorted(table.key, qk.reshape(-1)).reshape(qk.shape)
+    pos = pos.clamp(max=cap - 1)
+    hit = (table.key[pos] == qk) & (qk != SENTINEL)
+    return torch.where(hit, pos.to(torch.int32), cap)

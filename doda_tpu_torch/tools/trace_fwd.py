@@ -1,0 +1,104 @@
+"""Where one bench-shaped flagship eval forward spends its device time.
+
+    python -m doda_tpu_torch.tools.trace_fwd [--trace PATH]   # repo root
+
+Builds the flagship (cfgs/scannet/spconv.yaml) with seeded weights in
+bf16, runs ``make_eval_step`` on 4 bench scenes twice to warm up, times
+three forwards on the host clock, then profiles one with
+``torch.profiler``. Prints one JSON line: the forward's wall time, the
+device's busy share of it, device time per bucket of kernels, and the top
+kernels. ``--trace`` also writes a Chrome trace.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import re
+import subprocess
+import time
+from collections import defaultdict
+
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+from ..config import CfgNode, cfg_from_yaml_file
+from ..models import model_fn
+from ..models.unet import default_brick_caps
+from ..utils import synth
+
+# first match wins; kernel names as the CUDA runtime reports them
+BUCKETS = (
+    ('banded_conv (K1)', r'banded_tc|banded_f32'),
+    ('gemm (down/up/1x1/head)', r'gemm|cutlass|xmma|cublas|sm90_'),
+    ('sort / search', r'sort|radix|searchsorted|Scan|scan'),
+    ('index / gather / scatter', r'index|gather|scatter|Indexing'),
+    ('concat', r'[Cc]at'),
+    ('elementwise / reduce', r'elementwise|vectorized|reduce|Reduce'),
+)
+
+
+def _device_us(evt) -> float:
+    for attr in ('self_device_time_total', 'self_cuda_time_total'):
+        if hasattr(evt, attr):
+            return float(getattr(evt, attr))
+    return 0.0
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument('--trace', help='write a Chrome trace to this path')
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit('trace_fwd: needs a CUDA device')
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    cfg = cfg_from_yaml_file('cfgs/scannet/spconv.yaml', CfgNode())
+    b_caps = default_brick_caps(synth.BRICK_CAP, 7)
+    batch = synth.make_batch(seed=0)
+    synth.capacity_audit(batch, b_caps)
+    batch = batch.to('cuda')
+    model = model_fn.build_model(cfg)
+    model.load_state_dict(synth.seeded_state_dict(model, seed=0))
+    step = model_fn.make_eval_step(cfg, model, b_caps)
+    for _ in range(2):
+        step(batch)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        step(batch)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) / 3 * 1e3
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step(batch)
+        torch.cuda.synchronize()
+    if args.trace:
+        prof.export_chrome_trace(args.trace)
+
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    buckets = defaultdict(float)
+    for e in kernels:
+        name = next((b for b, pat in BUCKETS if re.search(pat, e.key)),
+                    'other')
+        buckets[name] += _device_us(e) / 1e3
+    device_ms = sum(buckets.values())
+    top = sorted(kernels, key=_device_us, reverse=True)[:12]
+    smi = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
+                          '--format=csv,noheader'], capture_output=True,
+                         text=True, timeout=60).stdout.strip()
+    print(json.dumps({
+        'card': smi, 'forward_wall_ms': wall_ms,
+        'profiled_device_ms': device_ms,
+        'device_busy_share': device_ms / wall_ms if wall_ms else None,
+        'buckets_ms': dict(sorted(buckets.items(), key=lambda kv: -kv[1])),
+        'kernel_launches': int(sum(e.count for e in kernels)),
+        'top_kernels': [{'name': e.key[:90], 'count': e.count,
+                         'ms': _device_us(e) / 1e3} for e in top]}))
+
+
+if __name__ == '__main__':
+    main()
