@@ -1,4 +1,4 @@
-"""Submanifold sparse 3D U-Net on the wide-lane brick engine (eval).
+"""Submanifold sparse 3D U-Net on the wide-lane brick engine.
 
 Port of ``doda_tpu/models/unet.py``. Architecture as the reference
 (7-level U-Net with residual blocks, ref: model/unet.py:15-69 and
@@ -16,6 +16,13 @@ Index structures are built once per batch by ``build_level_plan``; the
 scenes of a batch are flattened into the row dimension with one null id
 per table (``flatten_plan``). Module attribute names follow the flax
 parameter tree so that ``utils/convert.py`` is a tree walk.
+
+``sm_max_cin`` picks the subm-conv kernel per conv (``bricks2d.uses_sm``):
+0 sends every conv to K1 ``banded_conv``; 32, the JAX package's
+``DODA_SM=shallow``, sends the convs with cin <= 32 (levels 0 and 1 of the
+mid-16 flagship) to K2 ``banded_conv_sm``. In train mode
+(``model.train()``) the norms use batch statistics and every conv carries
+its own backward (``ops/bricks2d.py``).
 """
 
 from __future__ import annotations
@@ -28,8 +35,8 @@ from torch import nn
 from ..ops.bricks import (CELLS, BrickGrid, brickify,
                           build_brick_downsample, build_brick_rulebook,
                           cell_feats_2d)
-from ..ops.bricks2d import (conv1x1_2d, down_conv2_2d, halo_index,
-                            subm_conv3_2d, up_conv2_2d)
+from ..ops.bricks2d import (conv1x1_2d, down_conv2_2d, halo_index, sm_index,
+                            subm_conv3_2d, up_conv2_2d, uses_sm)
 from ..utils.device import resolve_device
 from .norm import MaskedBatchNorm
 
@@ -111,6 +118,8 @@ class FlatLevel(NamedTuple):
     occ: torch.Tensor     # (Batch*cap, 64) bool
     nbr: torch.Tensor     # (Batch*cap, 27) int32, null == Batch*cap
     halo: torch.Tensor    # (Batch*cap, 216) int32 from halo_index(nbr)
+    sm: torch.Tensor | None = None   # (Batch*cap, 176) from sm_index(nbr),
+    #                                  only where the level has a K2 conv
 
 
 class FlatDown(NamedTuple):
@@ -128,13 +137,16 @@ def _flat_ids(ids: torch.Tensor, cap: int) -> torch.Tensor:
     return flat.reshape((-1,) + tuple(ids.shape[2:])).to(torch.int32)
 
 
-def flatten_plan(plan: LevelPlan):
-    """Batched LevelPlan -> per-level flat tables for the 2D engine."""
+def flatten_plan(plan: LevelPlan, sm_levels=()):
+    """Batched LevelPlan -> per-level flat tables for the 2D engine; the
+    levels listed in ``sm_levels`` also get their source-major index."""
     levels, downs = [], []
-    for occ, nbr in zip(plan.occs, plan.nbrs):
+    for lvl, (occ, nbr) in enumerate(zip(plan.occs, plan.nbrs)):
         flat_nbr = _flat_ids(nbr, occ.shape[1])
-        levels.append(FlatLevel(occ=occ.reshape(-1, CELLS), nbr=flat_nbr,
-                                halo=halo_index(flat_nbr)))
+        levels.append(FlatLevel(
+            occ=occ.reshape(-1, CELLS), nbr=flat_nbr,
+            halo=halo_index(flat_nbr),
+            sm=sm_index(flat_nbr) if lvl in sm_levels else None))
     for lvl, ds in enumerate(plan.downs):
         cap_c = plan.occs[lvl].shape[1]
         cap_p = plan.occs[lvl + 1].shape[1]
@@ -160,9 +172,9 @@ class ResidualBlock(nn.Module):
     """Pre-activation residual block (ref: model/unet_block.py:10-38)."""
 
     def __init__(self, cin: int, cout: int, dsnorm: bool = False,
-                 dtype=torch.bfloat16):
+                 dtype=torch.bfloat16, sm_max_cin: int = 0):
         super().__init__()
-        self.dtype = dtype
+        self.dtype, self.sm_max_cin = dtype, sm_max_cin
         if cin != cout:
             self.i_kernel = _conv_param(cin, cout)
         self.MaskedBatchNorm_0 = MaskedBatchNorm(cin, dsnorm=dsnorm)
@@ -176,9 +188,11 @@ class ResidualBlock(nn.Module):
         else:
             identity = x
         h = torch.relu(self.MaskedBatchNorm_0(x, lv.occ, domain))
-        h = subm_conv3_2d(h, lv.occ, lv.halo, self.kernel1, self.dtype)
+        h = subm_conv3_2d(h, lv.occ, lv.halo, self.kernel1, self.dtype,
+                          lv.sm, self.sm_max_cin)
         h = torch.relu(self.MaskedBatchNorm_1(h, lv.occ, domain))
-        h = subm_conv3_2d(h, lv.occ, lv.halo, self.kernel2, self.dtype)
+        h = subm_conv3_2d(h, lv.occ, lv.halo, self.kernel2, self.dtype,
+                          lv.sm, self.sm_max_cin)
         return h + identity
 
 
@@ -186,15 +200,16 @@ class VGGBlock(nn.Module):
     """BN -> ReLU -> SubMConv3 (ref: model/unet_block.py:41-52)."""
 
     def __init__(self, cin: int, cout: int, dsnorm: bool = False,
-                 dtype=torch.bfloat16):
+                 dtype=torch.bfloat16, sm_max_cin: int = 0):
         super().__init__()
-        self.dtype = dtype
+        self.dtype, self.sm_max_cin = dtype, sm_max_cin
         self.MaskedBatchNorm_0 = MaskedBatchNorm(cin, dsnorm=dsnorm)
         self.kernel = _conv_param(27, cin, cout)
 
     def forward(self, x, lv: FlatLevel, domain):
         h = torch.relu(self.MaskedBatchNorm_0(x, lv.occ, domain))
-        return subm_conv3_2d(h, lv.occ, lv.halo, self.kernel, self.dtype)
+        return subm_conv3_2d(h, lv.occ, lv.halo, self.kernel, self.dtype,
+                             lv.sm, self.sm_max_cin)
 
 
 def _concat_channels(a: torch.Tensor, b: torch.Tensor, ca: int,
@@ -210,23 +225,25 @@ class UBlock(nn.Module):
 
     def __init__(self, planes: tuple, block_reps: int = 2,
                  residual: bool = True, dsnorm: bool = False,
-                 dtype=torch.bfloat16):
+                 dtype=torch.bfloat16, sm_max_cin: int = 0):
         super().__init__()
         self.planes, self.block_reps, self.dtype = planes, block_reps, dtype
         block = ResidualBlock if residual else VGGBlock
         p = planes[0]
         for i in range(block_reps):
-            setattr(self, f'block{i}', block(p, p, dsnorm, dtype))
+            setattr(self, f'block{i}', block(p, p, dsnorm, dtype, sm_max_cin))
         if len(planes) == 1:
             return
         self.conv_norm = MaskedBatchNorm(p, dsnorm=dsnorm)
         self.down_kernel = _conv_param(8, p, planes[1])
-        self.u = UBlock(planes[1:], block_reps, residual, dsnorm, dtype)
+        self.u = UBlock(planes[1:], block_reps, residual, dsnorm, dtype,
+                        sm_max_cin)
         self.deconv_norm = MaskedBatchNorm(planes[1], dsnorm=dsnorm)
         self.up_kernel = _conv_param(8, planes[1], p)
         for i in range(block_reps):
             setattr(self, f'tail{i}',
-                    block(2 * p if i == 0 else p, p, dsnorm, dtype))
+                    block(2 * p if i == 0 else p, p, dsnorm, dtype,
+                          sm_max_cin))
 
     def forward(self, x, levels, downs, level: int, domain):
         p = self.planes[0]
@@ -255,14 +272,24 @@ class SparseConvNet(nn.Module):
     def __init__(self, in_channel: int = 3, mid_channel: int = 16,
                  n_classes: int = 20, block_reps: int = 2,
                  block_residual: bool = True, num_levels: int = 7,
-                 dsnorm: bool = False, dtype=torch.bfloat16):
+                 dsnorm: bool = False, dtype=torch.bfloat16,
+                 sm_max_cin: int = 0):
         super().__init__()
         self.in_channel, self.mid_channel = in_channel, mid_channel
         self.num_levels, self.dtype = num_levels, dtype
+        self.sm_max_cin = sm_max_cin
         m = mid_channel
         self.input_kernel = _conv_param(27, in_channel, m)
         planes = tuple(m * (i + 1) for i in range(num_levels))
-        self.unet = UBlock(planes, block_reps, block_residual, dsnorm, dtype)
+        # a level's convs are p -> p and 2p -> p (plus the input conv at
+        # level 0); their backwards run the flipped shapes p -> p, p -> 2p
+        self.sm_levels = tuple(
+            lvl for lvl, p in enumerate(planes)
+            if any(uses_sm(a, b, sm_max_cin) for a, b in
+                   ((p, p), (2 * p, p), (p, 2 * p),
+                    (in_channel, m) if lvl == 0 else (p, p))))
+        self.unet = UBlock(planes, block_reps, block_residual, dsnorm, dtype,
+                           sm_max_cin)
         self.output_norm = MaskedBatchNorm(m, dsnorm=dsnorm)
         self.linear = nn.Linear(m, n_classes)
 
@@ -275,7 +302,7 @@ class SparseConvNet(nn.Module):
         m = self.mid_channel
         bt, n = point_feats.shape[:2]
         cap0 = plan.grid0.occ.shape[1]
-        levels, downs = flatten_plan(plan)
+        levels, downs = flatten_plan(plan, self.sm_levels)
 
         # flat cell id of every point across the batch, null = rows*64
         gidx = plan.grid0.flat_index()
@@ -285,7 +312,8 @@ class SparseConvNet(nn.Module):
 
         x = cell_feats_2d(point_feats.reshape(bt * n, -1), flat, bt * cap0)
         x = subm_conv3_2d(x.to(self.dtype), levels[0].occ, levels[0].halo,
-                          self.input_kernel, self.dtype)
+                          self.input_kernel, self.dtype, levels[0].sm,
+                          self.sm_max_cin)
         x = self.unet(x, levels, downs, 0, domain)
 
         # output norm folded past the voxel -> point gather (f32 affine)

@@ -1,0 +1,137 @@
+"""Kernel K2: the source-major banded submanifold conv.
+
+Port of ``doda_tpu/ops/pallas_sm.py::banded_conv_sm``. The operands are a
+brick's own activation x (B, 64*cin) and only the halo around it: gyz
+(B, 96*cin), per x-slice the 20 in-plane halo cells padded to 24, and the
+two x-halo planes gxm/gxp (B, 40*cin), 36 cells padded to 40. With the
+weights of ``bricks2d.sm_weights`` — wc (3, 16cin, 16cout), wh
+(3, 24cin, 16cout), wx (2, 40cin, 16cout) — output x-slice ``xr`` is
+
+    sum over taps i < 3, cx = xr + i - 1:
+        gxm @ wx[0]                                     if cx == -1
+        gxp @ wx[1]                                     if cx == 4
+        x[:, cx*16cin:(cx+1)*16cin] @ wc[i]
+          + gyz[:, cx*24cin:(cx+1)*24cin] @ wh[i]       otherwise
+
+unmasked, accumulating in float32; the result is (B, 64*cout). It needs
+cin % 16 == 0 and cout % 8 == 0. On CUDA tensors this is the hand-written
+kernel of ``csrc/banded_conv_sm.cu``; on CPU tensors it is
+``banded_conv_sm_plain``. There is no other path.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from . import _build
+
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_SLICES = 4                # x-slices of a brick
+_X, _GYZ, _GX = 64, 96, 40  # cells per operand row
+
+
+def banded_conv_sm_plain(x, gyz, gxm, gxp, wc, wh, wx,
+                         out_dtype) -> torch.Tensor:
+    """The same function as float32 matmuls on operand slices (the
+    arithmetic of the JAX package's ``_sm_xla``), cast once to out_dtype."""
+    x, gyz, gxm, gxp, wc, wh, wx = (t.float() for t in
+                                    (x, gyz, gxm, gxp, wc, wh, wx))
+    k16, k24 = wc.shape[1], wh.shape[1]
+    outs = []
+    for xr in range(_SLICES):
+        acc = 0
+        for i in range(3):
+            cx = xr + i - 1
+            if cx == -1:
+                acc = acc + gxm @ wx[0]
+            elif cx == _SLICES:
+                acc = acc + gxp @ wx[1]
+            else:
+                acc = acc + x[:, cx * k16:(cx + 1) * k16] @ wc[i] \
+                    + gyz[:, cx * k24:(cx + 1) * k24] @ wh[i]
+        outs.append(acc)
+    return torch.cat(outs, dim=1).to(out_dtype)
+
+
+@functools.lru_cache(maxsize=None)
+def _entry():
+    fn = _build.load('banded_conv_sm').doda_banded_conv_sm
+    fn.argtypes = ([ctypes.c_void_p, ctypes.c_longlong] * 4    # operands
+                   + [ctypes.c_void_p] * 4                     # wc wh wx out
+                   + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+                      ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _check(x, gyz, gxm, gxp, wc, wh, wx, out_dtype) -> None:
+    tensors = (x, gyz, gxm, gxp, wc, wh, wx)
+    if any(t.device.type != 'cuda' or t.device != x.device for t in tensors):
+        raise ValueError('banded_conv_sm: operands on '
+                         f'{[str(t.device) for t in tensors]}; all must be '
+                         'on one CUDA device')
+    if x.dtype not in _DTYPE_CODES or any(t.dtype != x.dtype
+                                          for t in tensors):
+        raise ValueError('banded_conv_sm: operands '
+                         f'{[str(t.dtype) for t in tensors]}; all must be '
+                         'float32 or all bfloat16')
+    if out_dtype not in _DTYPE_CODES:
+        raise ValueError(f'banded_conv_sm: out_dtype {out_dtype} '
+                         'unsupported')
+    if x.dim() != 2 or x.shape[1] % (_X * 16):
+        raise ValueError(f'banded_conv_sm: x {tuple(x.shape)}; need '
+                         '(B, 64*cin) with cin a multiple of 16')
+    b, cin = x.shape[0], x.shape[1] // _X
+    n = wc.shape[2] if wc.dim() == 3 else 0
+    want = {'gyz': (b, _GYZ * cin), 'gxm': (b, _GX * cin),
+            'gxp': (b, _GX * cin), 'wc': (3, 16 * cin, n),
+            'wh': (3, 24 * cin, n), 'wx': (2, _GX * cin, n)}
+    got = {'gyz': gyz, 'gxm': gxm, 'gxp': gxp, 'wc': wc, 'wh': wh, 'wx': wx}
+    for name, shape in want.items():
+        if tuple(got[name].shape) != shape:
+            raise ValueError(f'banded_conv_sm: {name} '
+                             f'{tuple(got[name].shape)}, need {shape}')
+    if n == 0 or n % 128:
+        raise ValueError(f'banded_conv_sm: 16*cout = {n}; cout must be a '
+                         'positive multiple of 8')
+    for name, t in (('x', x), ('gyz', gyz), ('gxm', gxm), ('gxp', gxp)):
+        # rows may be strided (column slices of one gathered buffer)
+        if t.stride(1) != 1 or t.stride(0) % 8 or t.data_ptr() % 16:
+            raise ValueError(f'banded_conv_sm: {name} needs unit inner '
+                             'stride, a row stride that is a multiple of 8 '
+                             'and 16-byte alignment')
+    for name, t in (('wc', wc), ('wh', wh), ('wx', wx)):
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f'banded_conv_sm: {name} must be contiguous '
+                             'and 16-byte aligned')
+
+
+def banded_conv_sm(x, gyz, gxm, gxp, wc, wh, wx, out_dtype) -> torch.Tensor:
+    """x (B, 64cin), gyz (B, 96cin), gxm/gxp (B, 40cin) and the weights of
+    ``bricks2d.sm_weights`` -> (B, 64*cout), unmasked."""
+    tensors = (x, gyz, gxm, gxp, wc, wh, wx)
+    if all(t.device.type == 'cpu' for t in tensors):
+        return banded_conv_sm_plain(*tensors, out_dtype)
+    _check(*tensors, out_dtype)
+    b, cin = x.shape[0], x.shape[1] // _X
+    n = wc.shape[2]
+    out = torch.empty((b, _SLICES * n), dtype=out_dtype, device=x.device)
+    if b == 0:
+        return out
+    err = _entry()(x.data_ptr(), x.stride(0), gyz.data_ptr(), gyz.stride(0),
+                   gxm.data_ptr(), gxm.stride(0), gxp.data_ptr(),
+                   gxp.stride(0), wc.data_ptr(), wh.data_ptr(),
+                   wx.data_ptr(), out.data_ptr(), b, cin, n,
+                   _DTYPE_CODES[x.dtype], _DTYPE_CODES[out_dtype],
+                   torch.cuda.current_stream(x.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError('banded_conv_sm: kernel launch failed with CUDA '
+                           f'error {err}')
+    banded_conv_sm.launches += 1
+    return out
+
+
+banded_conv_sm.launches = 0

@@ -1,13 +1,18 @@
-"""Where one bench-shaped flagship eval forward spends its device time.
+"""Where one bench-shaped flagship eval forward, or train step, spends its
+device time.
 
-    python -m doda_tpu_torch.tools.trace_fwd [--trace PATH]   # repo root
+    python -m doda_tpu_torch.tools.trace_fwd [--train] [--sm-max-cin N]
+                                             [--trace PATH]
 
-Builds the flagship (cfgs/scannet/spconv.yaml) with seeded weights in
-bf16, runs ``make_eval_step`` on 4 bench scenes twice to warm up, times
-three forwards on the host clock, then profiles one with
-``torch.profiler``. Prints one JSON line: the forward's wall time, the
-device's busy share of it, device time per bucket of kernels, and the top
-kernels. ``--trace`` also writes a Chrome trace.
+from the repo root. Builds the flagship (cfgs/scannet/spconv.yaml) with
+seeded weights in bf16, runs ``make_eval_step`` on 4 bench scenes (with
+``--train``: ``make_train_step`` on 2 scenes, SGD as in the YAML;
+``--sm-max-cin`` picks the subm-conv kernels, by default 0, K1 everywhere,
+for the forward and 32, K2 at levels 0 and 1, for the train step) twice to
+warm up, times three calls on the host clock, then profiles one with
+``torch.profiler``. Prints one JSON line: the call's wall
+time, the device's busy share of it, device time per bucket of kernels, and
+the top kernels. ``--trace`` also writes a Chrome trace.
 """
 
 from __future__ import annotations
@@ -25,12 +30,13 @@ from torch.profiler import ProfilerActivity, profile
 from ..config import CfgNode, cfg_from_yaml_file
 from ..models import model_fn
 from ..models.unet import default_brick_caps
-from ..utils import synth
+from ..utils import optim, synth
 
 # first match wins; kernel names as the CUDA runtime reports them
 BUCKETS = (
     ('banded_conv (K1)', r'banded_tc|banded_f32'),
-    ('gemm (down/up/1x1/head)', r'gemm|cutlass|xmma|cublas|sm90_'),
+    ('banded_conv_sm (K2)', r'sm_tc|sm_f32'),
+    ('gemm (down/up/1x1/head)', r'gemm|cutlass|xmma|cublas|sm90_|nvjet'),
     ('sort / search', r'sort|radix|searchsorted|Scan|scan'),
     ('index / gather / scatter', r'index|gather|scatter|Indexing'),
     ('concat', r'[Cc]at'),
@@ -47,6 +53,11 @@ def _device_us(evt) -> float:
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument('--train', action='store_true',
+                    help='profile one train step instead of an eval forward')
+    ap.add_argument('--sm-max-cin', type=int, default=None,
+                    help='convs with cin up to this run on K2 '
+                         '(default: 0, or 32 with --train)')
     ap.add_argument('--trace', help='write a Chrome trace to this path')
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -56,12 +67,23 @@ def main(argv=None):
 
     cfg = cfg_from_yaml_file('cfgs/scannet/spconv.yaml', CfgNode())
     b_caps = default_brick_caps(synth.BRICK_CAP, 7)
-    batch = synth.make_batch(seed=0)
+    batch = synth.make_batch(
+        seed=0, batch=synth.TRAIN_BATCH if args.train else synth.BATCH)
     synth.capacity_audit(batch, b_caps)
     batch = batch.to('cuda')
-    model = model_fn.build_model(cfg)
+    sm_max_cin = args.sm_max_cin if args.sm_max_cin is not None else (
+        32 if args.train else 0)
+    model = model_fn.build_model(cfg, sm_max_cin=sm_max_cin,
+                                 train=args.train)
     model.load_state_dict(synth.seeded_state_dict(model, seed=0))
-    step = model_fn.make_eval_step(cfg, model, b_caps)
+    if args.train:
+        opt = optim.build_optimizer(cfg.OPTIMIZATION, model.parameters())
+        train_step = model_fn.make_train_step(cfg, model, opt, b_caps)
+
+        def step(b):
+            return train_step(b, cfg.OPTIMIZATION.base_lr)
+    else:
+        step = model_fn.make_eval_step(cfg, model, b_caps)
     for _ in range(2):
         step(batch)
     torch.cuda.synchronize()
@@ -91,7 +113,9 @@ def main(argv=None):
                           '--format=csv,noheader'], capture_output=True,
                          text=True, timeout=60).stdout.strip()
     print(json.dumps({
-        'card': smi, 'forward_wall_ms': wall_ms,
+        'card': smi, 'mode': 'train step' if args.train else 'eval forward',
+        'sm_max_cin': sm_max_cin, 'scenes': int(batch.coords.shape[0]),
+        'wall_ms': wall_ms,
         'profiled_device_ms': device_ms,
         'device_busy_share': device_ms / wall_ms if wall_ms else None,
         'buckets_ms': dict(sorted(buckets.items(), key=lambda kv: -kv[1])),

@@ -1,10 +1,11 @@
-"""Carry the JAX package's weights into the port's ``SparseConvNet``.
+"""Carry weights between the JAX package and the port's ``SparseConvNet``.
 
 The port's module attributes follow the flax names (``input_kernel``,
 ``unet.block0.kernel1``, ``MaskedBatchNorm_0``, ``conv_norm``, ``u``, ...),
 so the mapping is a walk over the two flax trees. Conv weights keep their
 layouts, (27, cin, cout) and (8, cin, cout); the flax ``Dense`` kernel
-(in, out) becomes ``nn.Linear.weight`` (out, in).
+(in, out) becomes ``nn.Linear.weight`` (out, in). ``params_to_jax`` is the
+inverse walk, so a trained port model can be held against the flax trees.
 """
 
 from __future__ import annotations
@@ -35,3 +36,20 @@ def params_from_jax(params, batch_stats) -> dict:
     for path, arr in _walk(batch_stats):
         sd['.'.join(path)] = torch.from_numpy(arr.copy())
     return sd
+
+
+def params_to_jax(state_dict) -> tuple:
+    """The inverse of ``params_from_jax``: a ``SparseConvNet`` state_dict
+    -> (params, batch_stats), flax-shaped nested dicts of numpy arrays.
+    The running statistics (leaves ``mean``/``var``) go to batch_stats."""
+    params, batch_stats = {}, {}
+    for name, t in state_dict.items():
+        arr = t.detach().cpu().numpy().copy()
+        path = name.split('.')
+        if name == 'linear.weight':
+            path, arr = ['linear', 'kernel'], arr.T.copy()
+        node = batch_stats if path[-1] in ('mean', 'var') else params
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = arr
+    return params, batch_stats

@@ -14,7 +14,8 @@ import torch
 from ..models.model_fn import PointBatch
 from ..ops.bricks import BRICK
 
-BATCH = 4
+BATCH = 4               # scenes per eval forward
+TRAIN_BATCH = 2         # scenes per train step (the JAX bench's TRAIN_BATCH)
 N_CAP = 163840          # the quarter-step point bucket of a 150k scene
 N_REAL = 150_000
 BRICK_CAP = 40960       # level-0 brick cap that clears every bench scene
