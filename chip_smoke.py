@@ -7,14 +7,18 @@ Phases, each printing one line:
   1. device: the card's name, nvidia-smi's name and power limit; TF32 off
   2. build: every CUDA source of doda_tpu_torch/csrc, compiled with nvcc
   3. plan: the bench batch's level plan on the card equals the CPU's
-     kernels: each kernel's wrapper (K1 banded_conv, K2 banded_conv_sm) on
-     the card vs its plain version, at the main paths' widths; one full
-     subm conv on a real plan under either kernel, forward, and its
-     weight gradient in bf16 against float32 accumulation
+     kernels: each kernel's wrapper (K1 banded_conv, its fused version
+     banded_conv_fused, K2 banded_conv_sm) on the card vs its plain
+     version, at the main paths' widths; the fused K1 on the real plan's
+     rulebooks (levels 0, 1, 5, 6) and on a synthetic one (ragged rows,
+     absent faces with present diagonals, no rows), also against the
+     assembled K1; one full subm conv on a real plan under either engine,
+     forward, and its weight gradient in bf16 against float32 accumulation
   4. forward: the flagship net (cfgs/scannet/spconv.yaml: mid 16, 7
      levels, 2 blocks per level, 20 classes) with seeded random weights
      serves bench-shaped batches (4 scenes, ~150k points each) through
-     ``make_eval_step``: launch counts, scenes/sec, peak memory, float32
+     ``make_eval_step``: launch counts (52 fused K1 + 1 assembled K1, from
+     the parameter shapes), scenes/sec, peak memory, float32
      logits kernel vs plain path, bf16 predictions kernel vs plain path
   5. train: the same net in train mode with ``sm_max_cin=32`` (K2 at
      levels 0 and 1, K1 elsewhere) takes three bf16 SGD steps on 2 bench
@@ -22,10 +26,12 @@ Phases, each printing one line:
      forward and backward, against the selection rule; loss finite, every
      parameter and running statistic moved; steps/sec, trained scenes/sec,
      peak memory; then one float32 step on the kernel path against the
-     plain path, loss and every gradient
+     plain path, loss and every gradient; and three bf16 steps under
+     ``sm_max_cin=0`` (fused K1 everywhere) beside the ``sm_max_cin=32`` ones
   6. timing: each kernel at the level-0 shape beside its bound, its plain
      version and, where there is one, a PyTorch library call computing the
-     same function
+     same function; K1 in both versions, with the plane gather alone, at
+     the level-0 and level-1 shapes on the real rulebooks
 Then a JSON line of the kernels and, last, {"ok": true, "device": ...}.
 Any failure raises, and the script exits non-zero without that last line.
 """
@@ -40,7 +46,6 @@ from unittest.mock import patch
 
 import torch
 
-SUBM_CONVS = 53            # subm convs per flagship forward
 SM_MAX_CIN = 32            # the train phase's kernel choice: K2 for cin <= 32
 PEAK_BF16 = 989e12         # H100 SXM dense bf16 FLOP/s (data sheet)
 PEAK_BYTES = 3.35e12       # H100 SXM HBM3 bytes/s (data sheet)
@@ -84,12 +89,13 @@ def phase_build():
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(names)) as ex:     # one nvcc per source
         list(ex.map(_build.build, names))
-    log('build', sources=names, seconds=round(time.perf_counter() - t0, 3))
+    log('build', sources=names, seconds=round(time.perf_counter() - t0, 3),
+        ptxas={n: _build.resources(n) for n in names})
 
 
 def phase_plan(batch, b_caps):
     """The bench batch's level plan built on the card equals the one built
-    on the CPU, table for table; returns the card's flat level 0."""
+    on the CPU, table for table; returns the card's flat levels."""
     from doda_tpu_torch.models.unet import build_level_plan, flatten_plan
     t0 = time.perf_counter()
     plan = build_level_plan(batch.coords, batch.valid, b_caps)
@@ -108,7 +114,7 @@ def phase_plan(batch, b_caps):
         int(d.parent.n.sum()) for d in plan.downs]
     log('plan', equal_to_cpu=True, first_build_seconds=seconds,
         occupied_bricks_per_level=bricks)
-    return levels[0]
+    return levels
 
 
 def _close(got, ref, rel, bound, what):
@@ -122,15 +128,89 @@ def _close(got, ref, rel, bound, what):
 # (dtype, tolerance relative to max|ref|?, tolerance): float32 sums in
 # another order; bf16 outputs differ by at most one rounding of the result
 CHECKS = ((torch.float32, False, 1e-3), (torch.bfloat16, True, 2e-2))
+# the fused K1 takes bf16 operands: (output dtype, tolerance relative to
+# max|ref|): float32 output, the same bf16 products summed in float32 in
+# another order; bf16 output, one rounding of the result
+FUSED_CHECKS = ((torch.float32, 1e-4), (torch.bfloat16, 2e-2))
 
 
-def phase_kernels(level0):
+def plain_path():
+    """Context in which every kernel wrapper of the conv engine is its
+    plain PyTorch version."""
+    from contextlib import ExitStack
     from doda_tpu_torch.ops import bricks2d
-    from doda_tpu_torch.ops.banded_conv import banded_conv, banded_conv_plain
+    from doda_tpu_torch.ops.banded_conv import (banded_conv_fused_plain,
+                                                banded_conv_plain)
+    from doda_tpu_torch.ops.banded_conv_sm import banded_conv_sm_plain
+    stack = ExitStack()
+    for name, fn in (('banded_conv', banded_conv_plain),
+                     ('banded_conv_fused', banded_conv_fused_plain),
+                     ('banded_conv_sm', banded_conv_sm_plain)):
+        stack.enter_context(patch.object(bricks2d, name, fn))
+    return stack
+
+
+def check_fused(worst, key, x2, nbr, w):
+    """The fused K1 against its plain version (both output types) and
+    against the assembled K1 on the same inputs."""
+    from doda_tpu_torch.ops import bricks2d
+    from doda_tpu_torch.ops.banded_conv import (banded_conv,
+                                                banded_conv_fused,
+                                                banded_conv_fused_plain)
+    for dt, bound in FUSED_CHECKS:
+        got = banded_conv_fused(x2, nbr, w, dt)
+        torch.cuda.synchronize()
+        ref = banded_conv_fused_plain(x2, nbr, w, dt)
+        worst[f'K1f/{key}/{str(dt)[6:]}'] = _close(
+            got, ref, True, bound, f'banded_conv_fused {key} {dt}')
+    old = banded_conv(bricks2d._assemble_p6(x2, bricks2d.halo_index(nbr),
+                                            x2.dtype),
+                      bricks2d.banded_weights(w), torch.bfloat16)
+    worst[f'K1f-vs-K1/{key}'] = _close(got, old, True, 2e-2,
+                                       f'fused vs assembled K1 {key}')
+
+
+def phase_kernels(levels):
+    from doda_tpu_torch.ops import bricks2d
+    from doda_tpu_torch.ops.banded_conv import (banded_conv,
+                                                banded_conv_fused,
+                                                banded_conv_plain)
     from doda_tpu_torch.ops.banded_conv_sm import (banded_conv_sm,
                                                    banded_conv_sm_plain)
+    from doda_tpu_torch.utils import synth
     g = torch.Generator(device='cuda').manual_seed(1)
     worst = {}
+    level0 = levels[0]
+    bf = torch.bfloat16
+
+    def operands(rows, cin, cout):
+        x2 = torch.randn(rows, 64 * cin, device='cuda', generator=g)
+        w = torch.randn(27, cin, cout, device='cuda', generator=g)
+        return x2.to(bf), (w / (27 * cin) ** 0.5).to(bf)
+
+    # the fused K1 on the bench batch's own rulebooks ...
+    for lvl, cin, cout in ((0, 16, 16), (0, 32, 16), (1, 32, 32),
+                           (6, 112, 112), (5, 192, 96)):
+        nbr = levels[lvl].nbr
+        x2, w = operands(nbr.shape[0], cin, cout)
+        check_fused(worst, f'level{lvl}/{nbr.shape[0]}x{cin}x{cout}', x2,
+                    nbr, w)
+    # ... and on a synthetic one: rows not a multiple of the brick tile,
+    # bricks whose -x face neighbour is absent while a (-x, +-y) diagonal
+    # is present, a cin that ends in a half chunk, and no rows at all
+    for rows, grid, cin, cout in ((4099, 20, 16, 16), (1001, 12, 24, 8),
+                                  (3, 4, 16, 32)):
+        nbr = synth.synth_rulebook(rows, grid, seed=rows)
+        if rows > 1000:
+            face, diag = nbr[:, 4], nbr[:, [1, 7]]
+            assert ((face == rows) & (diag < rows).any(1)).any()
+        x2, w = operands(rows, cin, cout)
+        check_fused(worst, f'synthetic/{rows}x{cin}x{cout}', x2, nbr, w)
+    before = banded_conv_fused.launches
+    empty = banded_conv_fused(x2[:0], nbr[:0], w, bf)
+    assert empty.shape == (0, 64 * 32)
+    assert banded_conv_fused.launches == before     # nothing to launch
+
     for b, cin, cout in ((1000, 3, 16), (4096, 16, 16), (4099, 32, 16),
                          (2048, 112, 112), (512, 192, 96)):
         rows6 = torch.randn(b, 6, 36 * cin, device='cuda', generator=g)
@@ -170,13 +250,12 @@ def phase_kernels(level0):
 
     def conv(dt, sm_max_cin, xin=x2, win=w):
         return bricks2d.subm_conv3_2d(xin.to(dt), level0.occ, level0.halo,
-                                      win, dt, level0.sm, sm_max_cin)
+                                      win, dt, level0.sm, sm_max_cin,
+                                      level0.nbr)
 
     for dt, rel, bound in CHECKS:
         got_k1, got_k2 = conv(dt, 0), conv(dt, SM_MAX_CIN)
-        with patch.object(bricks2d, 'banded_conv', banded_conv_plain), \
-                patch.object(bricks2d, 'banded_conv_sm',
-                             banded_conv_sm_plain):
+        with plain_path():
             ref = conv(dt, 0)
         key = f'subm_conv3_2d/{rows}x{cin}x16/{str(dt)[6:]}'
         worst[f'K1/{key}'] = _close(got_k1, ref, rel, bound, f'K1 {key}')
@@ -206,8 +285,7 @@ def phase_kernels(level0):
 
 def phase_forward(cfg, batch, b_caps, card):
     from doda_tpu_torch.models import model_fn
-    from doda_tpu_torch.ops import bricks2d
-    from doda_tpu_torch.ops.banded_conv import banded_conv, banded_conv_plain
+    from doda_tpu_torch.ops.banded_conv import banded_conv, banded_conv_fused
     from doda_tpu_torch.ops.banded_conv_sm import banded_conv_sm
     from doda_tpu_torch.utils import synth
     n_valid = int(batch.valid.sum())
@@ -216,20 +294,27 @@ def phase_forward(cfg, batch, b_caps, card):
     def run(dtype, sd):
         model = model_fn.build_model(cfg, dtype=dtype)
         model.load_state_dict(sd, strict=True)
-        step = model_fn.make_eval_step(cfg, model, b_caps)
-        return step
+        return model, model_fn.make_eval_step(cfg, model, b_caps)
 
     sd = synth.seeded_state_dict(model_fn.build_model(cfg), seed=0)
-    step = run(torch.bfloat16, sd)
+    model, step = run(torch.bfloat16, sd)
+    # the rule on the parameter shapes: all but the cin = 3 input conv
+    want = model.subm_routes()
+    assert want == {'sm': 0, 'fused': 52, 'assembled': 1}, want
     step(batch)                                     # warm-up (set-up)
     torch.cuda.synchronize()
 
-    banded_conv.launches = banded_conv_sm.launches = 0   # the counted path
+    def reset():
+        banded_conv.launches = banded_conv_fused.launches = 0
+        banded_conv_sm.launches = 0
+
+    reset()                                         # the counted path
     out = step(batch)
     torch.cuda.synchronize()
-    launches = banded_conv.launches
-    assert launches == SUBM_CONVS, f'{launches} banded_conv launches'
-    assert banded_conv_sm.launches == 0     # sm_max_cin=0: K1 everywhere
+    launches = {'fused': banded_conv_fused.launches,
+                'assembled': banded_conv.launches,
+                'sm': banded_conv_sm.launches}
+    assert launches == want, launches
     logits = out['output']
     assert logits.shape == (synth.BATCH, synth.N_CAP, 20)
     assert torch.isfinite(logits).all()
@@ -243,13 +328,14 @@ def phase_forward(cfg, batch, b_caps, card):
         step(batch)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    assert banded_conv.launches == 4 * SUBM_CONVS
+    assert banded_conv_fused.launches == 4 * want['fused']
+    assert banded_conv.launches == 4 * want['assembled']
     peak = torch.cuda.max_memory_allocated()
 
     # float32: kernel path vs plain path, same weights and batch
-    step32 = run(torch.float32, sd)
+    _, step32 = run(torch.float32, sd)
     lk = step32(batch)['output']
-    with patch.object(bricks2d, 'banded_conv', banded_conv_plain):
+    with plain_path():
         lp = step32(batch)['output']
         preds_p = step(batch)['preds']
     err32 = (lk - lp).abs().max().item()
@@ -265,31 +351,12 @@ def phase_forward(cfg, batch, b_caps, card):
     return launches
 
 
-def expected_launches(model, sm_max_cin):
-    """(K1, K2) launches of one train step by the selection rule: every
-    (27, cin, cout) kernel runs one forward conv on (cin, cout) and one dx
-    conv on the flipped shape (cout, cin), except the input conv, whose
-    input needs no gradient."""
-    from doda_tpu_torch.ops.bricks2d import uses_sm
-    counts = {'fwd': [0, 0], 'bwd': [0, 0]}
-    for name, p in model.named_parameters():
-        if p.dim() != 3 or p.shape[0] != 27:
-            continue
-        _, cin, cout = p.shape
-        counts['fwd'][uses_sm(cin, cout, sm_max_cin)] += 1
-        if name != 'input_kernel':
-            counts['bwd'][uses_sm(cout, cin, sm_max_cin)] += 1
-    return counts
-
-
 def phase_train(cfg, b_caps, card):
     """Three bf16 train steps of the flagship on 2 bench scenes, then one
     float32 step on the kernel path against the plain path."""
     from doda_tpu_torch.models import model_fn
-    from doda_tpu_torch.ops import bricks2d
-    from doda_tpu_torch.ops.banded_conv import banded_conv, banded_conv_plain
-    from doda_tpu_torch.ops.banded_conv_sm import (banded_conv_sm,
-                                                   banded_conv_sm_plain)
+    from doda_tpu_torch.ops.banded_conv import banded_conv, banded_conv_fused
+    from doda_tpu_torch.ops.banded_conv_sm import banded_conv_sm
     from doda_tpu_torch.utils import optim, synth
     batch = synth.make_batch(seed=0, batch=synth.TRAIN_BATCH)
     synth.capacity_audit(batch, b_caps)
@@ -297,8 +364,8 @@ def phase_train(cfg, b_caps, card):
     lr = optim.make_lr_fn(cfg.OPTIMIZATION, cfg.OPTIMIZATION.NUM_EPOCHS,
                           100)(1, 0)
 
-    def trainer(dtype, sd):
-        model = model_fn.build_model(cfg, dtype=dtype, sm_max_cin=SM_MAX_CIN,
+    def trainer(dtype, sd, sm_max_cin=SM_MAX_CIN):
+        model = model_fn.build_model(cfg, dtype=dtype, sm_max_cin=sm_max_cin,
                                      train=True)
         model.load_state_dict(sd, strict=True)
         opt = optim.build_optimizer(cfg.OPTIMIZATION, model.parameters())
@@ -306,23 +373,37 @@ def phase_train(cfg, b_caps, card):
 
     sd = synth.seeded_state_dict(model_fn.build_model(cfg), seed=0)
     model, step = trainer(torch.bfloat16, sd)
-    want = expected_launches(model, SM_MAX_CIN)
-    assert want == {'fwd': [38, 15], 'bwd': [36, 16]}, want   # the flagship
+    # launches of one step by the rule on the parameter shapes: every
+    # kernel runs one forward conv and one dx conv on the flipped shape,
+    # except the input conv, whose input needs no gradient
+    fwd_want, bwd_want = model.subm_routes(), model.subm_routes(True)
+    assert fwd_want == {'sm': 15, 'fused': 37, 'assembled': 1}, fwd_want
+    assert bwd_want == {'sm': 16, 'fused': 36, 'assembled': 0}, bwd_want
+    want = {k: fwd_want[k] + bwd_want[k] for k in fwd_want}
+
+    def reset():
+        banded_conv.launches = banded_conv_fused.launches = 0
+        banded_conv_sm.launches = 0
+
+    def counts():
+        return {'sm': banded_conv_sm.launches,
+                'fused': banded_conv_fused.launches,
+                'assembled': banded_conv.launches}
+
     step(batch, lr)                                 # warm-up (set-up)
     torch.cuda.synchronize()
     before = {k: v.clone() for k, v in model.state_dict().items()}
 
     torch.cuda.reset_peak_memory_stats()
     steps = 3
-    banded_conv.launches = banded_conv_sm.launches = 0   # the counted path
+    reset()                                         # the counted path
     t0 = time.perf_counter()
     losses = [step(batch, lr)['loss'] for _ in range(steps)]
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    k1, k2 = banded_conv.launches, banded_conv_sm.launches
+    ran = counts()
     peak = torch.cuda.max_memory_allocated()
-    assert k1 == steps * (want['fwd'][0] + want['bwd'][0]), k1
-    assert k2 == steps * (want['fwd'][1] + want['bwd'][1]), k2
+    assert ran == {k: steps * v for k, v in want.items()}, ran
     losses = [float(v) for v in losses]
     assert all(math.isfinite(v) for v in losses), losses
     after = model.state_dict()
@@ -331,13 +412,36 @@ def phase_train(cfg, b_caps, card):
     assert all(torch.isfinite(v).all() for v in after.values())
 
     # split one step's launches into forward and backward
-    banded_conv.launches = banded_conv_sm.launches = 0
+    reset()
     with torch.no_grad():
         plan = model_fn.build_level_plan(batch.coords, batch.valid, b_caps)
         model(model_fn.model_input(cfg, batch), plan)
-    fwd = [banded_conv.launches, banded_conv_sm.launches]
-    assert fwd == want['fwd'], fwd
+    assert counts() == fwd_want, counts()
     del model, step, before, after, plan
+    torch.cuda.empty_cache()
+
+    # whether K2 still pays: the same three steps with the fused K1
+    # everywhere (sm_max_cin=0), same batch, same weights
+    model0, step0 = trainer(torch.bfloat16, sd, sm_max_cin=0)
+    step0(batch, lr)                                # warm-up (set-up)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset()
+    t0 = time.perf_counter()
+    losses0 = [step0(batch, lr)['loss'] for _ in range(steps)]
+    torch.cuda.synchronize()
+    dt0 = time.perf_counter() - t0
+    peak0 = torch.cuda.max_memory_allocated()
+    assert counts() == {'sm': 0, 'fused': steps * 104,
+                        'assembled': steps}, counts()
+    assert all(math.isfinite(float(v)) for v in losses0)
+    log('train_k2_or_fused', card=card, batch=synth.TRAIN_BATCH,
+        steps_per_sec_sm_max_cin_32=steps / dt,
+        steps_per_sec_sm_max_cin_0=steps / dt0,
+        peak_memory_gib_sm_max_cin_32=peak / 2 ** 30,
+        peak_memory_gib_sm_max_cin_0=peak0 / 2 ** 30)
+    del model0, step0
+    reset()
     torch.cuda.empty_cache()
 
     # float32: one step from identical weights, kernel path vs plain path
@@ -346,8 +450,7 @@ def phase_train(cfg, b_caps, card):
     grads_k = {n: p.grad.clone() for n, p in model_k.named_parameters()}
     del model_k, step_k
     model_p, step_p = trainer(torch.float32, sd)
-    with patch.object(bricks2d, 'banded_conv', banded_conv_plain), \
-            patch.object(bricks2d, 'banded_conv_sm', banded_conv_sm_plain):
+    with plain_path():
         loss_p = float(step_p(batch, lr)['loss'])
     assert abs(loss_k - loss_p) <= 1e-4 * abs(loss_p), (loss_k, loss_p)
     worst = 0.0
@@ -357,14 +460,14 @@ def phase_train(cfg, b_caps, card):
         assert err <= 1e-3 * scale, f'float32 gradient {n}: {err}'
         worst = max(worst, err / scale)
     log('train', card=card, sm_max_cin=SM_MAX_CIN, batch=synth.TRAIN_BATCH,
-        k1_launches_per_step=k1 // steps, k2_launches_per_step=k2 // steps,
-        forward_launches=fwd, backward_launches=want['bwd'],
+        launches_per_step=want, forward_launches=fwd_want,
+        backward_launches=bwd_want,
         steps_per_sec=steps / dt,
         trained_scenes_per_sec=steps * synth.TRAIN_BATCH / dt,
         seconds_per_step=dt / steps, peak_memory_gib=peak / 2 ** 30,
         losses=losses, lr=lr, f32_loss_kernel=loss_k, f32_loss_plain=loss_p,
         f32_worst_gradient_err=worst)
-    return {'banded_conv': k1, 'banded_conv_sm': k2}
+    return ran
 
 
 def _bound(moved, ops):
@@ -375,55 +478,132 @@ def _bound(moved, ops):
             'bound_by': 'bytes' if t_bytes >= t_ops else 'operations'}
 
 
-def phase_timing(launches):
-    """Each kernel at the level-0 bench shape, bf16; ``launches`` maps a
-    kernel's name to its (eval forward, train steps) counts."""
+def time_k1(nbr, halo, cin, cout, g):
+    """K1 in both versions on one level's real rulebook, bf16: the fused
+    kernel, its plain version and bound; the plane gather alone; the
+    assembled kernel on those planes with its plain version, bound and the
+    cuDNN ``conv1d`` that computes the same function of the planes."""
     from doda_tpu_torch.ops import bricks2d
-    from doda_tpu_torch.ops.banded_conv import banded_conv, banded_conv_plain
+    from doda_tpu_torch.ops.banded_conv import (banded_conv,
+                                                banded_conv_fused,
+                                                banded_conv_fused_plain,
+                                                banded_conv_plain,
+                                                fused_smem_bytes)
+    bf = torch.bfloat16
+    rows = nbr.shape[0]
+    x2 = torch.randn(rows, 64 * cin, device='cuda', generator=g).to(bf)
+    w = (torch.randn(27, cin, cout, device='cuda', generator=g)
+         / (27 * cin) ** 0.5).to(bf)
+
+    out = banded_conv_fused(x2, nbr, w, bf)
+    ref = banded_conv_fused_plain(x2, nbr, w, bf)
+    err = _close(out, ref, True, 2e-2, 'banded_conv_fused at a timing shape')
+    del ref
+    fused_ms = cuda_ms(lambda: banded_conv_fused(x2, nbr, w, bf), 20)
+    fused_plain_ms = cuda_ms(
+        lambda: banded_conv_fused_plain(x2, nbr, w, bf), 3)
+    # the taps this rulebook needs: a halo cell is read by as many (cell,
+    # tap) pairs as its coordinates allow, and only present cells count
+    per_axis = torch.tensor([1., 2., 3., 3., 2., 1.], device='cuda')
+    reads = (per_axis[:, None, None] * per_axis[None, :, None]
+             * per_axis[None, None, :]).reshape(216)
+    present_reads = ((halo < rows * 64).float() @ reads).sum().item()
+    needed = 2 * cin * cout * present_reads
+    executed = 2 * rows * 64 * 27 * cin * cout
+    moved = (x2.numel() + out.numel() + w.numel()) * 2 + nbr.numel() * 4
+    fused = {'ms': fused_ms, 'plain_ms': fused_plain_ms,
+             'max_abs_err': err, **_bound(moved, needed), 'bytes': moved,
+             'flops': needed, 'executed_flops': executed,
+             'dynamic_smem_bytes': fused_smem_bytes(cin, cout)}
+
+    assembly_ms = cuda_ms(lambda: bricks2d._assemble_p6(x2, halo, bf), 10)
+    rows6 = bricks2d._assemble_p6(x2, halo, bf)
+    wb = bricks2d.banded_weights(w)
+    weights_ms = cuda_ms(lambda: bricks2d.banded_weights(w), 10)
+    old = banded_conv(rows6, wb, bf)
+    vs_old = _close(out, old, True, 2e-2, 'fused vs assembled K1')
+    ref = banded_conv_plain(rows6, wb, bf)
+    err = _close(old, ref, True, 2e-2, 'banded_conv at a timing shape')
+    del ref
+    ms = cuda_ms(lambda: banded_conv(rows6, wb, bf), 20)
+    plain_ms = cuda_ms(lambda: banded_conv_plain(rows6, wb, bf), 3)
+    # one library call of the same function: conv1d over the 6 planes
+    x = rows6.transpose(1, 2).contiguous()           # (B, 36cin, 6)
+    wc = wb.permute(2, 1, 0).contiguous()            # (16cout, 36cin, 3)
+    lib = torch.nn.functional.conv1d(x, wc)          # (B, 16cout, 4)
+    lib_err = (lib.transpose(1, 2).reshape(rows, -1).float()
+               - old.float()).abs().max().item()
+    library_ms = cuda_ms(lambda: torch.nn.functional.conv1d(x, wc), 10)
+    moved = (rows6.numel() + wb.numel() + old.numel()) * 2
+    ops = 2 * rows * 4 * int((wb != 0).sum())        # the non-zero taps
+    assembled = {'ms': ms, 'plain_ms': plain_ms, 'max_abs_err': err,
+                 **_bound(moved, ops), 'bytes': moved, 'flops': ops,
+                 'executed_flops': 2 * rows * 4 * wb.numel(),
+                 'library_ms': library_ms, 'library_max_abs_err': lib_err}
+    return {'shape': [rows, cin, cout], 'fused': fused,
+            'assembly_ms': assembly_ms, 'banded_weights_ms': weights_ms,
+            'assembled': assembled, 'fused_vs_assembled_max_abs_err': vs_old}
+
+
+def phase_timing(levels, launches):
+    """Each kernel at the level-0 bench shape, bf16; K1 also at the level-1
+    shape. ``launches`` maps a route to its (eval forward, train steps)
+    counts."""
+    from doda_tpu_torch.ops import _build, bricks2d
     from doda_tpu_torch.ops.banded_conv_sm import (banded_conv_sm,
                                                    banded_conv_sm_plain)
     from doda_tpu_torch.utils import synth
     b, cin, cout = synth.BATCH * synth.BRICK_CAP, 16, 16
     g = torch.Generator(device='cuda').manual_seed(2)
     bf = torch.bfloat16
-    w = (torch.randn(27, cin, cout, device='cuda', generator=g) / 20.8).to(bf)
     rows = []
 
-    def row(name, source, replaces, err, ms, plain_ms, bound, library_ms):
-        fwd, train = launches[name]
-        return {'name': name, 'route': 'cuda', 'source': source,
-                'replaces': replaces, 'launches': fwd + train,
-                'launches_eval_forward': fwd, 'launches_train_steps': train,
-                'max_abs_err': err, 'ms': ms, 'plain_ms': plain_ms, **bound,
-                'library_ms': library_ms}
-
-    # K1
-    rows6 = torch.randn(b, 6, 36 * cin, device='cuda', generator=g).to(bf)
-    wb = bricks2d.banded_weights(w)
-    out = banded_conv(rows6, wb, bf)
-    ref = banded_conv_plain(rows6, wb, bf)
-    err = _close(out, ref, True, 2e-2, 'banded_conv at the timing shape')
-    del ref
-    ms = cuda_ms(lambda: banded_conv(rows6, wb, bf), 20)
-    plain_ms = cuda_ms(lambda: banded_conv_plain(rows6, wb, bf), 5)
-    # one library call of the same function: conv1d over the 6 planes
-    x = rows6.transpose(1, 2).contiguous()           # (B, 36cin, 6)
-    wc = wb.permute(2, 1, 0).contiguous()            # (16cout, 36cin, 3)
-    lib = torch.nn.functional.conv1d(x, wc)          # (B, 16cout, 4)
-    lib_err = (lib.transpose(1, 2).reshape(b, -1).float()
-               - out.float()).abs().max().item()
-    library_ms = cuda_ms(lambda: torch.nn.functional.conv1d(x, wc), 20)
-    moved = (rows6.numel() + wb.numel() + out.numel()) * 2
-    ops = 2 * b * 4 * int((wb != 0).sum())           # the non-zero taps
-    rows.append(row('banded_conv', 'doda_tpu_torch/csrc/banded_conv.cu',
-                    'doda_tpu/ops/pallas_banded.py:71', err, ms, plain_ms,
-                    _bound(moved, ops), library_ms))
-    log('timing', kernel='banded_conv', shape=[b, cin, cout],
-        dtype='bfloat16', bytes=moved, flops=ops, executed_flops=2 * b * 4
-        * wb.numel(), library_max_abs_err=lib_err, **rows[-1])
-    del rows6, x, wc, lib, out
+    # K1: one row, both versions. The row's own numbers are the fused
+    # version's, which runs 52 of the 53 convs of a forward; the assembled
+    # version's stand under 'assembled'
+    l0 = time_k1(levels[0].nbr, levels[0].halo, 16, 16, g)
+    l1 = time_k1(levels[1].nbr, levels[1].halo, 32, 32, g)
+    assert l0['shape'] == [b, cin, cout], l0['shape']
+    for name, t in (('level 0', l0), ('level 1', l1)):
+        log('timing', kernel='banded_conv', at=name, dtype='bfloat16', **t)
+    assert l0['fused']['executed_flops'] <= 2.9e11
+    fused_fwd, fused_train = launches['fused']
+    old_fwd, old_train = launches['assembled']
+    f0, a0 = l0['fused'], dict(l0['assembled'])
+    a0.update(source='doda_tpu_torch/csrc/banded_conv.cu',
+              launches=old_fwd + old_train, launches_eval_forward=old_fwd,
+              launches_train_steps=old_train,
+              **_build.resources('banded_conv'))
+    rows.append({
+        'name': 'banded_conv', 'route': 'cuda',
+        'source': 'doda_tpu_torch/csrc/banded_conv_fused.cu',
+        'replaces': 'doda_tpu/ops/pallas_banded.py:71',
+        'launches': fused_fwd + fused_train,
+        'launches_eval_forward': fused_fwd,
+        'launches_train_steps': fused_train,
+        'max_abs_err': f0['max_abs_err'], 'ms': f0['ms'],
+        'plain_ms': f0['plain_ms'], 'bound_ms': f0['bound_ms'],
+        'bound_by': f0['bound_by'],
+        # no single PyTorch call computes the conv from (x2, nbr, w); the
+        # conv1d of the assembled planes stands under 'assembled'
+        'library_ms': None,
+        'fused_ms': f0['ms'], 'fused_bound_ms': f0['bound_ms'],
+        'assembly_ms': l0['assembly_ms'],
+        'executed_flops': f0['executed_flops'],
+        'dynamic_smem_bytes': f0['dynamic_smem_bytes'],
+        **_build.resources('banded_conv_fused'),
+        'assembled': a0,
+        'level1': {'shape': l1['shape'], 'fused_ms': l1['fused']['ms'],
+                   'fused_bound_ms': l1['fused']['bound_ms'],
+                   'fused_bound_by': l1['fused']['bound_by'],
+                   'fused_plain_ms': l1['fused']['plain_ms'],
+                   'assembly_ms': l1['assembly_ms'],
+                   'assembled_ms': l1['assembled']['ms'],
+                   'assembled_bound_ms': l1['assembled']['bound_ms'],
+                   'library_ms': l1['assembled']['library_ms']}})
 
     # K2, same B; no single PyTorch call computes it from these operands
+    w = (torch.randn(27, cin, cout, device='cuda', generator=g) / 20.8).to(bf)
     args = [torch.randn(b, cells * cin, device='cuda', generator=g).to(bf)
             for cells in (64, 96, 40, 40)]
     wts = bricks2d.sm_weights(w)
@@ -443,9 +623,14 @@ def phase_timing(launches):
             taps += nz_x[0] if cx == -1 else nz_x[1] if cx == 4 \
                 else nz_c[i] + nz_h[i]
     ops = 2 * b * taps
-    rows.append(row('banded_conv_sm', 'doda_tpu_torch/csrc/banded_conv_sm.cu',
-                    'doda_tpu/ops/pallas_sm.py:83', err, ms, plain_ms,
-                    _bound(moved, ops), None))
+    fwd, train = launches['sm']
+    rows.append({'name': 'banded_conv_sm', 'route': 'cuda',
+                 'source': 'doda_tpu_torch/csrc/banded_conv_sm.cu',
+                 'replaces': 'doda_tpu/ops/pallas_sm.py:83',
+                 'launches': fwd + train, 'launches_eval_forward': fwd,
+                 'launches_train_steps': train, 'max_abs_err': err, 'ms': ms,
+                 'plain_ms': plain_ms, **_bound(moved, ops),
+                 'library_ms': None, **_build.resources('banded_conv_sm')})
     log('timing', kernel='banded_conv_sm', shape=[b, cin, cout],
         dtype='bfloat16', bytes=moved, flops=ops,
         executed_flops=2 * b * 4 * 120 * cin * 16 * cout, **rows[-1])
@@ -470,17 +655,16 @@ def main():
     assert b_caps == (40960, 16384, 3328, 768, 256, 128, 128), b_caps
     batch = synth.make_batch(seed=0)
     synth.capacity_audit(batch, b_caps)
-    level0 = phase_plan(batch, b_caps)
-    phase_kernels(level0)
-    del level0
+    levels = phase_plan(batch, b_caps)
+    phase_kernels(levels)
 
     fwd = phase_forward(cfg, batch, b_caps, card)
     del batch
     train = phase_train(cfg, b_caps, card)
-    rows = phase_timing({'banded_conv': (fwd, train['banded_conv']),
-                         'banded_conv_sm': (0, train['banded_conv_sm'])})
+    rows = phase_timing(levels, {k: (fwd[k], train[k]) for k in fwd})
     for r in rows:       # every kernel of the paths really ran on them
         assert r['launches'] > 0, r['name']
+    assert rows[0]['assembled']['launches'] > 0
     print(json.dumps({'kernels': rows}), flush=True)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': name,

@@ -25,8 +25,14 @@
 // throughput first. bf16 operands go through WMMA 16x16x16 tensor-core tiles
 // with the next K tile prefetched into registers while the current one is
 // multiplied; float32 operands take an exact CUDA-core path (the tests and
-// the float32 checks of the model need full float32). Skipping the zero
-// K-blocks of wb, wgmma, TMA and fusing the plane assembly in are later work.
+// the float32 checks of the model need full float32).
+//
+// This is K1's first version. It stays for the cin = 3 input conv, float32
+// operands and the contract test against the Pallas kernel. Every other
+// conv runs the second version, banded_conv_fused.cu, which assembles the
+// halo inside the kernel from the activation and the rulebook and
+// multiplies the taps only, so neither the planes nor the placed zeros of
+// wb exist there.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>

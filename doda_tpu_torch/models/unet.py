@@ -20,7 +20,10 @@ parameter tree so that ``utils/convert.py`` is a tree walk.
 ``sm_max_cin`` picks the subm-conv kernel per conv (``bricks2d.uses_sm``):
 0 sends every conv to K1 ``banded_conv``; 32, the JAX package's
 ``DODA_SM=shallow``, sends the convs with cin <= 32 (levels 0 and 1 of the
-mid-16 flagship) to K2 ``banded_conv_sm``. In train mode
+mid-16 flagship) to K2 ``banded_conv_sm``. The convs left to K1 run its
+fused version (``banded_conv_fused``, from the activation and the level's
+rulebook) in bf16 wherever cin and cout are multiples of 8, and the
+assembled version otherwise (``bricks2d.subm_route``). In train mode
 (``model.train()``) the norms use batch statistics and every conv carries
 its own backward (``ops/bricks2d.py``).
 """
@@ -36,7 +39,7 @@ from ..ops.bricks import (CELLS, BrickGrid, brickify,
                           build_brick_downsample, build_brick_rulebook,
                           cell_feats_2d)
 from ..ops.bricks2d import (conv1x1_2d, down_conv2_2d, halo_index, sm_index,
-                            subm_conv3_2d, up_conv2_2d, uses_sm)
+                            subm_conv3_2d, subm_route, up_conv2_2d, uses_sm)
 from ..utils.device import resolve_device
 from .norm import MaskedBatchNorm
 
@@ -189,10 +192,10 @@ class ResidualBlock(nn.Module):
             identity = x
         h = torch.relu(self.MaskedBatchNorm_0(x, lv.occ, domain))
         h = subm_conv3_2d(h, lv.occ, lv.halo, self.kernel1, self.dtype,
-                          lv.sm, self.sm_max_cin)
+                          lv.sm, self.sm_max_cin, lv.nbr)
         h = torch.relu(self.MaskedBatchNorm_1(h, lv.occ, domain))
         h = subm_conv3_2d(h, lv.occ, lv.halo, self.kernel2, self.dtype,
-                          lv.sm, self.sm_max_cin)
+                          lv.sm, self.sm_max_cin, lv.nbr)
         return h + identity
 
 
@@ -209,7 +212,7 @@ class VGGBlock(nn.Module):
     def forward(self, x, lv: FlatLevel, domain):
         h = torch.relu(self.MaskedBatchNorm_0(x, lv.occ, domain))
         return subm_conv3_2d(h, lv.occ, lv.halo, self.kernel, self.dtype,
-                             lv.sm, self.sm_max_cin)
+                             lv.sm, self.sm_max_cin, lv.nbr)
 
 
 def _concat_channels(a: torch.Tensor, b: torch.Tensor, ca: int,
@@ -293,6 +296,25 @@ class SparseConvNet(nn.Module):
         self.output_norm = MaskedBatchNorm(m, dsnorm=dsnorm)
         self.linear = nn.Linear(m, n_classes)
 
+    def subm_routes(self, backward: bool = False) -> dict:
+        """Kernel launches of the subm convs by ``bricks2d.subm_route``,
+        from the parameter shapes: every (27, cin, cout) kernel runs one
+        forward conv on (cin, cout); with ``backward`` the dx convs are
+        counted instead, on the flipped shape (cout, cin), except the input
+        conv's, whose input needs no gradient."""
+        counts = {'sm': 0, 'fused': 0, 'assembled': 0}
+        for name, p in self.named_parameters():
+            if p.dim() != 3 or p.shape[0] != 27:
+                continue
+            _, cin, cout = p.shape
+            if not backward:
+                counts[subm_route(cin, cout, self.dtype,
+                                  self.sm_max_cin)] += 1
+            elif name != 'input_kernel':
+                counts[subm_route(cout, cin, self.dtype,
+                                  self.sm_max_cin)] += 1
+        return counts
+
     def forward(self, point_feats: torch.Tensor, plan: LevelPlan,
                 domain: int = 0) -> torch.Tensor:
         """point_feats (Batch, N, Cin) -> logits (Batch, N, classes), f32.
@@ -313,7 +335,7 @@ class SparseConvNet(nn.Module):
         x = cell_feats_2d(point_feats.reshape(bt * n, -1), flat, bt * cap0)
         x = subm_conv3_2d(x.to(self.dtype), levels[0].occ, levels[0].halo,
                           self.input_kernel, self.dtype, levels[0].sm,
-                          self.sm_max_cin)
+                          self.sm_max_cin, levels[0].nbr)
         x = self.unet(x, levels, downs, 0, domain)
 
         # output norm folded past the voxel -> point gather (f32 affine)

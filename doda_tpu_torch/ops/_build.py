@@ -4,6 +4,8 @@ Each source is compiled at first use into ``build/`` at the repo root (a
 git-ignored directory), as a shared library with a plain C interface. The
 library's name carries a hash of the source and the flags, so an edited
 source builds anew; a file lock keeps parallel first uses from racing.
+ptxas's resource report (``-Xptxas -v``) is kept beside the library and
+read by ``resources``.
 """
 
 from __future__ import annotations
@@ -13,6 +15,7 @@ import fcntl
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -20,7 +23,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parents[1] / 'csrc'
 BUILD = Path(__file__).resolve().parents[2] / 'build'
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
-              '-O3', '-shared', '-Xcompiler', '-fPIC')
+              '-O3', '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
 
 
 def _nvcc() -> str:
@@ -52,8 +55,22 @@ def build(name: str) -> Path:
                 tmp.unlink(missing_ok=True)
                 raise RuntimeError(f'nvcc failed on csrc/{name}.cu:\n'
                                    f'{res.stderr}')
+            out.with_suffix('.ptxas.txt').write_text(res.stderr)
             os.replace(tmp, out)
     return out
+
+
+def resources(name: str) -> dict:
+    """What ptxas reported for ``csrc/<name>.cu``: the most registers,
+    static shared memory and spill bytes of any of its kernels."""
+    log = build(name).with_suffix('.ptxas.txt').read_text()
+
+    def most(pattern):
+        return max((int(v) for v in re.findall(pattern, log)), default=0)
+
+    return {'registers': most(r'Used (\d+) registers'),
+            'static_smem_bytes': most(r'(\d+) bytes smem'),
+            'spill_bytes': most(r'(\d+) bytes spill stores')}
 
 
 @functools.lru_cache(maxsize=None)

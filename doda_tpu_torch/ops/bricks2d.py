@@ -15,6 +15,11 @@ brick's own activation plus only the halo cells around it
 (``_assemble_sm``), so the four centre planes never reach device memory.
 ``subm_conv3_2d`` picks the kernel per conv from ``sm_max_cin``
 (``uses_sm``), the counterpart of the JAX package's ``DODA_SM`` switch.
+Every other bf16 conv with channel counts in multiples of 8
+(``uses_fused``) runs K1's second version, ``banded_conv_fused``, which
+takes the activation and the rulebook and assembles the halo inside the
+kernel: no planes, no banded weights. The assembled route below remains
+for the cin = 3 input conv, float32 operands and the dW product.
 
 Assembly differs from the JAX package by design. There, TPU gathers want
 wide rows, so the planes are stitched from lane slices of boundary-cell
@@ -44,7 +49,7 @@ import functools
 import numpy as np
 import torch
 
-from .banded_conv import banded_conv
+from .banded_conv import banded_conv, banded_conv_fused
 from .banded_conv_sm import banded_conv_sm
 from .bricks import BRICK, CELLS, _H, WINDOWS
 
@@ -222,6 +227,23 @@ def uses_sm(cin: int, cout: int, sm_max_cin: int) -> bool:
     return cin <= sm_max_cin and cin % 16 == 0 and cout % 8 == 0
 
 
+def uses_fused(cin: int, cout: int, dtype) -> bool:
+    """Whether a (cin -> cout) subm conv that ``uses_sm`` leaves to K1 runs
+    its fused version: bf16 operands whose cells are whole 16-byte units
+    (cin % 8 == 0) and whose outputs are whole n8 tiles (cout % 8 == 0).
+    That is every conv of the flagship but the cin = 3 input conv; float32
+    operands keep the exact CUDA-core path of the assembled route."""
+    return dtype == torch.bfloat16 and cin % 8 == 0 and cout % 8 == 0
+
+
+def subm_route(cin: int, cout: int, dtype, sm_max_cin: int) -> str:
+    """The kernel a (cin -> cout) subm conv runs: 'sm' (K2), 'fused' (K1
+    from activation and rulebook) or 'assembled' (K1 on halo planes)."""
+    if uses_sm(cin, cout, sm_max_cin):
+        return 'sm'
+    return 'fused' if uses_fused(cin, cout, dtype) else 'assembled'
+
+
 # ---------------------------------------------------------------------------
 # the submanifold conv and its backward
 # ---------------------------------------------------------------------------
@@ -231,18 +253,26 @@ def _flip_weights(w: torch.Tensor) -> torch.Tensor:
     return w.flip(0).transpose(1, 2)
 
 
-def _subm_raw(x2, halo, sm, weights, compute_dtype, sm_max_cin):
+def _subm_raw(x2, halo, sm, weights, compute_dtype, sm_max_cin, nbr=None):
     """Assembly + conv core, unmasked (the backward's dx must keep the
     gradient at inactive cells; masked producers upstream zero it)."""
     cin, cout = weights.shape[1], weights.shape[2]
     w = weights.to(compute_dtype)
-    if uses_sm(cin, cout, sm_max_cin):
+    route = subm_route(cin, cout, compute_dtype, sm_max_cin)
+    if route == 'sm':
         if sm is None:
             raise ValueError(f'subm conv {cin}->{cout} selects K2 '
                              f'(sm_max_cin={sm_max_cin}) but the level has '
                              'no sm_index table')
         return banded_conv_sm(*_assemble_sm(x2, sm, compute_dtype),
                               *sm_weights(w), x2.dtype)
+    if route == 'fused':
+        if nbr is None:
+            raise ValueError(f'subm conv {cin}->{cout} in {compute_dtype} '
+                             'selects the fused K1 but was given no '
+                             'rulebook (nbr)')
+        return banded_conv_fused(x2.to(compute_dtype), nbr, w.contiguous(),
+                                 x2.dtype)
     return banded_conv(_assemble_p6(x2, halo, compute_dtype),
                        banded_weights(w), x2.dtype)
 
@@ -278,15 +308,17 @@ class _SubmConv(torch.autograd.Function):
     """Port of ``subm_conv3_2d``'s custom VJP (``_subm2d_bwd``)."""
 
     @staticmethod
-    def forward(ctx, x2, weights, occ, halo, sm, compute_dtype, sm_max_cin):
-        ctx.save_for_backward(x2, weights, occ, halo, sm)
+    def forward(ctx, x2, weights, occ, halo, sm, compute_dtype, sm_max_cin,
+                nbr):
+        ctx.save_for_backward(x2, weights, occ, halo, sm, nbr)
         ctx.compute_dtype, ctx.sm_max_cin = compute_dtype, sm_max_cin
-        out = _subm_raw(x2, halo, sm, weights, compute_dtype, sm_max_cin)
+        out = _subm_raw(x2, halo, sm, weights, compute_dtype, sm_max_cin,
+                        nbr)
         return _mask(out, occ, weights.shape[2])
 
     @staticmethod
     def backward(ctx, g):
-        x2, weights, occ, halo, sm = ctx.saved_tensors
+        x2, weights, occ, halo, sm, nbr = ctx.saved_tensors
         cd = ctx.compute_dtype
         b = x2.shape[0]
         cin, cout = weights.shape[1], weights.shape[2]
@@ -296,7 +328,7 @@ class _SubmConv(torch.autograd.Function):
             # the conv of the cotangent with the transpose stencil, through
             # the kernel that the flipped shape (cout -> cin) selects
             dx = _subm_raw(g, halo, sm, _flip_weights(weights), cd,
-                           ctx.sm_max_cin).to(x2.dtype)
+                           ctx.sm_max_cin, nbr).to(x2.dtype)
         if ctx.needs_input_grad[1]:
             # planes x..x+2 of a brick are one contiguous run of 3K lanes,
             # so output slice x contributes one (3K, N) product to the
@@ -310,13 +342,14 @@ class _SubmConv(torch.autograd.Function):
                 g4[:, x]) for x in range(BRICK))
             dw = _dwb_to_dw(dwb.reshape(3, k, OUTP * cout), cin,
                             cout).to(weights.dtype)
-        return dx, dw, None, None, None, None, None
+        return dx, dw, None, None, None, None, None, None
 
 
 def subm_conv3_2d(x2: torch.Tensor, occ: torch.Tensor, halo: torch.Tensor,
                   weights: torch.Tensor, compute_dtype=torch.bfloat16,
                   sm: torch.Tensor | None = None,
-                  sm_max_cin: int = 0) -> torch.Tensor:
+                  sm_max_cin: int = 0,
+                  nbr: torch.Tensor | None = None) -> torch.Tensor:
     """Submanifold 3^3 conv on wide-lane bricks.
 
     x2      (rows, 64*cin) — zero at inactive cells
@@ -325,10 +358,12 @@ def subm_conv3_2d(x2: torch.Tensor, occ: torch.Tensor, halo: torch.Tensor,
     weights (27, cin, cout) raster (dx, dy, dz)
     sm      (rows, 176) from ``sm_index``, needed where ``uses_sm`` picks
             K2 for this conv or for its backward's flipped shape
+    nbr     (rows, 27) int32 rulebook, null id == rows, needed where
+            ``uses_fused`` picks the fused K1 (forward or flipped shape)
     returns (rows, 64*cout) in x2.dtype, masked to active cells
     """
     return _SubmConv.apply(x2, weights, occ, halo, sm, compute_dtype,
-                           sm_max_cin)
+                           sm_max_cin, nbr)
 
 
 # ---------------------------------------------------------------------------

@@ -34,7 +34,8 @@ from ..utils import optim, synth
 
 # first match wins; kernel names as the CUDA runtime reports them
 BUCKETS = (
-    ('banded_conv (K1)', r'banded_tc|banded_f32'),
+    ('banded_conv_fused (K1, fused)', r'fused_tc'),
+    ('banded_conv (K1, assembled)', r'banded_tc|banded_f32'),
     ('banded_conv_sm (K2)', r'sm_tc|sm_f32'),
     ('gemm (down/up/1x1/head)', r'gemm|cutlass|xmma|cublas|sm90_|nvjet'),
     ('sort / search', r'sort|radix|searchsorted|Scan|scan'),

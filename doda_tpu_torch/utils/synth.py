@@ -88,3 +88,18 @@ def seeded_state_dict(model: torch.nn.Module, seed: int) -> dict:
             v = rng.uniform(-1, 1, shape) * (1.0 / fan_in) ** 0.5
         sd[name] = torch.from_numpy(v.astype(np.float32))
     return sd
+
+
+def synth_rulebook(rows: int, grid: int, seed: int,
+                   device='cuda') -> torch.Tensor:
+    """A (rows, 27) int32 rulebook of ``rows`` random bricks of a grid^3
+    lattice in lexicographic order, null id == rows: ragged row counts,
+    absent faces beside present diagonals, as no real plan guarantees."""
+    rng = np.random.default_rng(seed)
+    slots = np.sort(rng.choice(grid ** 3, size=rows, replace=False))
+    ids = np.full((grid + 2,) * 3, rows, np.int32)
+    x, y, z = slots // (grid * grid), slots // grid % grid, slots % grid
+    ids[x + 1, y + 1, z + 1] = np.arange(rows, dtype=np.int32)
+    cols = [ids[x + 1 + dx, y + 1 + dy, z + 1 + dz]
+            for dx in (-1, 0, 1) for dy in (-1, 0, 1) for dz in (-1, 0, 1)]
+    return torch.from_numpy(np.stack(cols, 1).astype(np.int32)).to(device)

@@ -7,7 +7,8 @@ inputs and cotangent go through both at float32; rtol = atol = 1e-4, the
 bound of ``test_subm_conv_2d_sparse_grads`` (sums in another order). The
 port's subm conv is run on both engines: K1 (``sm_max_cin=0``) and K2
 (``sm_max_cin=32``), where the backward's dx picks its kernel from the
-flipped shape.
+flipped shape, and on K1's fused route (``banded_conv_fused``, which takes
+the rulebook instead of the assembled planes).
 """
 
 import numpy as np
@@ -91,15 +92,33 @@ def _subm_reference(grid, cin, cout):
     (16, 16, 0), (16, 16, 32),
     (32, 16, 32),      # K2 forward at cin = 32, K2 dx on 16 -> 32
     (64, 32, 32),      # forward on K1, dx (32 -> 64) on K2
-    (3, 16, 32)])
-def test_subm_conv_grads(grid, cin, cout, sm_max_cin):
+    (3, 16, 32),
+    # the fused K1 route (activation + rulebook in), forward and dx; the
+    # rule keeps float32 on the assembled route, so these cases widen it
+    pytest.param(16, 16, 0, id='16-16-0-fused'),
+    pytest.param(64, 32, 32, id='64-32-32-fused'),   # fused forward, K2 dx
+    pytest.param(32, 16, 0, id='32-16-0-fused')])
+def test_subm_conv_grads(request, monkeypatch, grid, cin, cout, sm_max_cin):
     g, nbr = grid
     x2, w, cot, want = _subm_reference(grid, cin, cout)
     tn = _t(nbr)
     halo, sm, occ = tb2d.halo_index(tn), tb2d.sm_index(tn), _t(g.occ)
+    fused = request.node.callspec.id.endswith('fused')
+    if fused:
+        monkeypatch.setattr(
+            tb2d, 'uses_fused',
+            lambda cin, cout, dtype: cin % 8 == 0 and cout % 8 == 0)
+        calls = []
+        plain = tb2d.banded_conv_fused
+        monkeypatch.setattr(tb2d, 'banded_conv_fused',
+                            lambda *a: calls.append(1) or plain(*a))
     got = _torch_grads(lambda a, b: tb2d.subm_conv3_2d(
-        a, occ, halo, b, torch.float32, sm, sm_max_cin), x2, w, cot)
+        a, occ, halo, b, torch.float32, sm, sm_max_cin,
+        tn if fused else None), x2, w, cot)
     _compare(got, want)
+    if fused:      # forward and dx, less what the rule gives to K2
+        assert len(calls) == 2 - tb2d.uses_sm(cin, cout, sm_max_cin) \
+            - tb2d.uses_sm(cout, cin, sm_max_cin)
 
 
 def test_subm_conv_skips_dx_of_a_leaf_input(grid, monkeypatch):

@@ -159,9 +159,9 @@ def port_run(reference):
     engines = []
     raw = tb2d._subm_raw
 
-    def spy(x2, halo, sm, w, cd, smc):
+    def spy(x2, halo, sm, w, cd, smc, nbr=None):
         engines.append(tb2d.uses_sm(w.shape[1], w.shape[2], smc))
-        return raw(x2, halo, sm, w, cd, smc)
+        return raw(x2, halo, sm, w, cd, smc, nbr)
 
     steps = []
     with pytest.MonkeyPatch.context() as mp:
