@@ -8,8 +8,10 @@ Phases, each printing one line:
   2. build: every CUDA source of doda_tpu_torch/csrc, compiled with nvcc
   3. plan: the bench batch's level plan on the card equals the CPU's
      kernels: each kernel's wrapper (K1 banded_conv, its fused version
-     banded_conv_fused, K2 banded_conv_sm) on the card vs its plain
-     version, at the main paths' widths; the fused K1 on the real plan's
+     banded_conv_fused, K2 banded_conv_sm and its second version
+     banded_conv_sm_taps) on the card vs its plain version, at the main
+     paths' widths (K2's second version also on row-strided operands, a
+     ragged tile and no rows); the fused K1 on the real plan's
      rulebooks (levels 0, 1, 5, 6) and on a synthetic one (ragged rows,
      absent faces with present diagonals, no rows), also against the
      assembled K1; one full subm conv on a real plan under either engine,
@@ -20,8 +22,9 @@ Phases, each printing one line:
      ``make_eval_step``: launch counts (52 fused K1 + 1 assembled K1, from
      the parameter shapes), scenes/sec, peak memory, float32
      logits kernel vs plain path, bf16 predictions kernel vs plain path
-  5. train: the same net in train mode with ``sm_max_cin=32`` (K2 at
-     levels 0 and 1, K1 elsewhere) takes three bf16 SGD steps on 2 bench
+  5. train: the same net in train mode with ``sm_max_cin=32`` (K2's
+     second version at levels 0 and 1, the fused K1 elsewhere; float32
+     steps run K2's first version) takes three bf16 SGD steps on 2 bench
      scenes through ``make_train_step``: launch counts of both kernels,
      forward and backward, against the selection rule; loss finite, every
      parameter and running statistic moved; steps/sec, trained scenes/sec,
@@ -31,7 +34,8 @@ Phases, each printing one line:
   6. timing: each kernel at the level-0 shape beside its bound, its plain
      version and, where there is one, a PyTorch library call computing the
      same function; K1 in both versions, with the plane gather alone, at
-     the level-0 and level-1 shapes on the real rulebooks
+     the level-0 and level-1 shapes on the real rulebooks; K2 in both
+     versions at the level-0 and level-1 shapes
 Then a JSON line of the kernels and, last, {"ok": true, "device": ...}.
 Any failure raises, and the script exits non-zero without that last line.
 """
@@ -132,6 +136,10 @@ CHECKS = ((torch.float32, False, 1e-3), (torch.bfloat16, True, 2e-2))
 # max|ref|): float32 output, the same bf16 products summed in float32 in
 # another order; bf16 output, one rounding of the result
 FUSED_CHECKS = ((torch.float32, 1e-4), (torch.bfloat16, 2e-2))
+# (B, cin, cout) of the K2 checks: every shape the rule can send it,
+# ragged B included
+K2_SHAPES = ((4099, 16, 16), (4096, 32, 16), (2048, 16, 32), (2048, 32, 32),
+             (1000, 32, 64), (512, 112, 112))
 
 
 def plain_path():
@@ -141,11 +149,13 @@ def plain_path():
     from doda_tpu_torch.ops import bricks2d
     from doda_tpu_torch.ops.banded_conv import (banded_conv_fused_plain,
                                                 banded_conv_plain)
-    from doda_tpu_torch.ops.banded_conv_sm import banded_conv_sm_plain
+    from doda_tpu_torch.ops.banded_conv_sm import (banded_conv_sm_plain,
+                                                   banded_conv_sm_taps_plain)
     stack = ExitStack()
     for name, fn in (('banded_conv', banded_conv_plain),
                      ('banded_conv_fused', banded_conv_fused_plain),
-                     ('banded_conv_sm', banded_conv_sm_plain)):
+                     ('banded_conv_sm', banded_conv_sm_plain),
+                     ('banded_conv_sm_taps', banded_conv_sm_taps_plain)):
         stack.enter_context(patch.object(bricks2d, name, fn))
     return stack
 
@@ -176,7 +186,9 @@ def phase_kernels(levels):
                                                 banded_conv_fused,
                                                 banded_conv_plain)
     from doda_tpu_torch.ops.banded_conv_sm import (banded_conv_sm,
-                                                   banded_conv_sm_plain)
+                                                   banded_conv_sm_plain,
+                                                   banded_conv_sm_taps,
+                                                   banded_conv_sm_taps_plain)
     from doda_tpu_torch.utils import synth
     g = torch.Generator(device='cuda').manual_seed(1)
     worst = {}
@@ -224,8 +236,7 @@ def phase_kernels(levels):
                 got, ref, rel, bound, f'banded_conv {b},{cin},{cout} {dt}')
 
     # K2 at every shape the rule can send it, ragged B included
-    for b, cin, cout in ((4099, 16, 16), (4096, 32, 16), (2048, 16, 32),
-                         (2048, 32, 32), (1000, 32, 64), (512, 112, 112)):
+    for b, cin, cout in K2_SHAPES:
         ops = [torch.randn(b, cells * cin, device='cuda', generator=g)
                for cells in (64, 96, 40, 40)]
         w = torch.randn(27, cin, cout, device='cuda', generator=g)
@@ -240,6 +251,34 @@ def phase_kernels(levels):
                 got, ref, rel, bound, f'banded_conv_sm {b},{cin},{cout} {dt}')
     assert banded_conv_sm(*(t[:0] for t in args[:4]), *args[4:],
                           torch.float32).shape == (0, 64 * 112)
+
+    # K2's second version at the same shapes, on less than one tile, with a
+    # half-filled last cout block, and at a cin that takes two weight
+    # groups, the last one smaller: bf16 operands, gyz/gxm/gxp as column
+    # slices of one gathered buffer, float32 and bf16 output; contiguous
+    # copies give the same bits
+    for b, cin, cout in K2_SHAPES + ((7, 32, 32), (1000, 16, 24),
+                                     (333, 144, 24)):
+        x = torch.randn(b, 64 * cin, device='cuda', generator=g).to(bf)
+        buf = torch.randn(b, 176 * cin, device='cuda', generator=g).to(bf)
+        halo = (buf[:, :96 * cin], buf[:, 96 * cin:136 * cin],
+                buf[:, 136 * cin:])
+        w = (torch.randn(27, cin, cout, device='cuda', generator=g)
+             / (27 * cin) ** 0.5).to(bf)
+        key = f'K2taps/{b}x{cin}x{cout}'
+        for dt, bound in FUSED_CHECKS:
+            got = banded_conv_sm_taps(x, *halo, w, dt)
+            torch.cuda.synchronize()
+            ref = banded_conv_sm_taps_plain(x, *halo, w, dt)
+            worst[f'{key}/{str(dt)[6:]}'] = _close(
+                got, ref, True, bound, f'banded_conv_sm_taps {key} {dt}')
+        again = banded_conv_sm_taps(x, *(t.contiguous() for t in halo), w,
+                                    torch.bfloat16)
+        assert torch.equal(again, got), f'{key}: strided != contiguous'
+    before = banded_conv_sm_taps.launches
+    empty = banded_conv_sm_taps(x[:0], *(t[:0] for t in halo), w, bf)
+    assert empty.shape == (0, 64 * cout)
+    assert banded_conv_sm_taps.launches == before   # nothing to launch
 
     # one full subm conv on the real level-0 plan of the bench batch: the
     # K2 engine against the K1 engine and against the plain path
@@ -286,7 +325,8 @@ def phase_kernels(levels):
 def phase_forward(cfg, batch, b_caps, card):
     from doda_tpu_torch.models import model_fn
     from doda_tpu_torch.ops.banded_conv import banded_conv, banded_conv_fused
-    from doda_tpu_torch.ops.banded_conv_sm import banded_conv_sm
+    from doda_tpu_torch.ops.banded_conv_sm import (banded_conv_sm,
+                                                   banded_conv_sm_taps)
     from doda_tpu_torch.utils import synth
     n_valid = int(batch.valid.sum())
     batch = batch.to('cuda')
@@ -306,14 +346,15 @@ def phase_forward(cfg, batch, b_caps, card):
 
     def reset():
         banded_conv.launches = banded_conv_fused.launches = 0
-        banded_conv_sm.launches = 0
+        banded_conv_sm.launches = banded_conv_sm_taps.launches = 0
 
     reset()                                         # the counted path
     out = step(batch)
     torch.cuda.synchronize()
     launches = {'fused': banded_conv_fused.launches,
                 'assembled': banded_conv.launches,
-                'sm': banded_conv_sm.launches}
+                'sm': banded_conv_sm_taps.launches}
+    assert banded_conv_sm.launches == 0
     assert launches == want, launches
     logits = out['output']
     assert logits.shape == (synth.BATCH, synth.N_CAP, 20)
@@ -356,7 +397,8 @@ def phase_train(cfg, b_caps, card):
     float32 step on the kernel path against the plain path."""
     from doda_tpu_torch.models import model_fn
     from doda_tpu_torch.ops.banded_conv import banded_conv, banded_conv_fused
-    from doda_tpu_torch.ops.banded_conv_sm import banded_conv_sm
+    from doda_tpu_torch.ops.banded_conv_sm import (banded_conv_sm,
+                                                   banded_conv_sm_taps)
     from doda_tpu_torch.utils import optim, synth
     batch = synth.make_batch(seed=0, batch=synth.TRAIN_BATCH)
     synth.capacity_audit(batch, b_caps)
@@ -383,10 +425,13 @@ def phase_train(cfg, b_caps, card):
 
     def reset():
         banded_conv.launches = banded_conv_fused.launches = 0
-        banded_conv_sm.launches = 0
+        banded_conv_sm.launches = banded_conv_sm_taps.launches = 0
 
     def counts():
-        return {'sm': banded_conv_sm.launches,
+        # bf16 'sm' convs run K2's second version; its first version runs
+        # only on float32 operands and must not appear here
+        assert banded_conv_sm.launches == 0, banded_conv_sm.launches
+        return {'sm': banded_conv_sm_taps.launches,
                 'fused': banded_conv_fused.launches,
                 'assembled': banded_conv.launches}
 
@@ -444,9 +489,14 @@ def phase_train(cfg, b_caps, card):
     reset()
     torch.cuda.empty_cache()
 
-    # float32: one step from identical weights, kernel path vs plain path
+    # float32: one step from identical weights, kernel path vs plain path;
+    # the 'sm' convs run K2's first version (exact float32 CUDA cores)
     model_k, step_k = trainer(torch.float32, sd)
+    reset()
     loss_k = float(step_k(batch, lr)['loss'])
+    f32_sm = banded_conv_sm.launches
+    assert f32_sm == want['sm'] and banded_conv_sm_taps.launches == 0, (
+        f32_sm, banded_conv_sm_taps.launches)
     grads_k = {n: p.grad.clone() for n, p in model_k.named_parameters()}
     del model_k, step_k
     model_p, step_p = trainer(torch.float32, sd)
@@ -466,8 +516,8 @@ def phase_train(cfg, b_caps, card):
         trained_scenes_per_sec=steps * synth.TRAIN_BATCH / dt,
         seconds_per_step=dt / steps, peak_memory_gib=peak / 2 ** 30,
         losses=losses, lr=lr, f32_loss_kernel=loss_k, f32_loss_plain=loss_p,
-        f32_worst_gradient_err=worst)
-    return ran
+        f32_worst_gradient_err=worst, f32_step_sm_first_version=f32_sm)
+    return ran, f32_sm
 
 
 def _bound(moved, ops):
@@ -545,17 +595,60 @@ def time_k1(nbr, halo, cin, cout, g):
             'assembled': assembled, 'fused_vs_assembled_max_abs_err': vs_old}
 
 
-def phase_timing(levels, launches):
-    """Each kernel at the level-0 bench shape, bf16; K1 also at the level-1
-    shape. ``launches`` maps a route to its (eval forward, train steps)
-    counts."""
-    from doda_tpu_torch.ops import _build, bricks2d
+def time_k2(b, cin, cout, g):
+    """K2 in both versions at (B, cin, cout), bf16, on random operands laid
+    out as the path lays them (x contiguous, gyz/gxm/gxp column slices of
+    one gathered buffer): the second version, its plain version and bound;
+    the first version on ``sm_weights``. Every cell is present, so every
+    tap is needed."""
+    from doda_tpu_torch.ops import bricks2d
     from doda_tpu_torch.ops.banded_conv_sm import (banded_conv_sm,
-                                                   banded_conv_sm_plain)
+                                                   banded_conv_sm_taps,
+                                                   banded_conv_sm_taps_plain,
+                                                   sm_taps_smem_bytes)
+    bf = torch.bfloat16
+    x = torch.randn(b, 64 * cin, device='cuda', generator=g).to(bf)
+    buf = torch.randn(b, 176 * cin, device='cuda', generator=g).to(bf)
+    ops = (x, buf[:, :96 * cin], buf[:, 96 * cin:136 * cin],
+           buf[:, 136 * cin:])
+    w = (torch.randn(27, cin, cout, device='cuda', generator=g)
+         / (27 * cin) ** 0.5).to(bf)
+    out = banded_conv_sm_taps(*ops, w, bf)
+    ref = banded_conv_sm_taps_plain(*ops, w, bf)
+    err = _close(out, ref, True, 2e-2, f'banded_conv_sm_taps at {b}x{cin}')
+    del ref
+    ms = cuda_ms(lambda: banded_conv_sm_taps(*ops, w, bf), 20)
+    plain_ms = cuda_ms(lambda: banded_conv_sm_taps_plain(*ops, w, bf), 3)
+    # bytes: the 216 halo cells a brick needs (x 64, gyz 80, gxm/gxp 36
+    # each; no padding cell), the output and the raster weights, once
+    moved = (b * 216 * cin + out.numel() + w.numel()) * 2
+    flops = 2 * b * 64 * 27 * cin * cout
+    taps = {'ms': ms, 'plain_ms': plain_ms, 'max_abs_err': err,
+            **_bound(moved, flops), 'bytes': moved, 'flops': flops,
+            'executed_flops': flops,
+            'dynamic_smem_bytes': sm_taps_smem_bytes(cin)}
+    wts = bricks2d.sm_weights(w)
+    sm_weights_ms = cuda_ms(lambda: bricks2d.sm_weights(w), 10)
+    old = banded_conv_sm(*ops, *wts, bf)
+    vs_old = _close(out, old, True, 2e-2, f'K2 second vs first at {b}x{cin}')
+    old_ms = cuda_ms(lambda: banded_conv_sm(*ops, *wts, bf), 10)
+    old_moved = (sum(t.numel() for t in ops + wts) + old.numel()) * 2
+    first = {'ms': old_ms, 'sm_weights_ms': sm_weights_ms,
+             'executed_flops': 2 * b * 4 * 120 * cin * 16 * cout,
+             'bound_ms_of_its_operands': _bound(old_moved, flops)['bound_ms'],
+             'second_vs_first_max_abs_err': vs_old}
+    return {'shape': [b, cin, cout], 'taps': taps, 'first': first}
+
+
+def phase_timing(levels, launches):
+    """Each kernel at the level-0 bench shape, bf16, and at the level-1
+    shape. ``launches`` maps a route to its (eval forward, train steps)
+    counts, and 'sm_f32' to K2's first version's launches in the float32
+    train step."""
+    from doda_tpu_torch.ops import _build
     from doda_tpu_torch.utils import synth
     b, cin, cout = synth.BATCH * synth.BRICK_CAP, 16, 16
     g = torch.Generator(device='cuda').manual_seed(2)
-    bf = torch.bfloat16
     rows = []
 
     # K1: one row, both versions. The row's own numbers are the fused
@@ -602,38 +695,38 @@ def phase_timing(levels, launches):
                    'assembled_bound_ms': l1['assembled']['bound_ms'],
                    'library_ms': l1['assembled']['library_ms']}})
 
-    # K2, same B; no single PyTorch call computes it from these operands
-    w = (torch.randn(27, cin, cout, device='cuda', generator=g) / 20.8).to(bf)
-    args = [torch.randn(b, cells * cin, device='cuda', generator=g).to(bf)
-            for cells in (64, 96, 40, 40)]
-    wts = bricks2d.sm_weights(w)
-    args += list(wts)
-    out = banded_conv_sm(*args, bf)
-    ref = banded_conv_sm_plain(*args, bf)
-    err = _close(out, ref, True, 2e-2, 'banded_conv_sm at the timing shape')
-    del ref
-    ms = cuda_ms(lambda: banded_conv_sm(*args, bf), 20)
-    plain_ms = cuda_ms(lambda: banded_conv_sm_plain(*args, bf), 5)
-    moved = (sum(t.numel() for t in args) + out.numel()) * 2
-    nz_c, nz_h, nz_x = ([int((m != 0).sum()) for m in t] for t in wts)
-    taps = 0                 # non-zero weights the four slices multiply by
-    for xr in range(4):
-        for i in range(3):
-            cx = xr + i - 1
-            taps += nz_x[0] if cx == -1 else nz_x[1] if cx == 4 \
-                else nz_c[i] + nz_h[i]
-    ops = 2 * b * taps
+    # K2: one row, both versions. The row's own numbers are the second
+    # version's, which runs every bf16 'sm' conv; the first version's, which
+    # runs the float32 ones, stand under 'first_version'
+    k0 = time_k2(b, 16, 16, g)
+    k1 = time_k2(levels[1].nbr.shape[0], 32, 32, g)
+    for name, t in (('level 0', k0), ('level 1', k1)):
+        log('timing', kernel='banded_conv_sm', at=name, dtype='bfloat16', **t)
+    assert k0['taps']['executed_flops'] == k0['taps']['flops']
     fwd, train = launches['sm']
-    rows.append({'name': 'banded_conv_sm', 'route': 'cuda',
-                 'source': 'doda_tpu_torch/csrc/banded_conv_sm.cu',
-                 'replaces': 'doda_tpu/ops/pallas_sm.py:83',
-                 'launches': fwd + train, 'launches_eval_forward': fwd,
-                 'launches_train_steps': train, 'max_abs_err': err, 'ms': ms,
-                 'plain_ms': plain_ms, **_bound(moved, ops),
-                 'library_ms': None, **_build.resources('banded_conv_sm')})
-    log('timing', kernel='banded_conv_sm', shape=[b, cin, cout],
-        dtype='bfloat16', bytes=moved, flops=ops,
-        executed_flops=2 * b * 4 * 120 * cin * 16 * cout, **rows[-1])
+    t0 = k0['taps']
+    rows.append({
+        'name': 'banded_conv_sm', 'route': 'cuda',
+        'source': 'doda_tpu_torch/csrc/banded_conv_sm_taps.cu',
+        'replaces': 'doda_tpu/ops/pallas_sm.py:83',
+        'launches': fwd + train, 'launches_eval_forward': fwd,
+        'launches_train_steps': train, 'max_abs_err': t0['max_abs_err'],
+        'ms': t0['ms'], 'plain_ms': t0['plain_ms'],
+        'bound_ms': t0['bound_ms'], 'bound_by': t0['bound_by'],
+        # no single PyTorch call computes it from these operands
+        'library_ms': None,
+        'executed_flops': t0['executed_flops'],
+        'dynamic_smem_bytes': t0['dynamic_smem_bytes'],
+        **_build.resources('banded_conv_sm_taps'),
+        'first_version': {**k0['first'],
+                          'source': 'doda_tpu_torch/csrc/banded_conv_sm.cu',
+                          'launches_f32_train_step': launches['sm_f32'],
+                          **_build.resources('banded_conv_sm')},
+        'level1': {'shape': k1['shape'], 'ms': k1['taps']['ms'],
+                   'bound_ms': k1['taps']['bound_ms'],
+                   'bound_by': k1['taps']['bound_by'],
+                   'plain_ms': k1['taps']['plain_ms'],
+                   'first_version_ms': k1['first']['ms']}})
     return rows
 
 
@@ -660,11 +753,13 @@ def main():
 
     fwd = phase_forward(cfg, batch, b_caps, card)
     del batch
-    train = phase_train(cfg, b_caps, card)
-    rows = phase_timing(levels, {k: (fwd[k], train[k]) for k in fwd})
+    train, f32_sm = phase_train(cfg, b_caps, card)
+    rows = phase_timing(levels, {**{k: (fwd[k], train[k]) for k in fwd},
+                                 'sm_f32': f32_sm})
     for r in rows:       # every kernel of the paths really ran on them
         assert r['launches'] > 0, r['name']
     assert rows[0]['assembled']['launches'] > 0
+    assert rows[1]['first_version']['launches_f32_train_step'] > 0
     print(json.dumps({'kernels': rows}), flush=True)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': name,

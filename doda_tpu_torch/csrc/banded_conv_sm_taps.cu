@@ -1,0 +1,627 @@
+// Kernel K2, second version: the source-major submanifold conv on the
+// non-zero taps only, from raster weights, on brick tiles streamed by TMA.
+//
+// Replaces the TPU kernel doda_tpu/ops/pallas_sm.py::banded_conv_sm. The
+// operands are those of the first version (banded_conv_sm.cu): a brick's
+// own activation x (B, 64*cin) and its halo, gyz (B, 96*cin: per x-slice the
+// 20 in-plane halo cells in bricks2d._H_LIST order, padded to 24) and the
+// x-halo planes gxm / gxp (B, 40*cin: 6x6 rasters padded to 40). With raster
+// weights w (27, cin, cout) bf16 it writes, unmasked, float32-accumulated,
+//
+//     out[b, o, :] = sum over taps t of src_b[tap_source(o, t)] @ w[t]
+//
+// which is banded_conv_sm(x, gyz, gxm, gxp, *bricks2d.sm_weights(w)): the
+// same products, without the placed zeros. cin % 16 == 0, cout % 8 == 0.
+//
+// What bounds it on an H100. A brick's 216 halo cells are read once and its
+// 64 output cells written once: 1.47 GB at B = 163840, cin = cout = 16 in
+// bf16, 0.438 ms at 3.35 TB/s, against 1.45e11 FLOPs of taps (0.147 ms at
+// 989 TFLOP/s). Bytes bound it at every width the engine rule sends here.
+// The first version multiplied the whole 120*cin band of each slice (27 of
+// every 120 products are taps) and re-read a 1920 x 128 weight panel from
+// L2 in every one of its blocks.
+//
+// What the design does about it.
+//  * M = bricks. A block walks tiles of TB = 16 bricks. One source cell of
+//    a tile is a dense (16 bricks, 16 channels) A tile, one tap's weights a
+//    (16 channels, 16 couts) B tile: each (output cell, tap, n8 tile) is one
+//    mma.sync m16n8k16 into that output cell's accumulator. 2*B*64*27*cin*cout FLOPs are
+//    executed, the taps and nothing else.
+//  * The stream. A tile is six source planes (x' = -1..4; plane x' in 1..4
+//    is x-slice x'-1's 16 cells of x plus its 20-cell run of gyz, planes 0
+//    and 5 are the 36 cells of gxm and gxp) times cin/16 channel chunks.
+//    One unit, (plane, chunk), is 36 cells x 16 bricks x 32 bytes = 18 KB.
+//    A producer warp streams units into a ring of stages with TMA
+//    (cp.async.bulk.tensor, one tensor map per operand, mbarrier completion):
+//    each operand is viewed as (cells, B, cin) so a box of (cells, 16
+//    bricks, 16 channels) lands cell-major, and TMA zero-fills the bricks of
+//    a ragged last tile. The padding cells of gyz, gxm and gxp are outside
+//    every box and never read.
+//  * A block owns 16 couts (blockIdx.y; cout = 32 reads the operands once
+//    per 16, the second time mostly from L2) and is persistent over tiles.
+//    Eight consumer warps, two per output x-slice, each with the
+//    accumulators of two y-rows (8 cells x 16 couts, 64 registers) for the
+//    whole tile. Unit (plane x', chunk) feeds slices x'-2..x' (those that
+//    exist), so every operand byte of a cout block crosses device memory
+//    once. Within a unit a warp holds the plane's nine taps' B fragments
+//    (36 registers) and loads each of the 24 source cells its rows read
+//    once with ldmatrix, for every output cell it feeds (117 bytes of
+//    ldmatrix an mma at cout = 16). One warp a slice needs 128 accumulator
+//    registers and spilled; tools/probe_sm.py times that variant.
+//  * The weights of a block's 16 couts stay in shared memory for the whole
+//    launch (13.8 KB at cin = 16, 27.6 KB at 32; cin <= 112 fits beside
+//    two stages). A wider cin is cut into weight groups of equal numbers of
+//    channel chunks that fit: the consumers reload the block's weights
+//    group by group, between two consumer barriers, at the first unit of
+//    each group of every tile (the units of a tile run chunk-major). No
+//    configuration of the repo sends such a conv, so these reloads, from
+//    L2 and stalling the block, are left slow. The grouped loop is its own
+//    instantiation (GROUPED): in the loop of one group it cost 5-22% of
+//    the time (tools/probe_sm.py, PERF.md).
+//  * Bank conflicts: a source cell's 16 bricks are 16 rows of 32 bytes.
+//    The 32-byte TMA swizzle (16-byte half index ^= bit 7 of the offset)
+//    puts the 8 rows of each 8x8 ldmatrix on 8 distinct bank groups; weight
+//    rows have an odd pitch in 16-byte units, as in banded_conv_fused.cu.
+//  * The epilogue stages a warp's outputs in shared memory under the same
+//    swizzle and writes whole 32-byte sectors, 16 bytes a lane; storing the
+//    mma fragments directly (4-byte pieces) cost 0.35 of 0.92 ms at
+//    163840 x 16 -> 16 (tools/probe_sm.py, PERF.md).
+//
+// Tensor maps come from cuTensorMapEncodeTiled, reached through
+// cudaGetDriverEntryPoint, so the library links the CUDA runtime only.
+
+#include <cuda.h>
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+using bf16 = __nv_bfloat16;
+
+constexpr int TB = 16;                    // bricks per tile (mma M)
+constexpr int CK = 16;                    // channels per chunk (mma K)
+constexpr int SLOT_B = TB * CK * 2;       // one source cell of a tile: 512 B
+constexpr int PLANE_CELLS = 36;           // source cells of a plane
+constexpr int UNIT_B = PLANE_CELLS * SLOT_B;  // 18432
+constexpr int MAX_STAGES = 6;
+constexpr int HEAD_B = 1024;              // mbarriers; stages start 1024-aligned
+constexpr int MAX_SMEM_B = 227 * 1024;
+constexpr int NC = 16;                    // couts a block (blockIdx.y)
+constexpr int WPITCH = 48;                // bytes a weight row: odd in 16 B
+constexpr int YSPLIT = 2;                 // consumer warps an output slice
+constexpr int RY = 4 / YSPLIT;            // y-rows of a slice a warp
+constexpr int CW = 4 * RY;                // output cells a warp
+constexpr int CWARPS = 4 * YSPLIT;        // consumer warps a block
+constexpr int THREADS = (CWARPS + 1) * 32;
+constexpr int STAGED_B = CW * TB * 32;    // a warp's staged outputs
+static_assert(YSPLIT == 1 || YSPLIT == 2, "one or two warps a slice");
+
+// ---------------------------------------------------------------- geometry
+// An in-plane halo cell (hy, hz), each in -1..4, of a brick's x-slice:
+// its place in a gyz run (bricks2d._H_LIST: the edge runs z-1, z+1, y-1,
+// y+1, then the corners), or, inside the brick, its cell y*4 + z.
+__host__ __device__ constexpr bool inside(int h) { return h >= 0 && h < 4; }
+__host__ __device__ constexpr int run_pos(int hy, int hz) {
+  return (!inside(hy) && !inside(hz)) ? 16 + (hy == 4) * 2 + (hz == 4)
+         : hz == -1                   ? hy
+         : hz == 4                    ? 4 + hy
+         : hy == -1                   ? 8 + hz
+                                      : 12 + hz;
+}
+
+// The kernel's tap table: the source of tap t (raster (dx, dy, dz)) of
+// output cell o (x*16 + y*4 + z) among the 240 operand cells
+// [x 64 | gyz 96 | gxm 40 | gxp 40]. Padding cells (gyz run places 20..23,
+// plane places 36..39) are never named.
+__host__ __device__ constexpr int tap_source(int o, int t) {
+  const int sx = (o >> 4) + t / 9 - 1;
+  const int hy = ((o >> 2) & 3) + (t / 3) % 3 - 1;
+  const int hz = (o & 3) + t % 3 - 1;
+  return sx == -1  ? 160 + (hy + 1) * 6 + (hz + 1)
+         : sx == 4 ? 200 + (hy + 1) * 6 + (hz + 1)
+         : (inside(hy) && inside(hz)) ? sx * 16 + hy * 4 + hz
+                                      : 64 + sx * 24 + run_pos(hy, hz);
+}
+
+// Where a source cell lies in its staged unit: a centre plane holds the
+// slice's 16 x cells at slots 0..15 and its gyz run at 16..35, an x-plane
+// its 36 raster cells.
+__host__ __device__ constexpr int staged_slot(int src) {
+  return src < 64 ? (src & 15) : src < 160 ? 16 + (src - 64) % 24
+                                           : (src - 160) % 40;
+}
+
+static_assert(tap_source(0, 0) == 160, "corner of the x-minus plane");
+static_assert(tap_source(63, 26) == 200 + 35, "corner of the x-plus plane");
+static_assert(tap_source(16, 13) == 16, "centre tap reads the cell itself");
+static_assert(tap_source(16, 9) == 64 + 24 + 16, "(-1, -1) corner of run 1");
+static_assert(staged_slot(64 + 24 + 19) == 35, "last cell of a gyz run");
+
+// -------------------------------------------------------------- primitives
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+      "r"(bytes)
+      : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+__device__ __forceinline__ uint64_t globaltimer_ns() {
+  uint64_t t;
+  asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(t));
+  return t;
+}
+// A healthy wait lasts as long as one unit's copies or one unit's products,
+// microseconds. One that has not completed after WAIT_LIMIT_NS of the
+// card's global timer (a fault in the pipeline) traps, so the launch fails
+// instead of hanging the card; the limit leaves room for time slicing and
+// preemption. The timer is read only once the first try_wait has failed.
+constexpr uint64_t WAIT_LIMIT_NS = 10ull * 1000 * 1000 * 1000;
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint64_t t0 = 0;
+  for (;;) {
+    uint32_t done;
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (done) return;
+    const uint64_t now = globaltimer_ns();
+    if (t0 == 0)
+      t0 = now;
+    else if (now - t0 > WAIT_LIMIT_NS)
+      __trap();
+  }
+}
+// Barrier 1 of the consumer warps only (the producer never waits on it)
+__device__ __forceinline__ void consumers_sync() {
+  asm volatile("bar.sync 1, %0;\n" ::"n"(CWARPS * 32) : "memory");
+}
+__device__ __forceinline__ void tma_load3(uint32_t dst, const CUtensorMap* map,
+                                          uint32_t bar, int c0, int c1,
+                                          int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.tile.mbarrier::"
+      "complete_tx::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
+      "r"(c2)
+      : "memory");
+}
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4],
+                                              uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+struct Params {
+  CUtensorMap map[4];  // x, gyz, gxm, gxp viewed as (cells, B, cin)
+  const bf16* w;       // (27, cin, cout)
+  void* out;           // (B, 64*cout)
+  long long rows;
+  long long ntiles;
+  int cin, cout;
+  int nk;              // channel chunks
+  int gk;              // channel chunks a weight group (nk: one group)
+  int stages;          // units in the ring
+};
+
+// The block's couts of weight group k0 / gk (channel chunks k0 .. k0+gk-1,
+// fewer in a last group) of all 27 taps into w_s: rows (tap, channel of
+// the group) of WPITCH bytes, by the threads t0, t0 + nthreads, ...
+__device__ __forceinline__ void load_weights(const Params& p,
+                                             unsigned char* w_s, int n0,
+                                             int k0, int t0, int nthreads) {
+  const int wc = p.gk * CK;
+  for (int row = t0; row < 27 * wc; row += nthreads) {
+    const int t = row / wc, ch = k0 * CK + row % wc;
+    if (ch >= p.cin) continue;
+    const bf16* g = p.w + ((long long)t * p.cin + ch) * p.cout + n0;
+#pragma unroll
+    for (int u = 0; u < NC / 8; ++u) {
+      uint4 v = make_uint4(0, 0, 0, 0);
+      if (n0 + u * 8 < p.cout) v = *reinterpret_cast<const uint4*>(g + u * 8);
+      *reinterpret_cast<uint4*>(w_s + row * WPITCH + u * 16) = v;
+    }
+  }
+}
+
+// One unit's products for the y-rows Y0 .. Y0+RY-1 of one output slice,
+// NT n8 tiles of couts: tap dx is fixed by the plane, b holds its nine
+// (dy, dz) taps' B fragments. Each source cell those rows read is loaded
+// once and fed to every output cell that reads it. The slot of a source
+// cell comes from the tap table: output cells of slice 1 stand for any
+// centre plane (dx = 0), of slice 0 at dx = -1 for an x-plane. NT is a
+// template argument so that the unrolled products are one basic block.
+template <bool XPLANE, int Y0, int NT>
+__device__ __forceinline__ void plane_mma(float (&acc)[CW][2][4],
+                                          const uint32_t (&b)[9][4],
+                                          uint32_t abase) {
+#pragma unroll
+  for (int hy = Y0 - 1; hy <= Y0 + RY; ++hy) {
+#pragma unroll
+    for (int hz = -1; hz <= 4; ++hz) {
+      // the output cell (y, z) = (hy, hz) clamped into the rows, read
+      // through tap (dy, dz) = (hy - y, hz - z): any reader names one slot
+      const int ry = hy < Y0 ? Y0 : (hy >= Y0 + RY ? Y0 + RY - 1 : hy);
+      const int rz = hz < 0 ? 0 : (hz > 3 ? 3 : hz);
+      const int o = (XPLANE ? 0 : 16) + ry * 4 + rz;
+      const int t = (XPLANE ? 0 : 9) + (hy - ry + 1) * 3 + (hz - rz + 1);
+      uint32_t a[4];
+      ldsm_x4(a, abase + staged_slot(tap_source(o, t)) * SLOT_B);
+#pragma unroll
+      for (int dy = -1; dy <= 1; ++dy) {
+#pragma unroll
+        for (int dz = -1; dz <= 1; ++dz) {
+          const int y = hy - dy, z = hz - dz;
+          if (y >= Y0 && y < Y0 + RY && inside(z)) {
+            const int k = (dy + 1) * 3 + (dz + 1), c = (y - Y0) * 4 + z;
+#pragma unroll
+            for (int j = 0; j < NT; ++j)
+              mma_bf16(acc[c][j], a, b[k][2 * j], b[k][2 * j + 1]);
+          }
+        }
+      }
+    }
+  }
+}
+
+template <bool XPLANE, int NT>
+__device__ __forceinline__ void rows_mma(float (&acc)[CW][2][4],
+                                         const uint32_t (&b)[9][4],
+                                         uint32_t abase, int yh) {
+  if constexpr (YSPLIT == 1) {
+    plane_mma<XPLANE, 0, NT>(acc, b, abase);
+  } else {
+    if (yh == 0)
+      plane_mma<XPLANE, 0, NT>(acc, b, abase);
+    else
+      plane_mma<XPLANE, 2, NT>(acc, b, abase);
+  }
+}
+
+template <int NT>
+__device__ __forceinline__ void unit_mma(float (&acc)[CW][2][4],
+                                         const uint32_t (&b)[9][4],
+                                         uint32_t abase, bool xplane, int yh) {
+  if (xplane)
+    rows_mma<true, NT>(acc, b, abase, yh);
+  else
+    rows_mma<false, NT>(acc, b, abase, yh);
+}
+
+// The epilogue of one warp: its CW cells x 16 bricks x 16 couts go to the
+// warp's shared buffer as one 32-byte row a (cell, brick) under the 32-byte
+// swizzle (bf16: all 16 couts; float32: one n8 tile a pass), then every
+// row leaves with two 16-byte stores, 16 bricks of one cell a warp store:
+// whole sectors, where fragment stores would write 4-byte pieces.
+__device__ __forceinline__ uint32_t staged_off(int c, int r, int half) {
+  return c * TB * 32 + r * 32 + ((half ^ ((r >> 2) & 1)) << 4);
+}
+template <typename OutT>
+__device__ __forceinline__ void store_tile(const float (&acc)[CW][2][4],
+                                           unsigned char* stg, const Params& p,
+                                           long long brick0, int cell0, int n,
+                                           int nt, int lane) {
+  const int g = lane >> 2, q = lane & 3;
+  constexpr bool F32 = sizeof(OutT) == 4;
+#pragma unroll
+  for (int pass = 0; pass < (F32 ? 2 : 1); ++pass) {
+    if (pass >= nt) break;
+#pragma unroll
+    for (int c = 0; c < CW; ++c)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = g + 8 * h;
+        if constexpr (F32) {
+          *reinterpret_cast<float2*>(stg + staged_off(c, r, q >> 1) +
+                                     (q & 1) * 8) =
+              make_float2(acc[c][pass][2 * h], acc[c][pass][2 * h + 1]);
+        } else {
+#pragma unroll
+          for (int j = 0; j < 2; ++j)
+            *reinterpret_cast<__nv_bfloat162*>(stg + staged_off(c, r, j) +
+                                               q * 4) =
+                __floats2bfloat162_rn(acc[c][j][2 * h], acc[c][j][2 * h + 1]);
+        }
+      }
+    __syncwarp();
+    // lane -> (brick r, 16-byte half) of cell c: 512 contiguous bytes read
+#pragma unroll
+    for (int c = 0; c < CW; ++c) {
+      const int r = lane >> 1, half = lane & 1;
+      const long long brick = brick0 + r;
+      const int col = F32 ? n + pass * 8 + half * 4 : n + half * 8;
+      const bool ok = brick < p.rows && (F32 ? n + pass * 8 : col) < p.cout;
+      if (ok)
+        *reinterpret_cast<uint4*>(static_cast<OutT*>(p.out) +
+                                  (brick * 64 + cell0 + c) * p.cout + col) =
+            *reinterpret_cast<const uint4*>(stg + staged_off(c, r, half));
+    }
+    __syncwarp();
+  }
+}
+
+// TMA loads of unit (channel chunk kc, plane pl) of the tile at brick c1
+__device__ __forceinline__ void issue_unit(const Params& p, uint32_t dst,
+                                           uint32_t bar, int kc, int pl,
+                                           int c1) {
+  if (pl == 0 || pl == 5) {
+    tma_load3(dst, &p.map[pl == 0 ? 2 : 3], bar, kc * CK, c1, 0);
+  } else {
+    tma_load3(dst, &p.map[0], bar, kc * CK, c1, (pl - 1) * 16);
+    tma_load3(dst + 16 * SLOT_B, &p.map[1], bar, kc * CK, c1, (pl - 1) * 24);
+  }
+}
+
+// A block: 16 couts (blockIdx.y), CWARPS consumer warps (YSPLIT an output
+// slice) and one producer warp, persistent over tiles blockIdx.x + i *
+// gridDim.x. GROUPED: more than one weight group (gk < nk).
+template <typename OutT, bool GROUPED>
+__global__ void __launch_bounds__(THREADS, 1)
+    sm_taps_tc(const __grid_constant__ Params p) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  const uint32_t full0 = smem_u32(smem);              // [MAX_STAGES] x 8 B
+  const uint32_t empty0 = full0 + 8 * MAX_STAGES;
+  unsigned char* stage0 = smem + HEAD_B;
+  unsigned char* staged = stage0 + p.stages * UNIT_B;  // [CWARPS] outputs
+  unsigned char* w_s = staged + CWARPS * STAGED_B;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int n0 = blockIdx.y * NC;
+
+  if (!GROUPED) load_weights(p, w_s, n0, 0, tid, THREADS);
+  if (tid == 0) {
+    for (int s = 0; s < p.stages; ++s) {
+      mbar_init(full0 + 8 * s, 1);
+      mbar_init(empty0 + 8 * s, CWARPS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const long long my_tiles =
+      (p.ntiles - blockIdx.x + gridDim.x - 1) / gridDim.x;
+  const int per_tile = 6 * p.nk;
+  const long long nunits = my_tiles * per_tile;
+
+  if (warp == CWARPS) {  // the producer
+    if (lane == 0) {
+      for (long long u = 0; u < nunits; ++u) {
+        const int s = (int)(u % p.stages);
+        const uint32_t ph = (uint32_t)((u / p.stages) & 1);
+        mbar_wait(empty0 + 8 * s, ph ^ 1);
+        const long long i = u / per_tile;
+        const int rem = (int)(u - i * per_tile);
+        const int kc = rem / 6, pl = rem - kc * 6;
+        const int c1 = (int)((blockIdx.x + i * gridDim.x) * TB);
+        const uint32_t bar = full0 + 8 * s;
+        mbar_expect_tx(bar, UNIT_B);
+        issue_unit(p, smem_u32(stage0 + s * UNIT_B), bar, kc, pl, c1);
+      }
+    }
+    return;
+  }
+
+  // a consumer: y-rows yh*RY .. of output slice xr
+  const int xr = warp & 3, yh = warp >> 2;
+  const int nvalid = min(NC, p.cout - n0);
+  const int nt = nvalid >= 16 ? 2 : 1;
+  // this lane's ldmatrix row of an A tile (brick r, channel half) under
+  // the 32-byte swizzle, and of a B tile pair (channel row, n8 tile)
+  const int r = (lane & 7) + ((lane >> 3) & 1) * 8;
+  const uint32_t a_off = r * 32 + (((lane >> 4) ^ ((r >> 2) & 1)) << 4);
+  const uint32_t w_lane =
+      smem_u32(w_s) + (lane & 15) * WPITCH + (lane >> 4) * 16;
+  const int wc = p.gk * CK;  // channels of the resident weight rows a tap
+
+  float acc[CW][2][4];
+#pragma unroll
+  for (int c = 0; c < CW; ++c)
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[c][j][e] = 0.0f;
+
+  for (long long u = 0; u < nunits; ++u) {
+    const int s = (int)(u % p.stages);
+    const long long i = u / per_tile;
+    const int rem = (int)(u - i * per_tile);
+    const int kc = rem / 6, pl = rem - kc * 6;
+    const int dx = pl - 1 - xr;
+    const int kg = GROUPED ? kc % p.gk : kc;  // chunk within its group
+    if (GROUPED && kg == 0 && pl == 0) {
+      // a new weight group: every consumer is done with the last one
+      consumers_sync();
+      load_weights(p, w_s, n0, kc, tid, CWARPS * 32);
+      consumers_sync();
+    }
+    mbar_wait(full0 + 8 * s, (uint32_t)((u / p.stages) & 1));
+    if (dx >= -1 && dx <= 1) {
+      uint32_t b[9][4];
+      const uint32_t wb = w_lane + ((dx + 1) * 9 * wc + kg * CK) * WPITCH;
+#pragma unroll
+      for (int k = 0; k < 9; ++k) ldsm_x4_trans(b[k], wb + k * wc * WPITCH);
+      const uint32_t abase = smem_u32(stage0 + s * UNIT_B) + a_off;
+      const bool xplane = pl == 0 || pl == 5;
+      if (nt == 2)
+        unit_mma<2>(acc, b, abase, xplane, yh);
+      else
+        unit_mma<1>(acc, b, abase, xplane, yh);
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty0 + 8 * s);
+
+    if (kc == p.nk - 1 && pl == xr + 2) {  // the slice's last unit of a tile
+      store_tile<OutT>(acc, staged + warp * STAGED_B, p,
+                       (blockIdx.x + i * gridDim.x) * TB, xr * 16 + yh * CW,
+                       n0, nt, lane);
+#pragma unroll
+      for (int c = 0; c < CW; ++c)
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[c][j][e] = 0.0f;
+    }
+  }
+}
+
+// ------------------------------------------------------------------- host
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault, &q);
+#else
+    cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr,
+                                            cudaEnableDefault, &q);
+#endif
+    if (e == cudaSuccess && q == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(ptr);
+  }
+  return fn;
+}
+
+// (cells, B, cin) view of an operand with row stride ld elements; a box is
+// (box_cells, 16 bricks, 16 channels), 32-byte swizzled
+CUresult make_map(EncodeTiled enc, CUtensorMap* map, const void* base,
+                  long long ld, long long rows, int cin, int cells,
+                  int box_cells) {
+  const cuuint64_t dims[3] = {(cuuint64_t)cin, (cuuint64_t)rows,
+                              (cuuint64_t)cells};
+  const cuuint64_t strides[2] = {(cuuint64_t)ld * 2, (cuuint64_t)cin * 2};
+  const cuuint32_t box[3] = {CK, TB, (cuuint32_t)box_cells};
+  const cuuint32_t one[3] = {1, 1, 1};
+  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base),
+             dims, strides, box, one, CU_TENSOR_MAP_INTERLEAVE_NONE,
+             CU_TENSOR_MAP_SWIZZLE_32B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+}
+
+// Weight groups, ring depth and shared-memory size for cin: as few groups
+// of equal numbers of chunks as leave room for two stages (one group up to
+// cin = 112), then as many stages as fit, at most MAX_STAGES.
+bool plan(int cin, Params* p, int* smem_bytes) {
+  p->nk = cin / CK;
+  const int fixed_b = 2 * HEAD_B + CWARPS * STAGED_B;
+  const int chunk_w_b = 27 * CK * WPITCH;  // one chunk's weights
+  const int gmax = (MAX_SMEM_B - fixed_b - 2 * UNIT_B) / chunk_w_b;
+  const int groups = (p->nk + gmax - 1) / gmax;
+  p->gk = (p->nk + groups - 1) / groups;
+  const int w_b = p->gk * chunk_w_b;
+  const int free_b = MAX_SMEM_B - fixed_b - w_b;
+  p->stages = free_b / UNIT_B < MAX_STAGES ? free_b / UNIT_B : MAX_STAGES;
+  *smem_bytes = fixed_b + p->stages * UNIT_B + w_b;
+  return p->stages >= 2;
+}
+
+template <typename OutT>
+int launch(const Params& p, int smem_bytes, cudaStream_t s) {
+  auto kern = p.gk < p.nk ? sm_taps_tc<OutT, true> : sm_taps_tc<OutT, false>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, MAX_SMEM_B);
+  if (e != cudaSuccess) return (int)e;
+  int dev = 0, sms = 0, per_sm = 0;
+  if ((e = cudaGetDevice(&dev)) != cudaSuccess) return (int)e;
+  if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                  dev)) != cudaSuccess)
+    return (int)e;
+  if ((e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+           &per_sm, kern, THREADS, smem_bytes)) != cudaSuccess)
+    return (int)e;
+  if (per_sm < 1) return (int)cudaErrorLaunchOutOfResources;
+  const int ny = (p.cout + NC - 1) / NC;
+  long long gx = (long long)per_sm * sms / ny;  // one resident wave
+  if (gx < 1) gx = 1;
+  if (gx > p.ntiles) gx = p.ntiles;
+  kern<<<dim3((unsigned)gx, (unsigned)ny), THREADS, smem_bytes, s>>>(p);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// Dynamic shared memory of a launch at cin, bytes; -1 if refused.
+extern "C" int doda_banded_conv_sm_taps_smem(int cin) {
+  if (cin <= 0 || cin % 16) return -1;
+  Params p;
+  int smem_bytes = 0;
+  return plan(cin, &p, &smem_bytes) ? smem_bytes : -1;
+}
+
+// Operands bf16 with row strides ld* in elements; out_dtype: 0 = float32,
+// 1 = bfloat16. Returns a CUDA runtime error, or 1000 + the CUresult of
+// cuTensorMapEncodeTiled where a tensor map could not be made.
+extern "C" int doda_banded_conv_sm_taps(
+    const void* x, long long ldx, const void* gyz, long long ldg,
+    const void* gxm, long long ldm, const void* gxp, long long ldp,
+    const void* w, void* out, long long rows, int cin, int cout,
+    int out_dtype, void* stream) {
+  if (rows <= 0 || rows > 0x7fffffffLL - TB || cin <= 0 || cin % 16 ||
+      cout <= 0 || cout % 8 || (out_dtype != 0 && out_dtype != 1))
+    return (int)cudaErrorInvalidValue;
+  Params p;
+  int smem_bytes = 0;
+  if (!plan(cin, &p, &smem_bytes)) return (int)cudaErrorInvalidValue;
+  EncodeTiled enc = encode_tiled();
+  if (enc == nullptr) return (int)cudaErrorNotSupported;
+  const struct {
+    const void* base;
+    long long ld;
+    int cells, box;
+  } ops[4] = {{x, ldx, 64, 16}, {gyz, ldg, 96, 20}, {gxm, ldm, 40, 36},
+              {gxp, ldp, 40, 36}};
+  for (int k = 0; k < 4; ++k) {
+    CUresult r = make_map(enc, &p.map[k], ops[k].base, ops[k].ld, rows, cin,
+                          ops[k].cells, ops[k].box);
+    if (r != CUDA_SUCCESS) return 1000 + (int)r;
+  }
+  p.w = static_cast<const bf16*>(w);
+  p.out = out;
+  p.rows = rows;
+  p.ntiles = (rows + TB - 1) / TB;
+  p.cin = cin;
+  p.cout = cout;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return out_dtype == 1 ? launch<bf16>(p, smem_bytes, s)
+                        : launch<float>(p, smem_bytes, s);
+}

@@ -17,6 +17,14 @@ unmasked, accumulating in float32; the result is (B, 64*cout). It needs
 cin % 16 == 0 and cout % 8 == 0. On CUDA tensors this is the hand-written
 kernel of ``csrc/banded_conv_sm.cu``; on CPU tensors it is
 ``banded_conv_sm_plain``. There is no other path.
+
+``banded_conv_sm_taps`` is the kernel's second version
+(``csrc/banded_conv_sm_taps.cu``): the same function of the same operands
+in bf16, from the raster weights w (27, cin, cout). It multiplies only the
+27 taps of each output cell, so no ``sm_weights`` are built. Its plain
+version is the first one on ``sm_weights(w)``. The bf16 route of
+``bricks2d`` takes it at every cin; float32 operands keep the first
+version.
 """
 
 from __future__ import annotations
@@ -135,3 +143,97 @@ def banded_conv_sm(x, gyz, gxm, gxp, wc, wh, wx, out_dtype) -> torch.Tensor:
 
 
 banded_conv_sm.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# the second version: raster weights, the taps only
+# ---------------------------------------------------------------------------
+
+def banded_conv_sm_taps_plain(x, gyz, gxm, gxp, w, out_dtype) -> torch.Tensor:
+    """The first version's plain arithmetic on ``sm_weights(w)``."""
+    from .bricks2d import sm_weights
+    return banded_conv_sm_plain(x, gyz, gxm, gxp, *sm_weights(w), out_dtype)
+
+
+@functools.lru_cache(maxsize=None)
+def _taps_lib():
+    lib = _build.load('banded_conv_sm_taps')
+    lib.doda_banded_conv_sm_taps.argtypes = (
+        [ctypes.c_void_p, ctypes.c_longlong] * 4             # operands
+        + [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,  # w out B
+           ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+    lib.doda_banded_conv_sm_taps.restype = ctypes.c_int
+    lib.doda_banded_conv_sm_taps_smem.argtypes = [ctypes.c_int]
+    lib.doda_banded_conv_sm_taps_smem.restype = ctypes.c_int
+    return lib
+
+
+def sm_taps_smem_bytes(cin: int) -> int:
+    """Dynamic shared memory of one ``banded_conv_sm_taps`` launch."""
+    return _taps_lib().doda_banded_conv_sm_taps_smem(cin)
+
+
+def _check_taps(x, gyz, gxm, gxp, w, out_dtype) -> None:
+    tensors = (x, gyz, gxm, gxp, w)
+    if any(t.device.type != 'cuda' or t.device != x.device for t in tensors):
+        raise ValueError('banded_conv_sm_taps: operands on '
+                         f'{[str(t.device) for t in tensors]}; all must be '
+                         'on one CUDA device')
+    if any(t.dtype != torch.bfloat16 for t in tensors):
+        raise ValueError('banded_conv_sm_taps: operands '
+                         f'{[str(t.dtype) for t in tensors]}; all must be '
+                         'bfloat16')
+    if out_dtype not in _DTYPE_CODES:
+        raise ValueError(f'banded_conv_sm_taps: out_dtype {out_dtype} '
+                         'unsupported')
+    if x.dim() != 2 or w.dim() != 3 or w.shape[0] != 27 \
+            or w.shape[1] % 16 or w.shape[2] % 8 or w.shape[2] == 0 \
+            or x.shape[1] != _X * w.shape[1]:
+        raise ValueError(f'banded_conv_sm_taps: x {tuple(x.shape)}, w '
+                         f'{tuple(w.shape)}; need (B, 64*cin) and (27, cin, '
+                         'cout) with cin a multiple of 16, cout of 8')
+    b, cin = x.shape[0], w.shape[1]
+    for name, t, cells in (('gyz', gyz, _GYZ), ('gxm', gxm, _GX),
+                           ('gxp', gxp, _GX)):
+        if tuple(t.shape) != (b, cells * cin):
+            raise ValueError(f'banded_conv_sm_taps: {name} '
+                             f'{tuple(t.shape)}, need {(b, cells * cin)}')
+    for name, t in (('x', x), ('gyz', gyz), ('gxm', gxm), ('gxp', gxp)):
+        # TMA: unit inner stride, row strides in 16-byte multiples, bases
+        # 16-byte aligned (column slices of one gathered buffer qualify)
+        if t.stride(1) != 1 or t.stride(0) % 8 or t.data_ptr() % 16:
+            raise ValueError(f'banded_conv_sm_taps: {name} needs unit inner '
+                             'stride, a row stride that is a multiple of 8 '
+                             'and 16-byte alignment')
+    if not w.is_contiguous() or w.data_ptr() % 16:
+        raise ValueError('banded_conv_sm_taps: w must be contiguous and '
+                         '16-byte aligned')
+
+
+def banded_conv_sm_taps(x, gyz, gxm, gxp, w, out_dtype) -> torch.Tensor:
+    """x (B, 64cin), gyz (B, 96cin), gxm/gxp (B, 40cin) bf16 and raster
+    weights w (27, cin, cout) -> (B, 64*cout), unmasked."""
+    tensors = (x, gyz, gxm, gxp, w)
+    if all(t.device.type == 'cpu' for t in tensors):
+        return banded_conv_sm_taps_plain(*tensors, out_dtype)
+    _check_taps(*tensors, out_dtype)
+    b, cout = x.shape[0], w.shape[2]
+    out = torch.empty((b, _SLICES * 16 * cout), dtype=out_dtype,
+                      device=x.device)
+    if b == 0:
+        return out
+    err = _taps_lib().doda_banded_conv_sm_taps(
+        x.data_ptr(), x.stride(0), gyz.data_ptr(), gyz.stride(0),
+        gxm.data_ptr(), gxm.stride(0), gxp.data_ptr(), gxp.stride(0),
+        w.data_ptr(), out.data_ptr(), b, w.shape[1], cout,
+        _DTYPE_CODES[out_dtype],
+        torch.cuda.current_stream(x.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError('banded_conv_sm_taps: kernel launch failed with '
+                           f'error {err} (CUDA runtime; 1000 + CUresult '
+                           'where a tensor map was refused)')
+    banded_conv_sm_taps.launches += 1
+    return out
+
+
+banded_conv_sm_taps.launches = 0

@@ -12,7 +12,9 @@ raster of cells (36*C lanes), and output slice x is
 ``banded_weights``. That product is kernel K1 (``banded_conv``). Kernel
 K2 (``banded_conv_sm``) computes the same conv "source-major", from the
 brick's own activation plus only the halo cells around it
-(``_assemble_sm``), so the four centre planes never reach device memory.
+(``_assemble_sm``), so the four centre planes never reach device memory;
+in bf16 it runs its second version, ``banded_conv_sm_taps``, which takes
+the raster weights and multiplies only the taps (no ``sm_weights``).
 ``subm_conv3_2d`` picks the kernel per conv from ``sm_max_cin``
 (``uses_sm``), the counterpart of the JAX package's ``DODA_SM`` switch.
 Every other bf16 conv with channel counts in multiples of 8
@@ -50,7 +52,7 @@ import numpy as np
 import torch
 
 from .banded_conv import banded_conv, banded_conv_fused
-from .banded_conv_sm import banded_conv_sm
+from .banded_conv_sm import banded_conv_sm, banded_conv_sm_taps
 from .bricks import BRICK, CELLS, _H, WINDOWS
 
 H = BRICK + 2
@@ -264,8 +266,11 @@ def _subm_raw(x2, halo, sm, weights, compute_dtype, sm_max_cin, nbr=None):
             raise ValueError(f'subm conv {cin}->{cout} selects K2 '
                              f'(sm_max_cin={sm_max_cin}) but the level has '
                              'no sm_index table')
-        return banded_conv_sm(*_assemble_sm(x2, sm, compute_dtype),
-                              *sm_weights(w), x2.dtype)
+        ops = _assemble_sm(x2, sm, compute_dtype)
+        if compute_dtype == torch.bfloat16:
+            # K2's second version: raster weights, the taps only
+            return banded_conv_sm_taps(*ops, w.contiguous(), x2.dtype)
+        return banded_conv_sm(*ops, *sm_weights(w), x2.dtype)
     if route == 'fused':
         if nbr is None:
             raise ValueError(f'subm conv {cin}->{cout} in {compute_dtype} '

@@ -38,30 +38,43 @@ VARIANTS = (
 SHAPES = ((163840, 64, 16, 16), (65536, 48, 32, 32), (13312, 28, 48, 48))
 
 
-def _build_variant(variant):
+def build_variant(source, variant) -> ctypes.CDLL:
+    """``csrc/<source>.cu`` with the variant's text substitutions, built
+    into ``build/probe``."""
     name, edits = variant
-    src = (_build.CSRC / 'banded_conv_fused.cu').read_text()
+    src = (_build.CSRC / f'{source}.cu').read_text()
     for old, new in edits:
         if src.count(old) != 1:
             raise RuntimeError(f'variant {name!r}: source text not found')
         src = src.replace(old, new)
     out_dir = _build.BUILD / 'probe'
     out_dir.mkdir(parents=True, exist_ok=True)
-    stem = name.replace(' ', '_')
+    stem = f'{source}-{name.replace(" ", "_")}'
     cu, lib = out_dir / f'{stem}.cu', out_dir / f'lib{stem}.so'
     cu.write_text(src)
     res = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, '-o', str(lib),
                           str(cu)], capture_output=True, text=True)
     if res.returncode != 0:
         raise RuntimeError(f'nvcc failed on variant {name!r}:\n{res.stderr}')
-    fn = ctypes.CDLL(str(lib)).doda_banded_conv_fused
+    return ctypes.CDLL(str(lib))
+
+
+def _build_variant(variant):
+    name = variant[0]
+    fn = build_variant('banded_conv_fused', variant).doda_banded_conv_fused
     fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_longlong] \
         + [ctypes.c_int] * 3 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return name, fn
 
 
-def _ms(fn, reps=20):
+def card() -> str:
+    return subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
+                           '--format=csv,noheader'], capture_output=True,
+                          text=True, timeout=60).stdout.strip()
+
+
+def ms(fn, reps=20):
     fn()
     torch.cuda.synchronize()
     e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
@@ -78,9 +91,7 @@ def main():
         raise SystemExit('probe_fused: needs a CUDA device')
     with ThreadPoolExecutor(len(VARIANTS)) as ex:
         built = list(ex.map(_build_variant, VARIANTS))
-    card = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
-                           '--format=csv,noheader'], capture_output=True,
-                          text=True, timeout=60).stdout.strip()
+    name_limit = card()
     g = torch.Generator(device='cuda').manual_seed(1)
     bf = torch.bfloat16
     for rows, grid, cin, cout in SHAPES:
@@ -97,11 +108,12 @@ def main():
                          out.data_ptr(), rows, cin, cout, 1, stream)
                 if err:
                     raise RuntimeError(f'{name}: CUDA error {err}')
-            ms = _ms(run)
+            t = ms(run)
             print(json.dumps({
-                'card': card, 'shape': [rows, cin, cout], 'variant': name,
-                'ms': ms, 'halo_copy_bytes': halo_bytes,
-                'halo_copy_tb_per_s': halo_bytes / ms / 1e9,
+                'card': name_limit, 'shape': [rows, cin, cout],
+                'variant': name,
+                'ms': t, 'halo_copy_bytes': halo_bytes,
+                'halo_copy_tb_per_s': halo_bytes / t / 1e9,
                 'x2_bytes': x2.numel() * 2, 'out_bytes': out.numel() * 2}),
                 flush=True)
 

@@ -36,7 +36,7 @@ from ..utils import optim, synth
 BUCKETS = (
     ('banded_conv_fused (K1, fused)', r'fused_tc'),
     ('banded_conv (K1, assembled)', r'banded_tc|banded_f32'),
-    ('banded_conv_sm (K2)', r'sm_tc|sm_f32'),
+    ('banded_conv_sm (K2, both versions)', r'sm_taps_tc|sm_tc|sm_f32'),
     ('gemm (down/up/1x1/head)', r'gemm|cutlass|xmma|cublas|sm90_|nvjet'),
     ('sort / search', r'sort|radix|searchsorted|Scan|scan'),
     ('index / gather / scatter', r'index|gather|scatter|Indexing'),

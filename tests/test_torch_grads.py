@@ -205,7 +205,9 @@ def test_contract_rows_accumulates_in_float32():
     rounded = (a16.T @ b16).double()
     err, err_rounded = ((t.double() - exact).abs().max().item()
                         for t in (got, rounded))
-    assert err < 1e-3 and err < 0.01 * err_rounded
+    # float32 summation of 16384 products errs by ~2e-6 of the sum's size
+    assert err <= 1e-5 * exact.abs().max().item()
+    assert err < 0.01 * err_rounded
     np.testing.assert_allclose(tb2d._contract_rows(a, b).numpy(),
                                (a.double().T @ b.double()).numpy(),
                                rtol=1e-4, atol=1e-3)
