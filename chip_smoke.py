@@ -5,7 +5,8 @@
 
 Phases, each printing one line:
   1. device: the card's name, nvidia-smi's name and power limit; TF32 off
-  2. build: every CUDA source of doda_tpu_torch/csrc, compiled with nvcc
+  2. build: every CUDA source of doda_tpu_torch/csrc, compiled with nvcc,
+     and the host library of the data path (native/src/host_ops.cc, g++)
   3. plan: the bench batch's level plan on the card equals the CPU's
      kernels: each kernel's wrapper (K1 banded_conv, its fused version
      banded_conv_fused, K2 banded_conv_sm and its second version
@@ -31,7 +32,20 @@ Phases, each printing one line:
      peak memory; then one float32 step on the kernel path against the
      plain path, loss and every gradient; and three bf16 steps under
      ``sm_max_cin=0`` (fused K1 everywhere) beside the ``sm_max_cin=32`` ones
-  6. timing: each kernel at the level-0 shape beside its bound, its plain
+  6. cli: the port's three CLIs in process (``doda_tpu_torch.tools``), at
+     full width and depth and the cfgs' batch size (4), on synthetic rooms
+     of ~150k points written by ``tools/make_synth_data.py``: ``train``
+     (cfgs/da_front3d_scannet/spconv.yaml, one epoch on 6 3D-FRONT-format
+     rooms, validation on 4 ScanNet-format rooms), ``test`` of its
+     checkpoint on those 4 rooms (mIoU equal to ``make_eval_step``'s on
+     the same batches) and on 2 S3DIS-format rooms through the 1-NN
+     broadcast (cfgs/da_front3d_s3dis/spconv.yaml), and ``st``
+     (spconv_st.yaml, one epoch from that checkpoint on 6 ScanNet-format
+     target rooms: pseudo labels, TACM-mixed batches, DSNorm); every
+     step's kernel launches read from the counters against the rule,
+     scenes/sec, step ms, data-wait ms, peak memory, IoU and the files
+     written, with the output tree asserted
+  7. timing: each kernel at the level-0 shape beside its bound, its plain
      version and, where there is one, a PyTorch library call computing the
      same function; K1 in both versions, with the plane gather alone, at
      the level-0 and level-1 shapes on the real rulebooks; K2 in both
@@ -88,12 +102,16 @@ def phase_device():
 
 
 def phase_build():
+    from doda_tpu_torch.native import host_ops
     from doda_tpu_torch.ops import _build
     names = sorted(p.stem for p in _build.CSRC.glob('*.cu'))
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(names)) as ex:     # one nvcc per source
-        list(ex.map(_build.build, names))
-    log('build', sources=names, seconds=round(time.perf_counter() - t0, 3),
+    with ThreadPoolExecutor(len(names) + 1) as ex:  # one nvcc per source
+        host = ex.submit(host_ops._load)            # and g++ for the host
+        list(ex.map(_build.build, names))           # library of the data
+        host.result()                               # path
+    log('build', sources=names + ['native/src/host_ops.cc'],
+        seconds=round(time.perf_counter() - t0, 3),
         ptxas={n: _build.resources(n) for n in names})
 
 
@@ -520,6 +538,240 @@ def phase_train(cfg, b_caps, card):
     return ran, f32_sm
 
 
+CLI_POINTS = 150_000       # points per synthetic room of the cli phase
+
+
+def _cli_launches():
+    """The launch counters of every kernel, by route."""
+    from doda_tpu_torch.ops.banded_conv import banded_conv, banded_conv_fused
+    from doda_tpu_torch.ops.banded_conv_sm import (banded_conv_sm,
+                                                   banded_conv_sm_taps)
+    return {'fused': banded_conv_fused.launches,
+            'assembled': banded_conv.launches,
+            'sm': banded_conv_sm_taps.launches + banded_conv_sm.launches}
+
+
+def _cli_reset():
+    from doda_tpu_torch.ops.banded_conv import banded_conv, banded_conv_fused
+    from doda_tpu_torch.ops.banded_conv_sm import (banded_conv_sm,
+                                                   banded_conv_sm_taps)
+    banded_conv.launches = banded_conv_fused.launches = 0
+    banded_conv_sm.launches = banded_conv_sm_taps.launches = 0
+
+
+def _lines(path):
+    with open(path, 'rb') as f:
+        return sum(1 for _ in f)
+
+
+def _points(scene):
+    """The point count of a synthetic room file (.pth or .npy)."""
+    if scene.suffix == '.pth':
+        return len(torch.load(scene, weights_only=False)[0])
+    import numpy as np
+    return len(np.load(scene, mmap_mode='r'))
+
+
+def phase_cli(card):
+    """The port's three CLIs in process, at full width and depth and the
+    cfgs' batch size, on synthetic rooms of ~150k points: train on
+    3D-FRONT-format rooms, test on ScanNet- and S3DIS-format rooms (the
+    latter through the 1-NN broadcast), self-training from the trained
+    checkpoint. Every step's launches come from the counters. Returns each
+    run's launches by route."""
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    import numpy as np
+
+    from doda_tpu_torch import config
+    from doda_tpu_torch.config import CfgNode, cfg_from_yaml_file
+    from doda_tpu_torch.data import build_dataloader
+    from doda_tpu_torch.models import model_fn
+    from doda_tpu_torch.models.unet import default_brick_caps
+    from doda_tpu_torch.tools import make_synth_data, st, test, train
+    from doda_tpu_torch.utils import checkpoint
+    from doda_tpu_torch.utils.metrics import calc_metrics
+
+    tmp = Path(tempfile.mkdtemp(prefix='chip_smoke_cli_'))
+    try:
+        t0 = time.perf_counter()
+        rng = np.random.default_rng(0)
+        make_synth_data.make_front3d(str(tmp), 6, 0, CLI_POINTS, rng)
+        make_synth_data.make_scannet(str(tmp), 6, 4, CLI_POINTS, rng)
+        make_synth_data.make_s3dis(str(tmp), 0, 2, CLI_POINTS, rng)
+        log('cli_data', seconds=time.perf_counter() - t0,
+            rooms={'front3d_train': 6, 'scannet_train': 6, 'scannet_val': 4,
+                   's3dis_val': 2}, points_per_room=CLI_POINTS)
+        roots = ['DATA_CONFIG.DATA_ROOT', str(tmp / '3dfront/density1250'),
+                 'DATA_CONFIG_TAR.DATA_ROOT', str(tmp / 'scannetv2'),
+                 'DATA_CONFIG_TAR.DATA_SPLIT.training', 'train',
+                 'DATA_CONFIG_TAR.DATA_SPLIT.validation', 'val',
+                 'DATA_CONFIG_TAR.DATA_SPLIT.test', 'val']
+        s3dis = ['DATA_CONFIG.DATA_ROOT', str(tmp / '3dfront/density1250'),
+                 'DATA_CONFIG_TAR.DATA_ROOT',
+                 str(tmp / 's3dis' / 'trainval_fullarea')]
+        common = ['--workers', '4', '--extra_tag', 'chip_smoke']
+        cfg_da = 'cfgs/da_front3d_scannet/spconv.yaml'
+        flagship = model_fn.build_model(
+            cfg_from_yaml_file(cfg_da, CfgNode()), device='cpu')
+        fwd, bwd = flagship.subm_routes(), flagship.subm_routes(True)
+        assert fwd == {'sm': 0, 'fused': 52, 'assembled': 1}, fwd
+        per_call = {'eval': fwd,
+                    'train': {k: fwd[k] + bwd[k] for k in fwd},
+                    'st': {k: 2 * (fwd[k] + bwd[k]) for k in fwd}}
+
+        def run(name, cli, argv, sets=roots):
+            """One CLI run; every step's launches, read from the counters
+            around the call, must be the rule's."""
+            calls = {}
+
+            def counted(kind, factory):
+                def make(*a, **k):
+                    step = factory(*a, **k)
+
+                    def call(*sa, **sk):
+                        before = _cli_launches()
+                        out = step(*sa, **sk)
+                        after = _cli_launches()
+                        calls.setdefault(kind, []).append(
+                            {r: after[r] - before[r] for r in after})
+                        return out
+                    return call
+                return make
+
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            _cli_reset()                             # the counted path
+            t0 = time.perf_counter()
+            with patch.object(model_fn, 'make_eval_step', counted(
+                    'eval', model_fn.make_eval_step)), \
+                    patch.object(model_fn, 'make_train_step', counted(
+                        'train', model_fn.make_train_step)), \
+                    patch.object(model_fn, 'make_st_step', counted(
+                        'st', model_fn.make_st_step)), \
+                    patch.object(config, 'ROOT_DIR', tmp):
+                result = cli.main([*argv, *common, '--set', *sets])
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            total = _cli_launches()
+            for kind, seen in calls.items():
+                for got in seen:
+                    assert got == per_call[kind], (name, kind, got)
+            assert sum(sum(c.values()) for v in calls.values()
+                       for c in v) == sum(total.values()), (name, total)
+            steps = {kind: len(v) for kind, v in calls.items()}
+            return result, steps, total, seconds, \
+                torch.cuda.max_memory_allocated() / 2 ** 30
+
+        def files(out):
+            return sorted(str(p.relative_to(out)) for p in out.rglob('*')
+                          if p.is_file())
+
+        def report(name, result, steps, total, seconds, peak, timing,
+                   out, **kv):
+            log('cli', run=name, card=card, launches_per_step={
+                    kind: per_call[kind] for kind in steps},
+                steps=steps, launches=total, seconds=seconds,
+                scenes_per_sec=timing['scenes'] / timing['batch_s'],
+                step_ms=1e3 * timing['step_s'] / max(
+                    timing.get('steps', timing.get('batches', 1)), 1),
+                data_wait_ms_per_batch=1e3 * timing['data_s'] / max(
+                    timing.get('steps', timing.get('batches', 1)), 1),
+                data_wait_share=timing['data_s'] / timing['batch_s'],
+                peak_memory_gib=peak, files=files(out), **kv)
+
+        launches = {}
+        result, steps, total, sec, peak = run(
+            'train', train, ['--cfg_file', cfg_da, '--epochs', '1',
+                             '--manual_seed', '0'])
+        out = result['output_dir']
+        ep = result['epochs'][0]
+        assert ep['losses_finite'] and steps == {'train': 1, 'eval': 1}, (
+            ep, steps)
+        ckpt = out / 'ckpt' / 'train_epoch_1'
+        assert ckpt.is_file() and (out / 'spconv.yaml').is_file()
+        assert len(list(out.glob('log_train_*.txt'))) == 1
+        report('train', result, steps, total, sec, peak, ep, out,
+               train_miou=ep['miou'], val_miou=ep['miou_val'])
+        launches['train'] = total
+
+        result, steps, total, sec, peak = run(
+            'test', test, ['--cfg_file', cfg_da, '--ckpt', str(ckpt),
+                           '--save_to_file'])
+        out = result['output_dir']
+        for scene in sorted((tmp / 'scannetv2' / 'val').glob('*.pth')):
+            dump = out / 'txt' / f'{scene.name[:-4]}.txt'
+            assert _lines(dump) == _points(scene), dump   # one per point
+        # the same checkpoint through make_eval_step on the same batches
+        args, cfg = test.parse_config(['--cfg_file', cfg_da, '--set',
+                                       *roots])
+        model = model_fn.build_model(cfg)
+        checkpoint.load_params_from_pretrain(ckpt, model, strict=True)
+        step = model_fn.make_eval_step(cfg, model, default_brick_caps(
+            cfg.DATA_CONFIG_TAR.DATA_PROCESSOR.brick_cap, model.num_levels))
+        _, loader, _ = build_dataloader(
+            cfg.DATA_CONFIG_TAR, cfg.OPTIMIZATION.BATCH_SIZE_PER_GPU,
+            split='test', training=False)
+        assert len(loader.dataset) % cfg.OPTIMIZATION.BATCH_SIZE_PER_GPU \
+            == 0
+        hist = [0, 0, 0]
+        for batch in loader:
+            o = step(batch.points)
+            hist = [h + o[k].cpu().numpy() for h, k in
+                    zip(hist, ('intersection', 'union', 'target'))]
+        miou_step = calc_metrics(*hist)[0]
+        assert abs(miou_step - result['miou']) <= 1e-4, (
+            miou_step, result['miou'])
+        assert steps == {'eval': 1}, steps
+        report('test', result, steps, total, sec, peak, result, out,
+               miou=result['miou'], miou_make_eval_step=miou_step,
+               allacc=result['allacc'])
+        launches['test'] = total
+        del model, step
+
+        result, steps, total, sec, peak = run(
+            'test_s3dis', test,
+            ['--cfg_file', 'cfgs/da_front3d_s3dis/spconv.yaml', '--ckpt',
+             str(ckpt), '--save_to_file'], sets=s3dis)
+        out = result['output_dir']
+        rooms = sorted((tmp / 's3dis' / 'trainval_fullarea').glob(
+            'Area_5_*.npy'))
+        for room in rooms:          # broadcast to every full-res point
+            assert _lines(out / 'txt' / f'{room.stem}.txt') \
+                == _points(room), room
+        assert steps == {'eval': 1}, steps
+        report('test_s3dis', result, steps, total, sec, peak, result, out,
+               miou=result['miou'], downsampling_scale=4)
+        launches['test_s3dis'] = total
+
+        result, steps, total, sec, peak = run(
+            'st', st, ['--cfg_file', 'cfgs/da_front3d_scannet/spconv_st.yaml',
+                       '--weight', str(ckpt), '--epochs', '1',
+                       '--manual_seed', '0', '--preserve_pseudo_labels'])
+        out = result['output_dir']
+        ep = result['epochs'][0]
+        assert ep['losses_finite'] and ep['pseudo_labels_generated'], ep
+        assert steps['st'] == 1, steps
+        assert (out / 'ckpt' / 'train_epoch_1').is_file()
+        assert (out / 'split_sampler.pkl').is_file()
+        pl = out / 'pseudo_labels'
+        assert (pl / 'done.txt').is_file() and (pl / 'class_ratio.txt'
+                                                ).is_file()
+        for scene in sorted((tmp / 'scannetv2' / 'train').glob('*.pth')):
+            labels = pl / 'npy' / f'{scene.name[:-4]}.npy'
+            assert len(np.load(labels)) == _points(scene), labels
+        report('st', result, steps, total, sec, peak, ep, out,
+               miou_initial=result['miou_initial'], val_miou=ep['miou_val'],
+               src_miou=ep['miou_x'], tar_miou=ep['miou_u'],
+               pseudo_label_seconds=ep['pseudo_s'])
+        launches['st'] = total
+        return launches
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def _bound(moved, ops):
     """The least time for the work, ms: bytes over the memory rate or
     operations over the bf16 peak, whichever is larger."""
@@ -754,8 +1006,14 @@ def main():
     fwd = phase_forward(cfg, batch, b_caps, card)
     del batch
     train, f32_sm = phase_train(cfg, b_caps, card)
+    cli = phase_cli(card)
     rows = phase_timing(levels, {**{k: (fwd[k], train[k]) for k in fwd},
                                  'sm_f32': f32_sm})
+    # each CLI run's launches, counted in phase cli, join each kernel's
+    for row, route in ((rows[0], 'fused'), (rows[0]['assembled'],
+                                            'assembled'), (rows[1], 'sm')):
+        row['launches_cli'] = {run: n[route] for run, n in cli.items()}
+        row['launches'] += sum(row['launches_cli'].values())
     for r in rows:       # every kernel of the paths really ran on them
         assert r['launches'] > 0, r['name']
     assert rows[0]['assembled']['launches'] > 0

@@ -1,16 +1,19 @@
-"""Model factory, eval step and train step of the port.
+"""Model factory, eval step, train step and self-training step of the port.
 
 Port of ``PointBatch``, ``build_model``, ``model_input``,
-``make_criterion``, ``eval_step`` and ``train_step`` of
-``doda_tpu/models/model_fn.py``. ``make_eval_step`` returns a function of a
-padded ``PointBatch`` that builds the level plan, runs the U-Net and
-returns the same dict as the JAX ``eval_step``: loss, predictions, IoU
-histograms and confidence-thresholded pseudo labels
+``make_criterion``, ``eval_step``, ``train_step``, ``soft_label_loss`` and
+``st_step`` of ``doda_tpu/models/model_fn.py``. ``make_eval_step`` returns
+a function of a padded ``PointBatch`` that builds the level plan, runs the
+U-Net in eval mode and returns the same dict as the JAX ``eval_step``:
+loss, predictions, IoU histograms and confidence-thresholded pseudo labels
 (ref test_model_fn, model/unet.py:115-152). ``make_train_step`` returns the
 step that also takes the loss's gradient and updates the model through a
 ``torch.optim`` optimizer (ref model_fn_decorator, model/unet.py:102-203);
 where the JAX step is a pure function of a ``TrainState``, here the model
 and the optimizer hold the state and the step mutates them.
+``make_st_step`` returns the self-training step in the reference's own
+form (tool/st.py:136-198): the source term's forward and backward, then
+the target term's, then one optimizer update.
 """
 
 from __future__ import annotations
@@ -21,7 +24,8 @@ import torch
 
 from ..utils.device import resolve_device
 from ..utils.metrics import intersection_and_union
-from .losses import cross_entropy, lovasz_softmax
+from .losses import (cross_entropy, lovasz_softmax, soft_cross_entropy,
+                     soft_to_hard_labels)
 from .unet import SparseConvNet, build_level_plan
 
 
@@ -125,7 +129,10 @@ def eval_outputs(cfg, logits: torch.Tensor, batch: PointBatch,
 
 def make_eval_step(cfg, model: SparseConvNet, b_caps, device="cuda"):
     """eval_step(batch, domain=0, thres=None) -> the dict of the JAX
-    ``eval_step``; the batch is moved to ``device`` first."""
+    ``eval_step``; the batch is moved to ``device`` first. The model runs
+    in eval mode (running statistics, which stay as they are) and is put
+    back in its own mode after, so a model that trains can be validated
+    between steps."""
     dev = resolve_device(device)
     b_caps = tuple(b_caps)
 
@@ -133,15 +140,20 @@ def make_eval_step(cfg, model: SparseConvNet, b_caps, device="cuda"):
     def eval_step(batch: PointBatch, domain: int = 0, thres=None) -> dict:
         batch = batch.to(dev)
         plan = build_level_plan(batch.coords, batch.valid, b_caps, dev)
-        logits = model(model_input(cfg, batch), plan, domain)
+        training = model.training
+        model.eval()
+        try:
+            logits = model(model_input(cfg, batch), plan, domain)
+        finally:
+            model.train(training)
         return eval_outputs(cfg, logits, batch, thres)
 
     return eval_step
 
 
-def _device_aug_on(data_cfg) -> bool:
-    """Whether the JAX package's ``aug_fn_for`` would return a device-side
-    augmentation closure for this data config."""
+def _device_aug_on(data_cfg, aug_list=None) -> bool:
+    """Whether the JAX package's ``aug_fn_for(data_cfg, aug_list)`` would
+    return a device-side augmentation closure for this data config."""
     ac = data_cfg.get('DATA_AUG', None) if data_cfg else None
     if not ac or not ac.get('enabled', True) or not ac.get('device', False):
         return False
@@ -150,9 +162,17 @@ def _device_aug_on(data_cfg) -> bool:
             return False
         return c.get('enabled', True) if hasattr(c, 'get') else True
 
-    stages = ac.get('aug_list', [])
+    stages = aug_list if aug_list is not None else ac.get('aug_list', [])
     return any(s in stages and enabled(ac.get(s))
                for s in ('scene_aug', 'elastic'))
+
+
+def _refuse_device_aug(*on):
+    if any(on):
+        raise NotImplementedError(
+            'DATA_AUG.device: the on-device augmentation (the JAX '
+            "package's data/device_aug.py) belongs to the data-path queue "
+            'of the port and is not ported yet')
 
 
 def make_train_step(cfg, model: SparseConvNet,
@@ -167,10 +187,7 @@ def make_train_step(cfg, model: SparseConvNet,
     train=True)``)."""
     dev = resolve_device(device)
     b_caps = tuple(b_caps)
-    if _device_aug_on(cfg.get('DATA_CONFIG', None)):
-        raise NotImplementedError(
-            'DATA_AUG.device: the on-device augmentation belongs to the '
-            'data-path slice of the port and is not ported yet')
+    _refuse_device_aug(_device_aug_on(cfg.get('DATA_CONFIG', None)))
     criterion = make_criterion(cfg)
     ignore = cfg.DATA_CONFIG.DATA_CLASS.ignore_label
     n_classes = _n_classes(cfg)
@@ -199,3 +216,113 @@ def make_train_step(cfg, model: SparseConvNet,
                 'count': (labels != ignore).sum()}
 
     return train_step
+
+
+def soft_label_loss(cfg, logits: torch.Tensor, soft_labels: torch.Tensor,
+                    valid: torch.Tensor, generator=None):
+    """Hard/soft split target loss of the SOFT_LABEL mode (the branch the
+    reference declares at model/unet.py:174-194 but never wires; the JAX
+    package's ``soft_label_loss`` closure in ``make_steps``).
+
+    Rows of ``soft_labels`` (B, N, C) whose top-1 confidence is 1 are hard
+    one-hot labels; the rest carry a distribution. Three branches, by
+    ``cfg.SOFT_LABEL``: ``convert_to_hard`` samples a hard label per row
+    (one uniform draw each, from ``generator``) and takes CE of the hard
+    and of the soft rows; ``thres.enabled`` takes CE on the hard rows'
+    top-1 and soft CE on the rest; otherwise soft CE on every labelled
+    row. Returns (total, hard, soft)."""
+    sl = cfg.get('SOFT_LABEL', None)
+    ignore = cfg.DATA_CONFIG.DATA_CLASS.ignore_label
+    n_classes = _n_classes(cfg)
+    flat_logits = logits.reshape(-1, n_classes)
+    soft = soft_labels.reshape(-1, n_classes).float()
+    has_label = (soft.sum(-1) > 0) & valid.reshape(-1)
+    top1_conf, top1 = soft.max(-1)
+    hard_mask = has_label & (top1_conf >= 1.0 - 1e-6)
+    if sl.get('convert_to_hard', False):
+        sampled = soft_to_hard_labels(soft, generator=generator,
+                                      ignore_label=ignore)
+        hard_loss = cross_entropy(
+            flat_logits, torch.where(hard_mask, sampled, ignore), ignore)[0]
+        soft_loss = cross_entropy(
+            flat_logits, torch.where(has_label & ~hard_mask, sampled, ignore),
+            ignore)[0]
+    elif sl.get('thres', {}).get('enabled', False):
+        hard_loss = cross_entropy(
+            flat_logits, torch.where(hard_mask, top1, ignore), ignore)[0]
+        soft_loss = soft_cross_entropy(flat_logits, soft,
+                                       has_label & ~hard_mask)
+    else:
+        hard_loss = flat_logits.new_zeros((), dtype=torch.float32)
+        soft_loss = soft_cross_entropy(flat_logits, soft, has_label)
+    return hard_loss + soft_loss, hard_loss, soft_loss
+
+
+def make_st_step(cfg, model: SparseConvNet,
+                 optimizer: torch.optim.Optimizer, b_caps, device="cuda"):
+    """st_step(src_batch, tar_batch, lr, w_src, w_tar, tar_soft=None,
+    generator=None) -> the metrics dict of the JAX ``st_step``
+    (``loss_x``/``loss_u`` weighted, then ``intersection``, ``union``,
+    ``target`` and ``count``, each ``_x`` for the source and ``_u`` for
+    the target).
+
+    One optimizer update from ``w_src * L_src + w_tar * L_tar``, in the
+    reference's form (tool/st.py:136-198): the source batch's forward on
+    norm domain 0 and its backward, then the target batch's on domain 1,
+    then one ``optimizer.step()``. The gradients equal the JAX single-graph
+    form's, because train-mode norms normalize with batch statistics; the
+    running statistics move in the same order (the source's rows, then
+    the target's); and the peak memory is one batch's graph. With
+    SOFT_LABEL on and ``tar_soft`` (B, N, C) given, the target term is
+    ``soft_label_loss``, whose ``convert_to_hard`` draws come from
+    ``generator``."""
+    dev = resolve_device(device)
+    b_caps = tuple(b_caps)
+    tar_cfg = cfg.get('DATA_CONFIG_TAR', None)
+    _refuse_device_aug(
+        _device_aug_on(cfg.get('DATA_CONFIG', None)),
+        _device_aug_on(tar_cfg, ('elastic', 'crop', 'shuffle')))
+    criterion = make_criterion(cfg)
+    ignore = cfg.DATA_CONFIG.DATA_CLASS.ignore_label
+    n_classes = _n_classes(cfg)
+    soft_enabled = bool(cfg.get('SOFT_LABEL', None)
+                        and cfg.SOFT_LABEL.get('enabled', False))
+
+    def term(batch, domain, weight, soft=None, generator=None):
+        """One domain's forward and backward; its loss and histograms."""
+        batch = batch.to(dev)
+        with torch.no_grad():
+            plan = build_level_plan(batch.coords, batch.valid, b_caps, dev)
+            labels = torch.where(batch.valid, batch.labels, ignore)
+        logits = model(model_input(cfg, batch), plan, domain)
+        if soft is not None:
+            loss = soft_label_loss(cfg, logits, soft.to(dev), batch.valid,
+                                   generator)[0]
+        else:
+            loss = criterion(logits, labels)
+        (weight * loss).backward()
+        with torch.no_grad():
+            preds = torch.argmax(logits, dim=-1).to(torch.int32)
+            inter, union, target = intersection_and_union(
+                preds, labels, n_classes, ignore)
+        return (loss.detach() * weight, inter, union, target,
+                (labels != ignore).sum())
+
+    def st_step(src_batch: PointBatch, tar_batch: PointBatch, lr: float,
+                w_src: float, w_tar: float, tar_soft=None,
+                generator=None) -> dict:
+        if not model.training:
+            raise RuntimeError('st_step needs the model in train mode')
+        for group in optimizer.param_groups:
+            group['lr'] = float(lr)
+        optimizer.zero_grad(set_to_none=True)
+        src = term(src_batch, 0, w_src)
+        soft = torch.as_tensor(tar_soft) \
+            if soft_enabled and tar_soft is not None else None
+        tar = term(tar_batch, 1, w_tar, soft, generator)
+        optimizer.step()
+        keys = ('loss', 'intersection', 'union', 'target', 'count')
+        return {**{f'{k}_x': v for k, v in zip(keys, src)},
+                **{f'{k}_u': v for k, v in zip(keys, tar)}}
+
+    return st_step
