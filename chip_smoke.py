@@ -45,7 +45,29 @@ Phases, each printing one line:
      step's kernel launches read from the counters against the rule,
      scenes/sec, step ms, data-wait ms, peak memory, IoU and the files
      written, with the output tree asserted
-  7. timing: each kernel at the level-0 shape beside its bound, its plain
+  7. import: a seeded reference ``.pth`` of the DA flagship (the
+     reference's key names and layouts), converted into the JAX package's
+     format by ``doda_tpu_torch.tools.convert_torch_ckpt``, through
+     ``test --ckpt`` on the 4 ScanNet rooms: launches, its mIoU equal to
+     that of the same tree loaded through ``params_from_jax`` and run
+     through ``make_eval_step``, one batch's float32 logits bit-equal
+     between the two loads (all under deterministic algorithms)
+  8. device_aug: ``train`` and ``st``, one step each, with
+     ``DATA_AUG.device`` on: step ms, data wait and its share, peak memory,
+     launches, beside phase cli's host-path readings; the augmentation's
+     own device time; ``device_augment`` on the card against the CPU on
+     the same CPU draws (feats to 1e-5, coords equal but for floor flips
+     inside 1e-4 of an integer); the brick audit of each step's augmented
+     batch
+  9. ddp: two gloo ranks spawned on the one card, one bench scene each
+     (150k and 100k points; st targets of 120k and 150k), against one
+     process on both, float32 on the kernel path
+     (``tests/_torch_equivalence.py``): for a train step and an st step
+     with soft labels, the losses, histograms, gradients, updated weights
+     and running statistics; eval predictions and histograms;
+     ``all_gather_objects``; each rank's peak memory; then ``train
+     --launcher pytorch`` at WORLD_SIZE=1 for one step
+ 10. timing: each kernel at the level-0 shape beside its bound, its plain
      version and, where there is one, a PyTorch library call computing the
      same function; K1 in both versions, with the plane gather alone, at
      the level-0 and level-1 shapes on the real rulebooks; K2 in both
@@ -56,10 +78,13 @@ Any failure raises, and the script exits non-zero without that last line.
 
 import json
 import math
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
 from unittest.mock import patch
 
 import torch
@@ -538,7 +563,11 @@ def phase_train(cfg, b_caps, card):
     return ran, f32_sm
 
 
-CLI_POINTS = 150_000       # points per synthetic room of the cli phase
+CLI_POINTS = 150_000       # points per synthetic room of the cli phases
+CFG_DA = 'cfgs/da_front3d_scannet/spconv.yaml'
+CFG_ST = 'cfgs/da_front3d_scannet/spconv_st.yaml'
+DEVICE_AUG = ['DATA_CONFIG.DATA_AUG.device', 'True',
+              'DATA_CONFIG_TAR.DATA_AUG.device', 'True']
 
 
 def _cli_launches():
@@ -572,204 +601,522 @@ def _points(scene):
     return len(np.load(scene, mmap_mode='r'))
 
 
-def phase_cli(card):
+def cli_rooms(tmp):
+    """The synthetic rooms of the cli phases under ``tmp``, the ``--set``
+    pairs that point the DA cfgs at them, and the rule's launches of each
+    step kind on the flagship's parameter shapes."""
+    import numpy as np
+
+    from doda_tpu_torch.config import CfgNode, cfg_from_yaml_file
+    from doda_tpu_torch.models import model_fn
+    from doda_tpu_torch.tools import make_synth_data
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(0)
+    make_synth_data.make_front3d(str(tmp), 6, 0, CLI_POINTS, rng)
+    make_synth_data.make_scannet(str(tmp), 6, 4, CLI_POINTS, rng)
+    make_synth_data.make_s3dis(str(tmp), 0, 2, CLI_POINTS, rng)
+    log('cli_data', seconds=time.perf_counter() - t0,
+        rooms={'front3d_train': 6, 'scannet_train': 6, 'scannet_val': 4,
+               's3dis_val': 2}, points_per_room=CLI_POINTS)
+    flagship = model_fn.build_model(
+        cfg_from_yaml_file(CFG_DA, CfgNode()), device='cpu')
+    fwd, bwd = flagship.subm_routes(), flagship.subm_routes(True)
+    assert fwd == {'sm': 0, 'fused': 52, 'assembled': 1}, fwd
+    return {
+        'tmp': tmp,
+        'roots': ['DATA_CONFIG.DATA_ROOT', str(tmp / '3dfront/density1250'),
+                  'DATA_CONFIG_TAR.DATA_ROOT', str(tmp / 'scannetv2'),
+                  'DATA_CONFIG_TAR.DATA_SPLIT.training', 'train',
+                  'DATA_CONFIG_TAR.DATA_SPLIT.validation', 'val',
+                  'DATA_CONFIG_TAR.DATA_SPLIT.test', 'val'],
+        's3dis': ['DATA_CONFIG.DATA_ROOT', str(tmp / '3dfront/density1250'),
+                  'DATA_CONFIG_TAR.DATA_ROOT',
+                  str(tmp / 's3dis' / 'trainval_fullarea')],
+        'per_call': {'eval': fwd,
+                     'train': {k: fwd[k] + bwd[k] for k in fwd},
+                     'st': {k: 2 * (fwd[k] + bwd[k]) for k in fwd}}}
+
+
+def cli_run(ctx, cli, argv, sets=None, tag='chip_smoke'):
+    """One CLI run in process; every step's launches, read from the
+    counters around the call, must be the rule's. Returns the run's
+    result, steps and launches by kind, seconds, peak memory and the
+    host arguments of each kind's first step."""
+    from doda_tpu_torch import config
+    from doda_tpu_torch.models import model_fn
+    calls, first = {}, {}
+
+    def counted(kind, factory):
+        def make(*a, **k):
+            step = factory(*a, **k)
+
+            def call(*sa, **sk):
+                first.setdefault(kind, (sa, sk))
+                before = _cli_launches()
+                out = step(*sa, **sk)
+                after = _cli_launches()
+                calls.setdefault(kind, []).append(
+                    {r: after[r] - before[r] for r in after})
+                return out
+            return call
+        return make
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _cli_reset()                                 # the counted path
+    t0 = time.perf_counter()
+    with patch.object(model_fn, 'make_eval_step', counted(
+            'eval', model_fn.make_eval_step)), \
+            patch.object(model_fn, 'make_train_step', counted(
+                'train', model_fn.make_train_step)), \
+            patch.object(model_fn, 'make_st_step', counted(
+                'st', model_fn.make_st_step)), \
+            patch.object(config, 'ROOT_DIR', ctx['tmp']):
+        result = cli.main([*argv, '--workers', '4', '--extra_tag', tag,
+                           '--set', *(ctx['roots'] if sets is None
+                                      else sets)])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    total = _cli_launches()
+    for kind, seen in calls.items():
+        for got in seen:
+            assert got == ctx['per_call'][kind], (tag, kind, got)
+    assert sum(sum(c.values()) for v in calls.values()
+               for c in v) == sum(total.values()), (tag, total)
+    return {'result': result, 'steps': {k: len(v) for k, v in calls.items()},
+            'launches': total, 'seconds': seconds, 'first': first,
+            'peak': torch.cuda.max_memory_allocated() / 2 ** 30}
+
+
+def cli_report(ctx, name, card, run, timing, **kv):
+    """Log one CLI run's readings; returns them."""
+    out = run['result']['output_dir']
+    n = max(timing.get('steps', timing.get('batches', 1)), 1)
+    readings = dict(
+        run=name, card=card, launches_per_step={
+            kind: ctx['per_call'][kind] for kind in run['steps']},
+        steps=run['steps'], launches=run['launches'],
+        seconds=run['seconds'],
+        scenes_per_sec=timing['scenes'] / timing['batch_s'],
+        step_ms=1e3 * timing['step_s'] / n,
+        data_wait_ms_per_batch=1e3 * timing['data_s'] / n,
+        data_wait_share=timing['data_s'] / timing['batch_s'],
+        peak_memory_gib=run['peak'], files=sorted(
+            str(p.relative_to(out)) for p in out.rglob('*') if p.is_file()),
+        **kv)
+    log('cli', **readings)
+    return readings
+
+
+def _eval_miou(cfg, model, split='test'):
+    """The mIoU of ``make_eval_step`` over the batches of the cfg's
+    target split, as ``tools/test.py`` batches them."""
+    from doda_tpu_torch.data import build_dataloader
+    from doda_tpu_torch.models import model_fn
+    from doda_tpu_torch.models.unet import default_brick_caps
+    from doda_tpu_torch.utils.metrics import calc_metrics
+    step = model_fn.make_eval_step(cfg, model, default_brick_caps(
+        cfg.DATA_CONFIG_TAR.DATA_PROCESSOR.brick_cap, model.num_levels))
+    _, loader, _ = build_dataloader(
+        cfg.DATA_CONFIG_TAR, cfg.OPTIMIZATION.BATCH_SIZE_PER_GPU,
+        split=split, training=False)
+    assert len(loader.dataset) % cfg.OPTIMIZATION.BATCH_SIZE_PER_GPU == 0
+    hist, first = [0, 0, 0], None
+    for batch in loader:
+        first = first or batch
+        o = step(batch.points)
+        hist = [h + o[k].cpu().numpy() for h, k in
+                zip(hist, ('intersection', 'union', 'target'))]
+    return calc_metrics(*hist)[0], first
+
+
+def phase_cli(card, ctx):
     """The port's three CLIs in process, at full width and depth and the
     cfgs' batch size, on synthetic rooms of ~150k points: train on
     3D-FRONT-format rooms, test on ScanNet- and S3DIS-format rooms (the
     latter through the 1-NN broadcast), self-training from the trained
     checkpoint. Every step's launches come from the counters. Returns each
-    run's launches by route."""
-    import shutil
-    import tempfile
-    from pathlib import Path
-
-    import numpy as np
-
-    from doda_tpu_torch import config
-    from doda_tpu_torch.config import CfgNode, cfg_from_yaml_file
-    from doda_tpu_torch.data import build_dataloader
+    run's launches by route and readings, and the trained checkpoint."""
     from doda_tpu_torch.models import model_fn
-    from doda_tpu_torch.models.unet import default_brick_caps
-    from doda_tpu_torch.tools import make_synth_data, st, test, train
+    from doda_tpu_torch.tools import st, test, train
     from doda_tpu_torch.utils import checkpoint
-    from doda_tpu_torch.utils.metrics import calc_metrics
+    import numpy as np
+    tmp = ctx['tmp']
+    launches, readings = {}, {}
+    run = cli_run(ctx, train, ['--cfg_file', CFG_DA, '--epochs', '1',
+                               '--manual_seed', '0'])
+    out = run['result']['output_dir']
+    ep = run['result']['epochs'][0]
+    assert ep['losses_finite'] and run['steps'] == {'train': 1, 'eval': 1}, (
+        ep, run['steps'])
+    ckpt = out / 'ckpt' / 'train_epoch_1'
+    assert ckpt.is_file() and (out / 'spconv.yaml').is_file()
+    assert len(list(out.glob('log_train_*.txt'))) == 1
+    readings['train'] = cli_report(ctx, 'train', card, run, ep,
+                                   train_miou=ep['miou'],
+                                   val_miou=ep['miou_val'])
+    launches['train'] = run['launches']
 
-    tmp = Path(tempfile.mkdtemp(prefix='chip_smoke_cli_'))
-    try:
-        t0 = time.perf_counter()
-        rng = np.random.default_rng(0)
-        make_synth_data.make_front3d(str(tmp), 6, 0, CLI_POINTS, rng)
-        make_synth_data.make_scannet(str(tmp), 6, 4, CLI_POINTS, rng)
-        make_synth_data.make_s3dis(str(tmp), 0, 2, CLI_POINTS, rng)
-        log('cli_data', seconds=time.perf_counter() - t0,
-            rooms={'front3d_train': 6, 'scannet_train': 6, 'scannet_val': 4,
-                   's3dis_val': 2}, points_per_room=CLI_POINTS)
-        roots = ['DATA_CONFIG.DATA_ROOT', str(tmp / '3dfront/density1250'),
-                 'DATA_CONFIG_TAR.DATA_ROOT', str(tmp / 'scannetv2'),
-                 'DATA_CONFIG_TAR.DATA_SPLIT.training', 'train',
-                 'DATA_CONFIG_TAR.DATA_SPLIT.validation', 'val',
-                 'DATA_CONFIG_TAR.DATA_SPLIT.test', 'val']
-        s3dis = ['DATA_CONFIG.DATA_ROOT', str(tmp / '3dfront/density1250'),
-                 'DATA_CONFIG_TAR.DATA_ROOT',
-                 str(tmp / 's3dis' / 'trainval_fullarea')]
-        common = ['--workers', '4', '--extra_tag', 'chip_smoke']
-        cfg_da = 'cfgs/da_front3d_scannet/spconv.yaml'
-        flagship = model_fn.build_model(
-            cfg_from_yaml_file(cfg_da, CfgNode()), device='cpu')
-        fwd, bwd = flagship.subm_routes(), flagship.subm_routes(True)
-        assert fwd == {'sm': 0, 'fused': 52, 'assembled': 1}, fwd
-        per_call = {'eval': fwd,
-                    'train': {k: fwd[k] + bwd[k] for k in fwd},
-                    'st': {k: 2 * (fwd[k] + bwd[k]) for k in fwd}}
+    run = cli_run(ctx, test, ['--cfg_file', CFG_DA, '--ckpt', str(ckpt),
+                              '--save_to_file'])
+    result = run['result']
+    out = result['output_dir']
+    for scene in sorted((tmp / 'scannetv2' / 'val').glob('*.pth')):
+        dump = out / 'txt' / f'{scene.name[:-4]}.txt'
+        assert _lines(dump) == _points(scene), dump   # one per point
+    # the same checkpoint through make_eval_step on the same batches
+    _, cfg = test.parse_config(['--cfg_file', CFG_DA, '--set',
+                                *ctx['roots']])
+    model = model_fn.build_model(cfg)
+    checkpoint.load_params_from_pretrain(ckpt, model, strict=True)
+    miou_step, _ = _eval_miou(cfg, model)
+    assert abs(miou_step - result['miou']) <= 1e-4, (
+        miou_step, result['miou'])
+    assert run['steps'] == {'eval': 1}, run['steps']
+    readings['test'] = cli_report(ctx, 'test', card, run, result,
+                                  miou=result['miou'],
+                                  miou_make_eval_step=miou_step,
+                                  allacc=result['allacc'])
+    launches['test'] = run['launches']
+    del model
 
-        def run(name, cli, argv, sets=roots):
-            """One CLI run; every step's launches, read from the counters
-            around the call, must be the rule's."""
-            calls = {}
+    run = cli_run(ctx, test, ['--cfg_file',
+                              'cfgs/da_front3d_s3dis/spconv.yaml', '--ckpt',
+                              str(ckpt), '--save_to_file'],
+                  sets=ctx['s3dis'])
+    result = run['result']
+    out = result['output_dir']
+    rooms = sorted((tmp / 's3dis' / 'trainval_fullarea').glob(
+        'Area_5_*.npy'))
+    for room in rooms:          # broadcast to every full-res point
+        assert _lines(out / 'txt' / f'{room.stem}.txt') == _points(room), \
+            room
+    assert run['steps'] == {'eval': 1}, run['steps']
+    readings['test_s3dis'] = cli_report(ctx, 'test_s3dis', card, run, result,
+                                        miou=result['miou'],
+                                        downsampling_scale=4)
+    launches['test_s3dis'] = run['launches']
 
-            def counted(kind, factory):
-                def make(*a, **k):
-                    step = factory(*a, **k)
+    run = cli_run(ctx, st, ['--cfg_file', CFG_ST, '--weight', str(ckpt),
+                            '--epochs', '1', '--manual_seed', '0',
+                            '--preserve_pseudo_labels'])
+    result = run['result']
+    out = result['output_dir']
+    ep = result['epochs'][0]
+    assert ep['losses_finite'] and ep['pseudo_labels_generated'], ep
+    assert run['steps']['st'] == 1, run['steps']
+    assert (out / 'ckpt' / 'train_epoch_1').is_file()
+    assert (out / 'split_sampler.pkl').is_file()
+    pl = out / 'pseudo_labels'
+    assert (pl / 'done.txt').is_file() and (pl / 'class_ratio.txt').is_file()
+    for scene in sorted((tmp / 'scannetv2' / 'train').glob('*.pth')):
+        labels = pl / 'npy' / f'{scene.name[:-4]}.npy'
+        assert len(np.load(labels)) == _points(scene), labels
+    readings['st'] = cli_report(ctx, 'st', card, run, ep,
+                                miou_initial=result['miou_initial'],
+                                val_miou=ep['miou_val'],
+                                src_miou=ep['miou_x'], tar_miou=ep['miou_u'],
+                                pseudo_label_seconds=ep['pseudo_s'])
+    launches['st'] = run['launches']
+    return launches, readings, ckpt
 
-                    def call(*sa, **sk):
-                        before = _cli_launches()
-                        out = step(*sa, **sk)
-                        after = _cli_launches()
-                        calls.setdefault(kind, []).append(
-                            {r: after[r] - before[r] for r in after})
-                        return out
-                    return call
-                return make
 
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
-            _cli_reset()                             # the counted path
-            t0 = time.perf_counter()
-            with patch.object(model_fn, 'make_eval_step', counted(
-                    'eval', model_fn.make_eval_step)), \
-                    patch.object(model_fn, 'make_train_step', counted(
-                        'train', model_fn.make_train_step)), \
-                    patch.object(model_fn, 'make_st_step', counted(
-                        'st', model_fn.make_st_step)), \
-                    patch.object(config, 'ROOT_DIR', tmp):
-                result = cli.main([*argv, *common, '--set', *sets])
-            torch.cuda.synchronize()
-            seconds = time.perf_counter() - t0
-            total = _cli_launches()
-            for kind, seen in calls.items():
-                for got in seen:
-                    assert got == per_call[kind], (name, kind, got)
-            assert sum(sum(c.values()) for v in calls.values()
-                       for c in v) == sum(total.values()), (name, total)
-            steps = {kind: len(v) for kind, v in calls.items()}
-            return result, steps, total, seconds, \
-                torch.cuda.max_memory_allocated() / 2 ** 30
+def reference_state_dict(cfg, seed):
+    """A reference-format ``state_dict`` (ref model/unet.py:15-69,
+    model/unet_block.py:10-100: its key names and (k,k,k,Ci,Co) layouts)
+    for the net of ``cfg``, with seeded weights scaled by fan-in and
+    statistics away from identity."""
+    import numpy as np
+    bk = cfg.MODEL.BACKBONE
+    mid, reps, levels = bk.mid_channel, bk.block_reps, bk.get('num_levels',
+                                                              7)
+    rng = np.random.default_rng(seed)
+    sd = {}
 
-        def files(out):
-            return sorted(str(p.relative_to(out)) for p in out.rglob('*')
-                          if p.is_file())
+    def t(*shape, scale=1.0):
+        return torch.tensor(rng.normal(0, scale, shape).astype(np.float32))
 
-        def report(name, result, steps, total, seconds, peak, timing,
-                   out, **kv):
-            log('cli', run=name, card=card, launches_per_step={
-                    kind: per_call[kind] for kind in steps},
-                steps=steps, launches=total, seconds=seconds,
-                scenes_per_sec=timing['scenes'] / timing['batch_s'],
-                step_ms=1e3 * timing['step_s'] / max(
-                    timing.get('steps', timing.get('batches', 1)), 1),
-                data_wait_ms_per_batch=1e3 * timing['data_s'] / max(
-                    timing.get('steps', timing.get('batches', 1)), 1),
-                data_wait_share=timing['data_s'] / timing['batch_s'],
-                peak_memory_gib=peak, files=files(out), **kv)
+    def conv(key, k, cin, cout):
+        sd[key] = t(k, k, k, cin, cout, scale=(k ** 3 * cin) ** -0.5)
 
-        launches = {}
-        result, steps, total, sec, peak = run(
-            'train', train, ['--cfg_file', cfg_da, '--epochs', '1',
-                             '--manual_seed', '0'])
-        out = result['output_dir']
-        ep = result['epochs'][0]
-        assert ep['losses_finite'] and steps == {'train': 1, 'eval': 1}, (
-            ep, steps)
-        ckpt = out / 'ckpt' / 'train_epoch_1'
-        assert ckpt.is_file() and (out / 'spconv.yaml').is_file()
-        assert len(list(out.glob('log_train_*.txt'))) == 1
-        report('train', result, steps, total, sec, peak, ep, out,
-               train_miou=ep['miou'], val_miou=ep['miou_val'])
-        launches['train'] = total
+    def norm(prefix, c):
+        sd[prefix + '.weight'] = 1 + t(c, scale=0.2)
+        sd[prefix + '.bias'] = t(c, scale=0.2)
+        sd[prefix + '.running_mean'] = t(c, scale=0.2)
+        sd[prefix + '.running_var'] = torch.tensor(
+            rng.uniform(0.5, 1.5, c).astype(np.float32))
+        sd[prefix + '.num_batches_tracked'] = torch.tensor(0)
 
-        result, steps, total, sec, peak = run(
-            'test', test, ['--cfg_file', cfg_da, '--ckpt', str(ckpt),
-                           '--save_to_file'])
-        out = result['output_dir']
-        for scene in sorted((tmp / 'scannetv2' / 'val').glob('*.pth')):
-            dump = out / 'txt' / f'{scene.name[:-4]}.txt'
-            assert _lines(dump) == _points(scene), dump   # one per point
-        # the same checkpoint through make_eval_step on the same batches
-        args, cfg = test.parse_config(['--cfg_file', cfg_da, '--set',
-                                       *roots])
-        model = model_fn.build_model(cfg)
-        checkpoint.load_params_from_pretrain(ckpt, model, strict=True)
-        step = model_fn.make_eval_step(cfg, model, default_brick_caps(
-            cfg.DATA_CONFIG_TAR.DATA_PROCESSOR.brick_cap, model.num_levels))
-        _, loader, _ = build_dataloader(
-            cfg.DATA_CONFIG_TAR, cfg.OPTIMIZATION.BATCH_SIZE_PER_GPU,
-            split='test', training=False)
-        assert len(loader.dataset) % cfg.OPTIMIZATION.BATCH_SIZE_PER_GPU \
-            == 0
-        hist = [0, 0, 0]
-        for batch in loader:
-            o = step(batch.points)
-            hist = [h + o[k].cpu().numpy() for h, k in
-                    zip(hist, ('intersection', 'union', 'target'))]
-        miou_step = calc_metrics(*hist)[0]
-        assert abs(miou_step - result['miou']) <= 1e-4, (
-            miou_step, result['miou'])
-        assert steps == {'eval': 1}, steps
-        report('test', result, steps, total, sec, peak, result, out,
-               miou=result['miou'], miou_make_eval_step=miou_step,
-               allacc=result['allacc'])
-        launches['test'] = total
-        del model, step
+    def block(prefix, cin, cout):
+        if cin != cout:
+            conv(prefix + '.i_branch.0.weight', 1, cin, cout)
+        norm(prefix + '.conv_branch.0', cin)
+        conv(prefix + '.conv_branch.2.weight', 3, cin, cout)
+        norm(prefix + '.conv_branch.3', cout)
+        conv(prefix + '.conv_branch.5.weight', 3, cout, cout)
 
-        result, steps, total, sec, peak = run(
-            'test_s3dis', test,
-            ['--cfg_file', 'cfgs/da_front3d_s3dis/spconv.yaml', '--ckpt',
-             str(ckpt), '--save_to_file'], sets=s3dis)
-        out = result['output_dir']
-        rooms = sorted((tmp / 's3dis' / 'trainval_fullarea').glob(
-            'Area_5_*.npy'))
-        for room in rooms:          # broadcast to every full-res point
-            assert _lines(out / 'txt' / f'{room.stem}.txt') \
-                == _points(room), room
-        assert steps == {'eval': 1}, steps
-        report('test_s3dis', result, steps, total, sec, peak, result, out,
-               miou=result['miou'], downsampling_scale=4)
-        launches['test_s3dis'] = total
+    def ublock(prefix, planes):
+        p = planes[0]
+        for i in range(reps):
+            block(f'{prefix}.blocks.block{i}', p, p)
+        if len(planes) > 1:
+            norm(f'{prefix}.conv.0', p)
+            conv(f'{prefix}.conv.2.weight', 2, p, planes[1])
+            ublock(f'{prefix}.u', planes[1:])
+            norm(f'{prefix}.deconv.0', planes[1])
+            conv(f'{prefix}.deconv.2.weight', 2, planes[1], p)
+            for i in range(reps):
+                block(f'{prefix}.blocks_tail.block{i}',
+                      2 * p if i == 0 else p, p)
 
-        result, steps, total, sec, peak = run(
-            'st', st, ['--cfg_file', 'cfgs/da_front3d_scannet/spconv_st.yaml',
-                       '--weight', str(ckpt), '--epochs', '1',
-                       '--manual_seed', '0', '--preserve_pseudo_labels'])
-        out = result['output_dir']
-        ep = result['epochs'][0]
-        assert ep['losses_finite'] and ep['pseudo_labels_generated'], ep
-        assert steps['st'] == 1, steps
-        assert (out / 'ckpt' / 'train_epoch_1').is_file()
-        assert (out / 'split_sampler.pkl').is_file()
-        pl = out / 'pseudo_labels'
-        assert (pl / 'done.txt').is_file() and (pl / 'class_ratio.txt'
-                                                ).is_file()
-        for scene in sorted((tmp / 'scannetv2' / 'train').glob('*.pth')):
-            labels = pl / 'npy' / f'{scene.name[:-4]}.npy'
-            assert len(np.load(labels)) == _points(scene), labels
-        report('st', result, steps, total, sec, peak, ep, out,
-               miou_initial=result['miou_initial'], val_miou=ep['miou_val'],
-               src_miou=ep['miou_x'], tar_miou=ep['miou_u'],
-               pseudo_label_seconds=ep['pseudo_s'])
-        launches['st'] = total
-        return launches
-    finally:
-        shutil.rmtree(tmp, ignore_errors=True)
+    conv('input_conv.0.weight', 3, bk.in_channel, mid)
+    ublock('unet', [mid * (i + 1) for i in range(levels)])
+    norm('output_layer.0', mid)
+    n_classes = cfg.COMMON_CLASSES.n_classes
+    sd['linear.weight'] = t(n_classes, mid, scale=mid ** -0.5)
+    sd['linear.bias'] = t(n_classes, scale=0.1)
+    return sd
+
+
+def phase_import(card, ctx):
+    """A reference ``.pth`` of the flagship, converted into the JAX
+    package's format by the port's converter, evaluated by
+    ``tools/test.py --ckpt`` on the ScanNet rooms: launches, and the mIoU
+    and one batch's float32 logits equal to those of the same tree loaded
+    through ``params_from_jax``. Returns the run's launches."""
+    from doda_tpu_torch.config import CfgNode, cfg_from_yaml_file
+    from doda_tpu_torch.models import model_fn
+    from doda_tpu_torch.models.unet import (build_level_plan,
+                                            default_brick_caps)
+    from doda_tpu_torch.tools import convert_torch_ckpt, test
+    from doda_tpu_torch.utils import checkpoint, flax_msgpack
+    from doda_tpu_torch.utils.convert import params_from_jax
+    from doda_tpu_torch.utils.device import deterministic
+    t0 = time.perf_counter()
+    tmp = ctx['tmp']
+    src, dst = tmp / 'reference.pth', tmp / 'converted'
+    sd = reference_state_dict(cfg_from_yaml_file(CFG_DA, CfgNode()), seed=3)
+    torch.save({'epoch': 12, 'state_dict': {'module.' + k: v
+                                            for k, v in sd.items()},
+                'metric': 0.5, 'commit_id': 'ref0001'}, src)
+    convert_torch_ckpt.main(['--src', str(src), '--dst', str(dst),
+                             '--cfg_file', CFG_DA])
+    blob = dst.read_bytes()
+    tree = flax_msgpack.restore(blob[8 + int.from_bytes(blob[:8],
+                                                        'little'):])
+    assert sorted(tree) == ['batch_stats', 'params'], sorted(tree)
+    assert checkpoint.load_metric_from_ckpt(dst) == (0.5, 12)
+
+    # both evaluations take the point -> cell means with deterministic
+    # algorithms (index_add_'s atomics would vary the logits from run to
+    # run), so that their mIoUs can be held equal exactly
+    with deterministic():
+        run = cli_run(ctx, test, ['--cfg_file', CFG_DA, '--ckpt', str(dst)],
+                      tag='chip_smoke_import')
+    result = run['result']
+    assert run['steps'] == {'eval': 1}, run['steps']
+    _, cfg = test.parse_config(['--cfg_file', CFG_DA, '--set',
+                                *ctx['roots']])
+    model = model_fn.build_model(cfg)
+    model.load_state_dict(params_from_jax(tree['params'],
+                                          tree['batch_stats']), strict=True)
+    with deterministic():
+        miou_tree, batch = _eval_miou(cfg, model)
+    assert miou_tree == result['miou'], (miou_tree, result['miou'])
+    # one batch's float32 logits, loaded both ways
+    b_caps = default_brick_caps(cfg.DATA_CONFIG_TAR.DATA_PROCESSOR.brick_cap,
+                                model.num_levels)
+    points = batch.points.to('cuda')
+    plan = build_level_plan(points.coords, points.valid, b_caps)
+    logits = []
+    for load in ('file', 'tree'):
+        m = model_fn.build_model(cfg, dtype=torch.float32)
+        if load == 'file':
+            checkpoint.load_params_from_pretrain(dst, m, strict=True)
+        else:
+            m.load_state_dict(params_from_jax(tree['params'],
+                                              tree['batch_stats']))
+        with torch.no_grad(), deterministic():
+            logits.append(m(model_fn.model_input(cfg, points), plan))
+    assert torch.isfinite(logits[0]).all()
+    assert torch.equal(logits[0], logits[1])
+    cli_report(ctx, 'import_test', card, run, result, miou=result['miou'],
+               miou_params_from_jax=miou_tree, f32_logits_bit_equal=True,
+               converted_bytes=len(blob),
+               phase_seconds=time.perf_counter() - t0)
+    return {'import_test': run['launches']}
+
+
+def _audit(batch, cap, num_levels):
+    """``check_brick_capacity``'s count of a device batch: the worst
+    scene's bricks at each level and the levels that drop some."""
+    from types import SimpleNamespace
+
+    from doda_tpu_torch.data.dataset import Dataset
+    seen = {'over': []}
+
+    class Log:
+        def info(self, fmt, util):
+            seen['util'] = util
+
+        def warning(self, fmt, lvl, w, c, *rest):
+            seen['over'].append((lvl, w, c))
+
+    Dataset.check_brick_capacity(None, SimpleNamespace(points=batch.to(
+        'cpu')), cap, Log(), num_levels=num_levels)
+    return seen
+
+
+def phase_device_aug(card, ctx, ckpt, host):
+    """``train`` and ``st`` with ``DATA_AUG.device`` on, one step each,
+    beside phase cli's host-path readings (``host``); ``device_augment``
+    on the card against the CPU on the same CPU draws; the brick audit of
+    each step's augmented batch. Returns the runs' launches."""
+    from doda_tpu_torch.data import device_aug
+    from doda_tpu_torch.models import model_fn
+    from doda_tpu_torch.tools import st, train
+    t0 = time.perf_counter()
+    launches, readings, batches = {}, {}, {}
+    run = cli_run(ctx, train, ['--cfg_file', CFG_DA, '--epochs', '1',
+                               '--manual_seed', '0'],
+                  sets=ctx['roots'] + DEVICE_AUG, tag='chip_smoke_device_aug')
+    ep = run['result']['epochs'][0]
+    assert ep['losses_finite'] and run['steps'] == {'train': 1, 'eval': 1}
+    (points, _lr, _dom), kw = run['first']['train']
+    batches['train'] = (points, kw['step'])
+    readings['train'] = cli_report(
+        ctx, 'train_device_aug', card, run, ep, host_path=host['train'])
+    launches['train_device_aug'] = run['launches']
+
+    run = cli_run(ctx, st, ['--cfg_file', CFG_ST, '--weight', str(ckpt),
+                            '--epochs', '1', '--manual_seed', '0'],
+                  sets=ctx['roots'] + DEVICE_AUG, tag='chip_smoke_device_aug')
+    ep = run['result']['epochs'][0]
+    assert ep['losses_finite'] and run['steps']['st'] == 1, (ep, run['steps'])
+    (src, tar, *_), kw = run['first']['st']
+    batches['st_source'] = (src, 2 * kw['step'])
+    batches['st_target'] = (tar, 2 * kw['step'] + 1)
+    readings['st'] = cli_report(ctx, 'st_device_aug', card, run, ep,
+                                host_path=host['st'])
+    launches['st_device_aug'] = run['launches']
+
+    # the augmented batches of the steps, drawn again as the steps drew
+    # them, through the brick audit at the caps each step's plan uses
+    # (train: the source cfg's; st: the target cfg's, for both terms)
+    cfgs = {c: train.parse_config(['--cfg_file', c, '--set', *ctx['roots'],
+                                   *DEVICE_AUG])[1] for c in (CFG_DA, CFG_ST)}
+    da, stc = cfgs[CFG_DA], cfgs[CFG_ST]
+    plans = {'train': (da, device_aug.aug_fn_for(da.DATA_CONFIG),
+                       da.DATA_CONFIG.DATA_PROCESSOR.brick_cap),
+             'st_source': (stc, device_aug.aug_fn_for(stc.DATA_CONFIG),
+                           stc.DATA_CONFIG_TAR.DATA_PROCESSOR.brick_cap),
+             'st_target': (stc, device_aug.aug_fn_for(
+                 stc.DATA_CONFIG_TAR, ['elastic', 'crop', 'shuffle']),
+                 stc.DATA_CONFIG_TAR.DATA_PROCESSOR.brick_cap)}
+    audits, aug_ms = {}, {}
+    for name, (points, key) in batches.items():
+        cfg, aug, cap = plans[name]
+        points = points.to('cuda')
+        out = model_fn._augment(aug, points, int(cfg.get('AUG_SEED', 0)),
+                                key)
+        seen = _audit(out, cap, cfg.MODEL.BACKBONE.get('num_levels', 7))
+        assert not seen['over'], (name, seen['over'])
+        audits[name] = seen['util']
+        # what the augmentation adds to a step on the card: draws included
+        aug_ms[name] = cuda_ms(lambda: model_fn._augment(
+            aug, points, int(cfg.get('AUG_SEED', 0)), key), 5)
+
+    # device_augment on the card against the CPU on the same CPU draws
+    ac = da.DATA_CONFIG.DATA_AUG
+    scale = da.DATA_CONFIG.DATA_PROCESSOR.voxel_scale
+    points = batches['train'][0]
+    draws = device_aug.make_draws(ac, scale, points.valid.shape[0],
+                                  torch.Generator().manual_seed(0))
+    cpu = device_aug.device_augment(ac, scale, points, draws)
+    positions, _ = device_aug.augmented_positions(ac, scale, points, draws)
+    card_draws = {k: [n.cuda() for n in v] if isinstance(v, list)
+                  else v.cuda() for k, v in draws.items()}
+    gpu = device_aug.device_augment(ac, scale, points.to('cuda'), card_draws)
+    feats_err = (gpu.feats.cpu() - cpu.feats).abs().max().item()
+    assert feats_err <= 1e-5, feats_err
+    frac = (positions - positions.round()).abs()[points.valid].numpy()
+    diff = (gpu.coords.cpu().long() - cpu.coords.long()).abs()
+    assert (diff[~points.valid] == 0).all()
+    diff = diff[points.valid].numpy()
+    assert (diff[frac > 1e-4] == 0).all() and diff.max() <= 1, diff.max()
+    log('device_aug', card=card, readings=readings, brick_audit=audits,
+        augment_ms_per_batch=aug_ms,
+        device_vs_cpu={'feats_max_abs_err': feats_err,
+                       'coords_floor_flips': int((diff > 0).sum()),
+                       'coords_in_band': int((frac <= 1e-4).sum()),
+                       'points': int(points.valid.sum())},
+        elastic_grids=[d for _, _, d in device_aug.elastic_pairs(ac, scale)],
+        phase_seconds=time.perf_counter() - t0)
+    return launches
+
+
+def phase_ddp(card, ctx, cfg, b_caps):
+    """Two gloo ranks spawned on the one card, one bench scene each,
+    against one process on both, float32 on the kernel path, a train step
+    and an st step with soft labels (the bounds of phase train's float32
+    check); then ``tools/train.py --launcher pytorch`` at WORLD_SIZE=1 for
+    one step. Returns that run's launches."""
+    import os
+
+    from doda_tpu_torch.models import model_fn
+    from doda_tpu_torch.tools import train
+    from doda_tpu_torch.utils import optim, synth
+    # the check lives with the tests, not in the package; the ranks that
+    # it spawns inherit this path
+    sys.path.insert(0, str(Path(__file__).resolve().parent / 'tests'))
+    import _torch_equivalence as equivalence
+    t0 = time.perf_counter()
+    src, tar = (synth.make_batch(seed=s, batch=2) for s in (1, 2))
+    # the ranks must hold different point counts, or a per-rank loss mean
+    # and per-rank statistics would pass for the whole batch's
+    src.valid[1, 100_000:] = False
+    tar.valid[0, 120_000:] = False
+    for batch in (src, tar):
+        synth.capacity_audit(batch, b_caps)
+    sd = {k: v.cpu() for k, v in synth.seeded_state_dict(
+        model_fn.build_model(cfg), seed=0).items()}
+    lr = optim.make_lr_fn(cfg.OPTIMIZATION, cfg.OPTIMIZATION.NUM_EPOCHS,
+                          100)(1, 0)
+    torch.cuda.empty_cache()
+    got = equivalence.compare(cfg, sd, src, tar, b_caps, device='cuda',
+                              dtype=torch.float32, lr=lr)
+    for step in ('train', 'st'):
+        assert got[f'{step}_loss_rel'] <= 1e-4, got
+        assert got[f'{step}_grad'] <= 1e-3, got
+        assert got[f'{step}_weights'] <= 1e-3, got
+        assert got[f'{step}_stats'] <= 1e-3, got
+        assert got[f'{step}_ranks_equal'] is True, (step, got)
+    assert got['train_hist_equal'] is True, got
+    # the st step's predictions come from batch statistics that the card
+    # sums in another order over two ranks: an argmax within rounding of
+    # a tie may flip a point. Its histograms may differ by 1e-4 of the
+    # target's points (27 of 270k)
+    tar_points = sum(got['tar_points_per_rank'])
+    assert got['st_hist_max_diff'] <= 1e-4 * tar_points, got
+    for key in ('eval_preds_equal', 'eval_hist_equal', 'gathered_equal'):
+        assert got[key] is True, (key, got)
+    for key in ('points_per_rank', 'tar_points_per_rank'):
+        assert got[key][0] != got[key][1], got
+    ranks_s = time.perf_counter() - t0
+
+    with patch.dict(os.environ, {'WORLD_SIZE': '1'}):
+        run = cli_run(ctx, train, ['--cfg_file', CFG_DA, '--epochs', '1',
+                                   '--launcher', 'pytorch'],
+                      sets=ctx['roots'] + ['EVALUATION.evaluate', 'False'],
+                      tag='chip_smoke_launcher')
+    ep = run['result']['epochs'][0]
+    assert ep['losses_finite'] and run['steps'] == {'train': 1}, run['steps']
+    log('ddp', card=card, backend='gloo', world=2, **got,
+        two_ranks_seconds=ranks_s, launcher_world_1=dict(
+            steps=run['steps'], launches=run['launches'],
+            step_ms=1e3 * ep['step_s'], seconds=run['seconds']),
+        phase_seconds=time.perf_counter() - t0)
+    return {'train_launcher_world_1': run['launches']}
 
 
 def _bound(moved, ops):
@@ -991,6 +1338,7 @@ def main():
     from doda_tpu_torch.models.unet import default_brick_caps
     from doda_tpu_torch.utils import synth
 
+    start = time.perf_counter()
     name, card = phase_device()
     phase_build()
 
@@ -1006,10 +1354,19 @@ def main():
     fwd = phase_forward(cfg, batch, b_caps, card)
     del batch
     train, f32_sm = phase_train(cfg, b_caps, card)
-    cli = phase_cli(card)
+    tmp = Path(tempfile.mkdtemp(prefix='chip_smoke_cli_'))
+    try:
+        ctx = cli_rooms(tmp)
+        cli, host, ckpt = phase_cli(card, ctx)
+        cli.update(phase_import(card, ctx))
+        cli.update(phase_device_aug(card, ctx, ckpt, host))
+        cli.update(phase_ddp(card, ctx, cfg, b_caps))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
     rows = phase_timing(levels, {**{k: (fwd[k], train[k]) for k in fwd},
                                  'sm_f32': f32_sm})
-    # each CLI run's launches, counted in phase cli, join each kernel's
+    # each CLI run's launches, counted in the cli phases, join each
+    # kernel's
     for row, route in ((rows[0], 'fused'), (rows[0]['assembled'],
                                             'assembled'), (rows[1], 'sm')):
         row['launches_cli'] = {run: n[route] for run, n in cli.items()}
@@ -1018,6 +1375,7 @@ def main():
         assert r['launches'] > 0, r['name']
     assert rows[0]['assembled']['launches'] > 0
     assert rows[1]['first_version']['launches_f32_train_step'] > 0
+    log('run', card=card, seconds=time.perf_counter() - start)
     print(json.dumps({'kernels': rows}), flush=True)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': name,

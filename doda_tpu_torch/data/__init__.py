@@ -1,7 +1,7 @@
 """Dataset registry + loader builders (ref: dataset/__init__.py).
 
-A copy of ``doda_tpu/data/__init__.py``; sampler sharding stays, at
-``world_size`` 1 until the port has its parallel slice.
+A copy of ``doda_tpu/data/__init__.py``; with ``dist`` the samplers
+stride across ``world_size`` ranks (the CLIs' ``--launcher``).
 """
 
 from __future__ import annotations

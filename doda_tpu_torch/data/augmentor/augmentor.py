@@ -152,8 +152,7 @@ class DataAugmentor:
 
     def init_queue(self, aug_list):
         """Device mode (``DATA_AUG.device``): scene_aug + elastic move
-        into the train step (the JAX package's data/device_aug.py; the
-        port's steps refuse it, it is not ported yet); the host keeps
+        into the train and st steps (``data/device_aug.py``); the host keeps
         the stages that change the point set or need irregular state
         (vss/tacm/crop/shuffle). scene_aug drops out of the pipeline and
         elastic runs its pass-through branch (scale + min-shift only) so

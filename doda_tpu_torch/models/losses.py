@@ -12,14 +12,20 @@ from __future__ import annotations
 import torch
 
 
+def _same(t):
+    return t
+
+
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
                   ignore_label: int = 255,
-                  sample_weight: torch.Tensor | None = None):
+                  sample_weight: torch.Tensor | None = None, reduce=_same):
     """Mean CE over non-ignored points.
 
     logits (N, C), labels (N,) int. With ``sample_weight`` the mean is
     sum(w * ce) / (sum(w) + 1e-9) (ref: model/unet.py:169-172).
-    Returns (loss, valid_count)."""
+    ``reduce`` maps this call's denominator (the count, or sum(w)) to the
+    whole batch's, for a batch split over ranks: the losses of the ranks
+    then sum to the whole batch's mean. Returns (loss, valid_count)."""
     n_classes = logits.shape[-1]
     valid = labels != ignore_label
     safe = labels.clamp(0, n_classes - 1).long()
@@ -28,8 +34,8 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
     nll = torch.where(valid, nll, 0.0)
     if sample_weight is not None:
         w = torch.where(valid, sample_weight.float(), 0.0)
-        return (nll * w).sum() / (w.sum() + 1e-9), valid.sum()
-    count = valid.sum().clamp(min=1)
+        return (nll * w).sum() / (reduce(w.sum()) + 1e-9), valid.sum()
+    count = reduce(valid.sum()).clamp(min=1)
     return nll.sum() / count, valid.sum()
 
 
@@ -62,16 +68,18 @@ def lovasz_softmax(logits: torch.Tensor, labels: torch.Tensor,
 
 
 def soft_cross_entropy(logits: torch.Tensor, soft_labels: torch.Tensor,
-                       valid: torch.Tensor | None = None) -> torch.Tensor:
+                       valid: torch.Tensor | None = None,
+                       reduce=_same) -> torch.Tensor:
     """CE against soft target distributions (the SOFT_LABEL branch, ref:
     model/unet.py:174-194). soft_labels (N, C) rows sum to 1; rows that
-    sum to 0 carry no label unless ``valid`` says otherwise."""
+    sum to 0 carry no label unless ``valid`` says otherwise. ``reduce``
+    as in ``cross_entropy``."""
     logp = torch.log_softmax(logits.float(), dim=-1)
     per_point = -(soft_labels * logp).sum(-1)
     if valid is None:
         valid = soft_labels.sum(-1) > 0
     per_point = torch.where(valid, per_point, 0.0)
-    return per_point.sum() / valid.sum().clamp(min=1)
+    return per_point.sum() / reduce(valid.sum()).clamp(min=1)
 
 
 def soft_to_hard_labels(soft_labels: torch.Tensor,

@@ -14,6 +14,16 @@ and the optimizer hold the state and the step mutates them.
 ``make_st_step`` returns the self-training step in the reference's own
 form (tool/st.py:136-198): the source term's forward and backward, then
 the target term's, then one optimizer update.
+
+Under ``DATA_AUG.device`` the train and st steps augment their batches on
+the device (``data/device_aug.py``) with draws seeded from ``AUG_SEED``
+and the step count, as the JAX steps fold ``state.step`` into their key.
+In a process group (``parallel/collectives.py``) each rank's batch is its
+shard of the whole batch: the loss is the whole batch's masked mean (each
+rank's share divided by the summed denominator), the gradients are summed
+over the ranks before the update, the norms take the whole batch's
+statistics, and the returned loss, histograms and count are the whole
+batch's, so every rank logs what one process would.
 """
 
 from __future__ import annotations
@@ -22,6 +32,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..parallel import collectives
 from ..utils.device import resolve_device
 from ..utils.metrics import intersection_and_union
 from .losses import (cross_entropy, lovasz_softmax, soft_cross_entropy,
@@ -83,6 +94,11 @@ def model_input(cfg, batch: PointBatch) -> torch.Tensor:
     return torch.where(batch.valid[..., None], feats, 0.0)
 
 
+def _rank_sum(t):
+    """The losses' ``reduce``: a denominator summed over the ranks."""
+    return collectives.sum_tensors(t)[0]
+
+
 def make_criterion(cfg):
     kind = cfg.OPTIMIZATION.get('loss', 'cross_entropy')
     if kind not in ('cross_entropy', 'lovasz'):
@@ -94,9 +110,14 @@ def make_criterion(cfg):
         flat_logits = logits.reshape(-1, n_classes)
         flat_labels = labels.reshape(-1)
         if kind == 'lovasz':
+            if collectives.world_size() > 1:
+                raise NotImplementedError(
+                    'the Lovasz loss of a batch split over ranks does not '
+                    'split into per-rank terms; train it in one process')
             return lovasz_softmax(flat_logits, flat_labels, ignore)
         w = weight.reshape(-1) if weight is not None else None
-        return cross_entropy(flat_logits, flat_labels, ignore, w)[0]
+        return cross_entropy(flat_logits, flat_labels, ignore, w,
+                             reduce=_rank_sum)[0]
 
     return criterion
 
@@ -151,52 +172,73 @@ def make_eval_step(cfg, model: SparseConvNet, b_caps, device="cuda"):
     return eval_step
 
 
-def _device_aug_on(data_cfg, aug_list=None) -> bool:
-    """Whether the JAX package's ``aug_fn_for(data_cfg, aug_list)`` would
-    return a device-side augmentation closure for this data config."""
-    ac = data_cfg.get('DATA_AUG', None) if data_cfg else None
-    if not ac or not ac.get('enabled', True) or not ac.get('device', False):
-        return False
-    def enabled(c):
-        if c is None or c is False:
-            return False
-        return c.get('enabled', True) if hasattr(c, 'get') else True
-
-    stages = aug_list if aug_list is not None else ac.get('aug_list', [])
-    return any(s in stages and enabled(ac.get(s))
-               for s in ('scene_aug', 'elastic'))
+def _device_aug(data_cfg, aug_list=None):
+    """The device augmentation of ``data_cfg`` (``device_aug.aug_fn_for``),
+    or None; imported on use, since the data package imports this
+    module."""
+    from ..data.device_aug import aug_fn_for
+    return aug_fn_for(data_cfg, aug_list) if data_cfg else None
 
 
-def _refuse_device_aug(*on):
-    if any(on):
-        raise NotImplementedError(
-            'DATA_AUG.device: the on-device augmentation (the JAX '
-            "package's data/device_aug.py) belongs to the data-path queue "
-            'of the port and is not ported yet')
+def _augment(aug, batch: PointBatch, seed: int, key: int) -> PointBatch:
+    """``batch`` through ``aug`` with the draws of a generator on its
+    device, seeded from ``AUG_SEED`` (``seed``), ``key`` (the step count,
+    or 2·step and 2·step + 1 in st) and, in a process group, the rank, so
+    that a resumed run draws what an uninterrupted run draws and the ranks
+    draw apart."""
+    augment, draw = aug
+    gen = torch.Generator(device=batch.coords.device)
+    gen.manual_seed(collectives.rank_seed(seed * 1_000_003 + key))
+    with torch.no_grad():
+        return augment(batch, draw(batch.valid.shape[0], gen))
+
+
+def _aug_seed(cfg) -> int:
+    return int(cfg.get('AUG_SEED', 0))
+
+
+def _need_step(step):
+    if step is None:
+        raise ValueError('DATA_AUG.device draws from the step count: pass '
+                         'step=<global step> to the step function')
+    return int(step)
+
+
+def _finish(model, optimizer, *metrics):
+    """Sum the gradients over the ranks, update, and return the whole
+    batch's metrics."""
+    collectives.all_reduce_grads(model)
+    optimizer.step()
+    return collectives.sum_tensors(*metrics)
 
 
 def make_train_step(cfg, model: SparseConvNet,
                     optimizer: torch.optim.Optimizer, b_caps, device="cuda"):
-    """train_step(batch, lr, domain=0, loss_weight=None) -> the metrics dict
-    of the JAX ``train_step`` (loss, intersection, union, target, count).
+    """train_step(batch, lr, domain=0, loss_weight=None, step=None) -> the
+    metrics dict of the JAX ``train_step`` (loss, intersection, union,
+    target, count).
 
-    One step moves the batch to ``device``, builds the level plan, runs the
-    model in train mode, takes the gradient of the loss, sets ``lr`` on the
-    optimizer and applies its update; the norms' running statistics move in
-    the forward. ``model`` must be in train mode (``build_model(...,
+    One step moves the batch to ``device``, augments it there under
+    ``DATA_AUG.device`` (draws from ``step``, the global step count, which
+    is then required), builds the level plan, runs the model in train
+    mode, takes the gradient of the loss, sets ``lr`` on the optimizer and
+    applies its update; the norms' running statistics move in the
+    forward. ``model`` must be in train mode (``build_model(...,
     train=True)``)."""
     dev = resolve_device(device)
     b_caps = tuple(b_caps)
-    _refuse_device_aug(_device_aug_on(cfg.get('DATA_CONFIG', None)))
+    aug = _device_aug(cfg.get('DATA_CONFIG', None))
     criterion = make_criterion(cfg)
     ignore = cfg.DATA_CONFIG.DATA_CLASS.ignore_label
     n_classes = _n_classes(cfg)
 
     def train_step(batch: PointBatch, lr: float, domain: int = 0,
-                   loss_weight=None) -> dict:
+                   loss_weight=None, step=None) -> dict:
         if not model.training:
             raise RuntimeError('train_step needs the model in train mode')
         batch = batch.to(dev)
+        if aug is not None:
+            batch = _augment(aug, batch, _aug_seed(cfg), _need_step(step))
         with torch.no_grad():
             plan = build_level_plan(batch.coords, batch.valid, b_caps, dev)
             labels = torch.where(batch.valid, batch.labels, ignore)
@@ -206,14 +248,14 @@ def make_train_step(cfg, model: SparseConvNet,
             group['lr'] = float(lr)
         optimizer.zero_grad(set_to_none=True)
         loss.backward()
-        optimizer.step()
         with torch.no_grad():
             preds = torch.argmax(logits, dim=-1).to(torch.int32)
             inter, union, target = intersection_and_union(
                 preds, labels, n_classes, ignore)
-        return {'loss': loss.detach(), 'intersection': inter,
-                'union': union, 'target': target,
-                'count': (labels != ignore).sum()}
+        metrics = _finish(model, optimizer, loss.detach(), inter, union,
+                          target, (labels != ignore).sum())
+        return dict(zip(('loss', 'intersection', 'union', 'target',
+                         'count'), metrics))
 
     return train_step
 
@@ -230,7 +272,8 @@ def soft_label_loss(cfg, logits: torch.Tensor, soft_labels: torch.Tensor,
     (one uniform draw each, from ``generator``) and takes CE of the hard
     and of the soft rows; ``thres.enabled`` takes CE on the hard rows'
     top-1 and soft CE on the rest; otherwise soft CE on every labelled
-    row. Returns (total, hard, soft)."""
+    row. In a process group each loss divides by its denominator summed
+    over the ranks. Returns (total, hard, soft)."""
     sl = cfg.get('SOFT_LABEL', None)
     ignore = cfg.DATA_CONFIG.DATA_CLASS.ignore_label
     n_classes = _n_classes(cfg)
@@ -243,25 +286,29 @@ def soft_label_loss(cfg, logits: torch.Tensor, soft_labels: torch.Tensor,
         sampled = soft_to_hard_labels(soft, generator=generator,
                                       ignore_label=ignore)
         hard_loss = cross_entropy(
-            flat_logits, torch.where(hard_mask, sampled, ignore), ignore)[0]
+            flat_logits, torch.where(hard_mask, sampled, ignore), ignore,
+            reduce=_rank_sum)[0]
         soft_loss = cross_entropy(
             flat_logits, torch.where(has_label & ~hard_mask, sampled, ignore),
-            ignore)[0]
+            ignore, reduce=_rank_sum)[0]
     elif sl.get('thres', {}).get('enabled', False):
         hard_loss = cross_entropy(
-            flat_logits, torch.where(hard_mask, top1, ignore), ignore)[0]
+            flat_logits, torch.where(hard_mask, top1, ignore), ignore,
+            reduce=_rank_sum)[0]
         soft_loss = soft_cross_entropy(flat_logits, soft,
-                                       has_label & ~hard_mask)
+                                       has_label & ~hard_mask,
+                                       _rank_sum)
     else:
         hard_loss = flat_logits.new_zeros((), dtype=torch.float32)
-        soft_loss = soft_cross_entropy(flat_logits, soft, has_label)
+        soft_loss = soft_cross_entropy(flat_logits, soft, has_label,
+                                       _rank_sum)
     return hard_loss + soft_loss, hard_loss, soft_loss
 
 
 def make_st_step(cfg, model: SparseConvNet,
                  optimizer: torch.optim.Optimizer, b_caps, device="cuda"):
     """st_step(src_batch, tar_batch, lr, w_src, w_tar, tar_soft=None,
-    generator=None) -> the metrics dict of the JAX ``st_step``
+    generator=None, step=None) -> the metrics dict of the JAX ``st_step``
     (``loss_x``/``loss_u`` weighted, then ``intersection``, ``union``,
     ``target`` and ``count``, each ``_x`` for the source and ``_u`` for
     the target).
@@ -275,22 +322,29 @@ def make_st_step(cfg, model: SparseConvNet,
     the target's); and the peak memory is one batch's graph. With
     SOFT_LABEL on and ``tar_soft`` (B, N, C) given, the target term is
     ``soft_label_loss``, whose ``convert_to_hard`` draws come from
-    ``generator``."""
+    ``generator``. Under ``DATA_AUG.device`` the source batch is augmented
+    with the draws of key 2·``step`` and the target batch (post-mix
+    stages only: elastic, crop, shuffle; none for soft-label batches)
+    with those of 2·``step`` + 1."""
     dev = resolve_device(device)
     b_caps = tuple(b_caps)
-    tar_cfg = cfg.get('DATA_CONFIG_TAR', None)
-    _refuse_device_aug(
-        _device_aug_on(cfg.get('DATA_CONFIG', None)),
-        _device_aug_on(tar_cfg, ('elastic', 'crop', 'shuffle')))
+    src_aug = _device_aug(cfg.get('DATA_CONFIG', None))
+    # the st target stream runs the mix dataset's post pipeline
+    # (mix_dataset.py:27-29); soft-label batches skip augmentation
+    tar_aug = _device_aug(cfg.get('DATA_CONFIG_TAR', None),
+                          ['elastic', 'crop', 'shuffle'])
     criterion = make_criterion(cfg)
     ignore = cfg.DATA_CONFIG.DATA_CLASS.ignore_label
     n_classes = _n_classes(cfg)
     soft_enabled = bool(cfg.get('SOFT_LABEL', None)
                         and cfg.SOFT_LABEL.get('enabled', False))
 
-    def term(batch, domain, weight, soft=None, generator=None):
+    def term(batch, domain, weight, soft=None, generator=None, aug=None,
+             key=0):
         """One domain's forward and backward; its loss and histograms."""
         batch = batch.to(dev)
+        if aug is not None:
+            batch = _augment(aug, batch, _aug_seed(cfg), key)
         with torch.no_grad():
             plan = build_level_plan(batch.coords, batch.valid, b_caps, dev)
             labels = torch.where(batch.valid, batch.labels, ignore)
@@ -310,19 +364,23 @@ def make_st_step(cfg, model: SparseConvNet,
 
     def st_step(src_batch: PointBatch, tar_batch: PointBatch, lr: float,
                 w_src: float, w_tar: float, tar_soft=None,
-                generator=None) -> dict:
+                generator=None, step=None) -> dict:
         if not model.training:
             raise RuntimeError('st_step needs the model in train mode')
+        soft = torch.as_tensor(tar_soft) \
+            if soft_enabled and tar_soft is not None else None
+        t_aug = tar_aug if soft is None else None
+        if src_aug is not None or t_aug is not None:
+            step = _need_step(step)
         for group in optimizer.param_groups:
             group['lr'] = float(lr)
         optimizer.zero_grad(set_to_none=True)
-        src = term(src_batch, 0, w_src)
-        soft = torch.as_tensor(tar_soft) \
-            if soft_enabled and tar_soft is not None else None
-        tar = term(tar_batch, 1, w_tar, soft, generator)
-        optimizer.step()
+        src = term(src_batch, 0, w_src, aug=src_aug, key=2 * (step or 0))
+        tar = term(tar_batch, 1, w_tar, soft, generator, aug=t_aug,
+                   key=2 * (step or 0) + 1)
+        metrics = _finish(model, optimizer, *src, *tar)
         keys = ('loss', 'intersection', 'union', 'target', 'count')
-        return {**{f'{k}_x': v for k, v in zip(keys, src)},
-                **{f'{k}_u': v for k, v in zip(keys, tar)}}
+        return {**{f'{k}_x': v for k, v in zip(keys, metrics[:5])},
+                **{f'{k}_u': v for k, v in zip(keys, metrics[5:])}}
 
     return st_step

@@ -15,6 +15,8 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from ..parallel import collectives
+
 
 class MaskedBatchNorm(nn.Module):
     """BatchNorm over masked cells; eps 1e-4, momentum 0.1 (ref:
@@ -44,11 +46,19 @@ class MaskedBatchNorm(nn.Module):
     def _batch_stats(self, x3: torch.Tensor, mask: torch.Tensor, d: int):
         """Float32 mean and biased variance over the masked cells, as
         ``var = max(E[x^2] - mean^2, 0)``; moves the running statistics of
-        domain ``d`` in place (they are no part of the autograd graph)."""
+        domain ``d`` in place (they are no part of the autograd graph).
+        In a process group the masked sums and the count are summed over
+        the ranks, gradient included, so the statistics are those of the
+        whole batch (SyncBN; the JAX package's sharded jit reduces them
+        the same way)."""
         xm = torch.where(mask[:, :, None], x3, 0).float()
-        count = mask.sum().float().clamp(min=1.0)
-        mean = xm.sum((0, 1)) / count
-        var = ((xm * xm).sum((0, 1)) / count - mean * mean).clamp(min=0.0)
+        c = self.features
+        sums = collectives.sum_with_grad(torch.cat([
+            xm.sum((0, 1)), (xm * xm).sum((0, 1)),
+            mask.sum().float().reshape(1)]))
+        count = sums[2 * c].clamp(min=1.0)
+        mean = sums[:c] / count
+        var = (sums[c:2 * c] / count - mean * mean).clamp(min=0.0)
         with torch.no_grad():
             unbiased = var * count / (count - 1.0).clamp(min=1.0)
             mom = self.momentum

@@ -11,6 +11,12 @@ domain 0) and TACM-mixed target batches (domain 1) through the port's
 ``make_st_step``, updating the tail-cuboid queue from each mixed batch.
 Checkpoints, eval, split-sampler persistence and the done.txt /
 class_ratio.txt artifacts match the reference's output tree.
+
+Under ``--launcher pytorch`` or ``slurm`` (one process per card, see
+``tools/train.py``) the ranks also share the pseudo-label pass (the
+confidence histogram and the class ratios summed over the ranks, each
+rank writing the labels of its own scenes) and the tail cuboids that
+each mixed batch harvests (root tools/st.py:155-180).
 """
 
 from __future__ import annotations
@@ -27,11 +33,12 @@ from ..data import get_dataset
 from ..data.loader import DataReader
 from ..models import model_fn as mf
 from ..models.unet import default_brick_caps
+from ..parallel import collectives
 from ..utils import checkpoint as ckpt_utils
 from ..utils import pseudo_labels as pl_utils
 from ..utils.metrics import AverageMeter, calc_metrics
 from ..utils.optim import build_optimizer, make_lr_fn
-from .common import add_port_args, host, load_cfg
+from .common import add_port_args, host, load_cfg, rank_share
 from .train import resume, save_epoch, start, validate_epoch
 
 ST_METRICS = ('loss_x', 'loss_u', 'intersection_x', 'union_x', 'target_x',
@@ -69,7 +76,12 @@ def set_pseudo_labels(args, cfg, logger, tar_data, tar_loader, eval_step,
 
     Pass 1 (only for ratio thresholds): accumulate per-class confidence
     histograms; pass 2: write thresholded labels per scene. Both passes
-    run full-resolution, no-aug (ref :49-55). Returns whether it
+    run full-resolution, no-aug (ref :49-55), and count each scene once:
+    the rows that the sampler pads a batch with are left out of the
+    histogram, the labels and the class ratios. In a process group the
+    histogram and the class ratios are summed over the ranks, each rank
+    writes the labels of its own share of the scenes, and rank 0 marks
+    the store done once every rank has written. Returns whether it
     generated (False when the store's done.txt says it is complete)."""
     n_classes = cfg.COMMON_CLASSES.n_classes
     soft_enabled = bool(cfg.get('SOFT_LABEL', None)
@@ -87,20 +99,29 @@ def set_pseudo_labels(args, cfg, logger, tar_data, tar_loader, eval_step,
             tar_data.set_downsampling_scale(1)
         keys = ['preds', 'confidence'] + (['output'] if soft_enabled else [])
 
+        share = rank_share(tar_loader)
+
         def sweep(fn):
+            # the rows past this rank's share repeat earlier scenes
+            # (sampler padding): fn counts the first n_real rows alone,
+            # so that every scene counts once, in any world
+            seen = 0
             for batch in tar_loader:
-                fn(batch, host(eval_step(batch.points, 1), keys))
+                n_real = min(len(batch.ids), max(share - seen, 0))
+                seen += len(batch.ids)
+                fn(batch, host(eval_step(batch.points, 1), keys), n_real)
 
         def collect_hist():
             logger.info('*********** Get Pseudo Label Confidence ***********')
             hist = np.zeros((n_classes, pl_utils.N_BINS), np.int64)
 
-            def acc(batch, out):
+            def acc(batch, out, n_real):
+                valid = batch.points.valid.numpy().copy()
+                valid[n_real:] = False
                 pl_utils.accumulate_confidence_histogram(
-                    out['preds'], out['confidence'],
-                    batch.points.valid.numpy(), n_classes, hist)
+                    out['preds'], out['confidence'], valid, n_classes, hist)
             sweep(acc)
-            return hist
+            return collectives.host_sum([hist])[0]
 
         thres = pl_utils.get_perclass_thres(cfg, collect_hist)
         logger.info('per class thres: {} '.format(thres))
@@ -110,7 +131,7 @@ def set_pseudo_labels(args, cfg, logger, tar_data, tar_loader, eval_step,
         data_list = tar_data.get_data_list()
         thres_arr = np.asarray(thres, np.float32)
 
-        def write(batch, out):
+        def write(batch, out, n_real):
             preds, conf = out['preds'], out['confidence']
             valid = batch.points.valid.numpy()
             pseudo = np.where(conf > thres_arr[preds], preds, 255)
@@ -119,7 +140,7 @@ def set_pseudo_labels(args, cfg, logger, tar_data, tar_loader, eval_step,
                 logits = out['output'].astype(np.float32)
                 e = np.exp(logits - logits.max(-1, keepdims=True))
                 softmax = e / e.sum(-1, keepdims=True)
-            for b, idx in enumerate(batch.ids):
+            for b, idx in enumerate(batch.ids[:n_real]):
                 n = batch.lengths[b]
                 name = os.path.basename(str(data_list[idx])).split('.')[0]
                 pl_utils.save_scene_labels(pseudo_labels_dir, name,
@@ -133,9 +154,13 @@ def set_pseudo_labels(args, cfg, logger, tar_data, tar_loader, eval_step,
                     lab[lab != 255], minlength=n_classes)[:n_classes] / 1e3
 
         sweep(write)
+        class_ratio = collectives.host_sum([class_ratio])[0]
         class_ratio /= class_ratio.sum() + 1e-9
-        pl_utils.save_class_ratio(pseudo_labels_dir, class_ratio)
-        pl_utils.mark_done(pseudo_labels_dir)
+        collectives.barrier()
+        if collectives.is_main():
+            pl_utils.save_class_ratio(pseudo_labels_dir, class_ratio)
+            pl_utils.mark_done(pseudo_labels_dir)
+        collectives.barrier()
         tar_data.set_downsampling_scale(ds)
         tar_data.set_training_mode(True)
         generated = True
@@ -145,23 +170,33 @@ def set_pseudo_labels(args, cfg, logger, tar_data, tar_loader, eval_step,
 
 def update_split_sampler(split_sampler, extras, num_c, update_ratio):
     """Queue + EMA ratio updates from one mixed batch
-    (ref: tool/st.py:82-97); one process, so no gather across ranks."""
+    (ref: tool/st.py:82-97). In a process group the per-class tail
+    cuboids and the ratio sums are gathered from every rank first (ref
+    all_gather_object, tool/st.py:86-89), so that the ranks' queues stay
+    equal."""
     tail_splits = extras.get('tar_tail_splits', [])
     per_class = [[x for item in tail_splits[i::num_c] for x in item]
                  for i in range(num_c)]
     ratios = extras.get('tar_splits_class_ratio', [])
     ratio_sum = np.sum(ratios, axis=0) if len(ratios) else None
+    if collectives.world_size() > 1:
+        gathered = collectives.all_gather_objects((per_class, ratio_sum))
+        per_class = [sum((g[0][c] for g in gathered), [])
+                     for c in range(num_c)]
+        sums = [g[1] for g in gathered if g[1] is not None]
+        ratio_sum = np.sum(sums, axis=0) if sums else None
     split_sampler.update(per_class)
     if update_ratio and ratio_sum is not None:
         split_sampler.update_class_ratio(ratio_sum)
 
 
 def train_epoch(args, cfg, logger, writer, source_reader, tar_loader,
-                split_sampler, st_step, lr_fn, epoch, device):
+                split_sampler, st_step, lr_fn, epoch, device, step=0):
     """(ref: tool/st.py:100-271) Returns the epoch's timing: steps,
     scenes (source and target), and the seconds of the batches, of
     waiting for data and of the steps. ``device`` is the step's, where the
-    soft-label draws' generator lives."""
+    soft-label draws' generator lives; ``step`` the global step count at
+    the epoch's start, which the device augmentation draws from."""
     meters = {k: AverageMeter() for k in
               ('batch', 'data', 'step', 'loss', 'loss_x', 'loss_u')}
     ms = {k: AverageMeter() for k in
@@ -191,12 +226,12 @@ def train_epoch(args, cfg, logger, writer, source_reader, tar_loader,
         soft_kw = {}
         if soft is not None:
             gen = torch.Generator(device=device)
-            gen.manual_seed((args.manual_seed or 0) * 1_000_003
-                            + epoch * n_iter + i)
+            gen.manual_seed(collectives.rank_seed(
+                (args.manual_seed or 0) * 1_000_003 + epoch * n_iter + i))
             soft_kw = dict(tar_soft=torch.from_numpy(soft), generator=gen)
         t0 = time.time()
         m = host(st_step(source_batch.points, batch.points, lr, w_src, w_tar,
-                         **soft_kw), ST_METRICS)
+                         step=step + i, **soft_kw), ST_METRICS)
         meters['step'].update(time.time() - t0)
         finite &= bool(np.isfinite(m['loss_x']) and np.isfinite(m['loss_u']))
         n_scenes += source_batch.points.valid.shape[0] \
@@ -274,7 +309,8 @@ def main(argv=None):
     each epoch's validation mIoU and timing, and whether pseudo labels
     were generated in each epoch."""
     args, cfg = parse_config(argv)
-    dev, output_dir, ckpt_dir, logger, writer = start(args, cfg, 'st')
+    dev, world, output_dir, ckpt_dir, logger, writer = start(args, cfg,
+                                                             'st')
     pseudo_labels_dir = output_dir / 'pseudo_labels'
 
     model = mf.build_model(cfg, device=dev, train=True)
@@ -291,7 +327,9 @@ def main(argv=None):
     best_miou = 0.0 if best_miou is None else best_miou
 
     (src_loader, src_sampler, tar_data, tar_loader, tar_sampler,
-     val_loader, _) = get_dataset(cfg, args, dist=False, logger=logger)
+     val_loader, _) = get_dataset(cfg, args, dist=world > 1, logger=logger,
+                                  world_size=world,
+                                  rank=collectives.rank())
     source_reader = DataReader(src_loader, src_sampler)
     split_sampler = getattr(tar_data, 'split_sampler', None)
     sampler_path = output_dir / 'split_sampler.pkl'
@@ -340,7 +378,7 @@ def main(argv=None):
         source_reader.set_cur_epoch(epoch)
         stats = train_epoch(args, cfg, logger, writer, source_reader,
                             tar_loader, split_sampler, st_step, lr_fn,
-                            epoch, dev)
+                            epoch, dev, step=step)
         stats.update(pseudo_labels_generated=generated, pseudo_s=pseudo_s)
         step += stats['steps']
         epoch_log = epoch + 1
@@ -352,16 +390,19 @@ def main(argv=None):
             stats['miou_val'] = miou
             if miou > best_miou:
                 best_miou, best_epoch = miou, epoch_log
-                ckpt_utils.save_params(ckpt_dir / 'best_train', model,
-                                       optimizer, epoch_log,
-                                       metric=best_miou, step=step)
+                if collectives.is_main():
+                    ckpt_utils.save_params(ckpt_dir / 'best_train', model,
+                                           optimizer, epoch_log,
+                                           metric=best_miou, step=step)
         logger.info('Best epoch: {}, best mIoU: {}'.format(best_epoch,
                                                            best_miou))
-        if split_sampler is not None:
+        if split_sampler is not None and collectives.is_main():
             split_sampler.save(sampler_path)  # (ref: tool/st.py:396-398)
         result['epochs'].append(stats)
 
-    if not args.preserve_pseudo_labels and pseudo_labels_dir.exists():
+    collectives.barrier()
+    if not args.preserve_pseudo_labels and pseudo_labels_dir.exists() \
+            and collectives.is_main():
         shutil.rmtree(pseudo_labels_dir)  # (ref: tool/st.py:403-405)
     writer.close()
     return result

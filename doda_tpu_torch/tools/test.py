@@ -8,7 +8,10 @@ Port of ``tools/test.py``::
 Prints the reference's per-class IoU table, writes the optional txt/npy
 result dumps under output/<exp_group>/<tag>/<extra_tag>/eval, and does the
 crop -> full-scene 1-NN label broadcast for S3DIS-style eval (subsampled
-or region-split scenes, ref: model/unet.py:135-145).
+or region-split scenes, ref: model/unet.py:135-145). Under
+``--launcher pytorch`` or ``slurm`` each rank scores its shard of the
+scenes (sampler padding trimmed, root tools/test.py:84-100) and writes
+its scenes' dumps; the metrics are summed over the ranks.
 """
 
 from __future__ import annotations
@@ -26,12 +29,12 @@ from ..models import model_fn as mf
 from ..models.unet import default_brick_caps
 from ..ops.pointops import knn_broadcast_labels
 from ..utils import checkpoint as ckpt_utils
-from ..utils.device import resolve_device
+from ..parallel import collectives
 from ..utils.logging import get_logger
 from ..utils.metrics import (AverageMeter, calc_metrics,
                              intersection_and_union)
-from .common import (add_port_args, check_launcher, host, load_cfg,
-                     output_dir_of)
+from .common import (add_port_args, host, launch, load_cfg, output_dir_of,
+                     rank_share, reduce_meters)
 
 
 def parse_config(argv=None):
@@ -111,7 +114,7 @@ def test_one_epoch(args, cfg, logger, loader, eval_step, result_dir):
     batch_time, data_time, step_time = (AverageMeter() for _ in range(3))
     domain = 0 if args.eval_src else (
         1 if cfg.MODEL.get('dsnorm', False) else 0)
-    n_total = len(loader.dataset)
+    n_total = rank_share(loader)
     n_seen = 0
     data_list = loader.dataset.get_data_list()
     end = time.time()
@@ -189,6 +192,7 @@ def test_one_epoch(args, cfg, logger, loader, eval_step, result_dir):
                             batch_time.avg, loss_meter.val, loss_meter.avg,
                             acc))
 
+    reduce_meters(loss_meter, inter_m, union_m, target_m)
     miou, macc, allacc, iou_class, acc_class = calc_metrics(
         inter_m.sum, union_m.sum, target_m.sum)
     logger.info('Val result: mIoU/mAcc/allAcc {:.4f}/{:.4f}/{:.4f}.'.format(
@@ -206,15 +210,14 @@ def main(argv=None):
     """Evaluate a checkpoint; returns the eval directory, the mIoU and
     the timing of ``test_one_epoch``."""
     args, cfg = parse_config(argv)
-    check_launcher(args.launcher)
-    dev = resolve_device(args.device)
+    rank, world, dev = launch(args)
     if args.batch_size is None:
         args.batch_size = cfg.OPTIMIZATION.BATCH_SIZE_PER_GPU
     eval_dir = output_dir_of(cfg, args.extra_tag) / 'eval'
     eval_dir.mkdir(parents=True, exist_ok=True)
     log_file = eval_dir / ('log_test_%s.txt' % datetime.datetime.now()
                            .strftime('%Y%m%d-%H%M%S'))
-    logger = get_logger(log_file=log_file, rank=cfg.LOCAL_RANK)
+    logger = get_logger(log_file=log_file if rank == 0 else None, rank=rank)
     logger.info('**************** Start Evaluation ****************')
     for key, val in vars(args).items():
         logger.info('{:16} {}'.format(key, val))
@@ -229,9 +232,11 @@ def main(argv=None):
     if args.ckpt:
         ckpt_utils.load_params_from_pretrain(args.ckpt, model, strict=True,
                                              logger=logger)
+    collectives.broadcast_module(model)
     _, loader, _ = build_dataloader(
-        cfg.DATA_CONFIG_TAR, args.batch_size, workers=args.workers,
-        logger=logger, split=args.split, training=False)
+        cfg.DATA_CONFIG_TAR, args.batch_size, dist=world > 1,
+        workers=args.workers, logger=logger, split=args.split,
+        training=False, world_size=world, rank=rank)
     result = test_one_epoch(args, cfg, logger, loader, eval_step, eval_dir)
     return {'output_dir': eval_dir, **result}
 

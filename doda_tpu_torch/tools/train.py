@@ -10,7 +10,16 @@ the same log lines and per-class IoU tables. The loop drives the port's
 ``make_train_step`` (plan, U-Net, loss, backward and optimizer update on
 the device) one padded batch at a time; validation runs ``make_eval_step``.
 ``--profile N`` captures a ``torch.profiler`` trace of the first N train
-steps into <output_dir>/profile. ``--launcher`` takes only ``none``.
+steps into <output_dir>/profile.
+
+``--launcher pytorch`` (torchrun) or ``slurm`` runs one process per card
+(``parallel/collectives.py``): each rank loads its shard of every batch,
+the steps reduce the loss, gradients, norm statistics and metrics over
+the ranks, validation sums its histograms over them, and rank 0 alone
+writes the checkpoints, the log and tensorboard::
+
+    torchrun --nproc_per_node=N -m doda_tpu_torch.tools.train \
+        --launcher pytorch --cfg_file cfgs/... [--set ...]
 """
 
 from __future__ import annotations
@@ -27,12 +36,12 @@ from ..data import get_src_train_dataset, get_val_dataset
 from ..models import model_fn as mf
 from ..models.unet import default_brick_caps
 from ..utils import checkpoint as ckpt_utils
-from ..utils.device import resolve_device
+from ..parallel import collectives
 from ..utils.logging import get_logger, make_writer
 from ..utils.metrics import AverageMeter, calc_metrics
 from ..utils.optim import build_optimizer, make_lr_fn
-from .common import (add_port_args, check_launcher, host, load_cfg,
-                     output_dir_of)
+from .common import (add_port_args, host, launch, load_cfg, output_dir_of,
+                     rank_share, reduce_meters)
 
 METRICS = ('loss', 'intersection', 'union', 'target', 'count')
 
@@ -50,8 +59,8 @@ def parse_config(argv=None):
     parser.add_argument('--weight', type=str, default=None)
     parser.add_argument('--pretrain_not_strict', action='store_true')
     parser.add_argument('--sync_bn', action='store_true',
-                        help='accepted for CLI parity; one process has '
-                             'no replicas to synchronize')
+                        help='accepted for CLI parity; the norms always '
+                             'take the statistics of the whole batch')
     parser.add_argument('--reserve_old_ckpt', action='store_true')
     parser.add_argument('--manual_seed', type=int, default=None)
     parser.add_argument('--ckpt_save_freq', type=int, default=1)
@@ -103,10 +112,11 @@ def mask_padded_scenes(points, n_real):
 
 
 def train_epoch(args, cfg, logger, writer, train_loader, train_step, lr_fn,
-                epoch, domain=0, profiler=None):
+                epoch, domain=0, profiler=None, step=0):
     """(ref: tool/train.py:69-158) Returns the epoch's timing: steps,
     scenes, and the seconds of the batches, of waiting for data and of
-    the steps."""
+    the steps. ``step`` is the global step count at the epoch's start;
+    the device augmentation draws from it."""
     batch_time = AverageMeter()
     data_time = AverageMeter()
     step_time = AverageMeter()
@@ -128,7 +138,8 @@ def train_epoch(args, cfg, logger, writer, train_loader, train_step, lr_fn,
         if profiler is not None and epoch == args.start_epoch:
             profiler.before(i)
         t0 = time.time()
-        metrics = host(train_step(batch.points, lr, domain), METRICS)
+        metrics = host(train_step(batch.points, lr, domain, step=step + i),
+                       METRICS)
         step_time.update(time.time() - t0)
         if profiler is not None and epoch == args.start_epoch:
             profiler.after(i, n_iter)
@@ -183,11 +194,13 @@ def train_epoch(args, cfg, logger, writer, train_loader, train_step, lr_fn,
 
 def validate_epoch(args, cfg, logger, writer, val_loader, eval_step, epoch,
                    domain=0):
-    """(ref: tool/train.py:161-232) Returns the mIoU."""
+    """(ref: tool/train.py:161-232) Returns the mIoU. In a process group
+    each rank scores its shard, with the sampler's padding trimmed, and
+    the sums go over the ranks before the mIoU."""
     logger.info('>>>>>>>>>>>>>>>> Start Evaluation >>>>>>>>>>>>>>>>')
     loss_meter = AverageMeter()
     inter_m, union_m, target_m = (AverageMeter() for _ in range(3))
-    n_total = len(val_loader.dataset)
+    n_total = rank_share(val_loader)
     n_seen = 0
     for i, batch in enumerate(val_loader):
         points = mask_padded_scenes(batch.points, n_total - n_seen)
@@ -203,6 +216,7 @@ def validate_epoch(args, cfg, logger, writer, val_loader, eval_step, epoch,
                         'Accuracy {:.4f}.'.format(
                             i + 1, len(val_loader), loss_meter.val,
                             loss_meter.avg, acc))
+    reduce_meters(loss_meter, inter_m, union_m, target_m)
     miou, macc, allacc, iou_class, acc_class = calc_metrics(
         inter_m.sum, union_m.sum, target_m.sum)
     logger.info('Val result: mIoU/mAcc/allAcc {:.4f}/{:.4f}/{:.4f}.'.format(
@@ -221,8 +235,9 @@ def validate_epoch(args, cfg, logger, writer, val_loader, eval_step, epoch,
 
 
 def save_epoch(args, logger, ckpt_dir, model, optimizer, epoch_log, step):
-    """The epoch's checkpoint and the rolling deletion of old ones."""
-    if epoch_log % args.ckpt_save_freq == 0:
+    """The epoch's checkpoint and the rolling deletion of old ones (rank 0
+    alone)."""
+    if epoch_log % args.ckpt_save_freq == 0 and collectives.is_main():
         filename = ckpt_dir / f'train_epoch_{epoch_log}'
         logger.info('Saving checkpoint to: ' + str(filename))
         ckpt_utils.save_params(filename, model, optimizer, epoch_log,
@@ -244,7 +259,7 @@ def train(args, cfg, logger, writer, model, optimizer, train_step,
             train_sampler.set_epoch(epoch)
         stats = train_epoch(args, cfg, logger, writer, train_loader,
                             train_step, lr_fn, epoch, domain=0,
-                            profiler=profiler)
+                            profiler=profiler, step=step)
         step += stats['steps']
         epoch_log = epoch + 1
         save_epoch(args, logger, ckpt_dir, model, optimizer, epoch_log, step)
@@ -260,9 +275,10 @@ def train(args, cfg, logger, writer, model, optimizer, train_step,
                 filename = ckpt_dir / 'best_train'
                 logger.info('Best Model Saving checkpoint to: '
                             + str(filename))
-                ckpt_utils.save_params(filename, model, optimizer,
-                                       epoch_log, metric=best_miou,
-                                       step=step)
+                if collectives.is_main():
+                    ckpt_utils.save_params(filename, model, optimizer,
+                                           epoch_log, metric=best_miou,
+                                           step=step)
         logger.info('Best epoch: {}, best mIoU: {}'.format(best_epoch,
                                                            best_miou))
         epochs.append(stats)
@@ -271,8 +287,9 @@ def train(args, cfg, logger, writer, model, optimizer, train_step,
 
 def resume(args, logger, ckpt_dir, model, optimizer):
     """--weight, then --resume or the newest checkpoint, then the best
-    metric so far (ref: tool/train.py:335-356). Returns (best mIoU, its
-    epoch, the step count)."""
+    metric so far (ref: tool/train.py:335-356); each in the port's format
+    or the JAX package's. In a process group rank 0's weights then go to
+    every rank. Returns (best mIoU, its epoch, the step count)."""
     step = 0
     if args.weight:
         ckpt_utils.load_params_from_pretrain(
@@ -282,6 +299,7 @@ def resume(args, logger, ckpt_dir, model, optimizer):
     if path:
         args.start_epoch, step = ckpt_utils.load_params_from_ckpt(
             path, model, optimizer, logger=logger)
+    collectives.broadcast_module(model)
     best_miou, best_epoch = None, 0
     if (ckpt_dir / 'best_train').exists():
         best_miou, best_epoch = ckpt_utils.load_metric_from_ckpt(
@@ -290,10 +308,10 @@ def resume(args, logger, ckpt_dir, model, optimizer):
 
 
 def start(args, cfg, kind):
-    """The run's output tree, logger and writer; returns them with the
-    device. ``kind`` names the log file (train, st)."""
-    check_launcher(args.launcher)
-    dev = resolve_device(args.device)
+    """Join the launcher's group; the run's output tree, logger and writer
+    (rank 0's alone write). Returns them with the device and the world
+    size. ``kind`` names the log file (train, st)."""
+    rank, world, dev = launch(args)
     if args.batch_size is None:
         args.batch_size = cfg.OPTIMIZATION.BATCH_SIZE_PER_GPU
     args.epochs = cfg.OPTIMIZATION.NUM_EPOCHS if args.epochs is None \
@@ -306,10 +324,11 @@ def start(args, cfg, kind):
     ckpt_dir.mkdir(parents=True, exist_ok=True)
     log_file = output_dir / ('log_%s_%s.txt' % (
         kind, datetime.datetime.now().strftime('%Y%m%d-%H%M%S')))
-    logger = get_logger(log_file=log_file, rank=cfg.LOCAL_RANK)
+    logger = get_logger(log_file=log_file if rank == 0 else None, rank=rank)
     logger.info('**************** Start Logging ****************')
-    logger.info('device: %s' % (torch.cuda.get_device_name(dev)
-                                if dev.type == 'cuda' else dev))
+    logger.info('device: %s; rank %d of %d' % (
+        torch.cuda.get_device_name(dev) if dev.type == 'cuda' else dev,
+        rank, world))
     for key, val in vars(args).items():
         logger.info('{:16} {}'.format(key, val))
     if args.pin_memory:
@@ -318,16 +337,18 @@ def start(args, cfg, kind):
                        'parity)')
     from ..config import log_config_to_file
     log_config_to_file(cfg, logger=logger)
-    shutil.copy(args.cfg_file, output_dir)
-    writer = make_writer(output_dir / 'tensorboard', rank=cfg.LOCAL_RANK)
-    return dev, output_dir, ckpt_dir, logger, writer
+    if rank == 0:
+        shutil.copy(args.cfg_file, output_dir)
+    writer = make_writer(output_dir / 'tensorboard', rank=rank)
+    return dev, world, output_dir, ckpt_dir, logger, writer
 
 
 def main(argv=None):
     """Run the trainer; returns the output directory and each epoch's
     timing and validation mIoU."""
     args, cfg = parse_config(argv)
-    dev, output_dir, ckpt_dir, logger, writer = start(args, cfg, 'train')
+    dev, world, output_dir, ckpt_dir, logger, writer = start(args, cfg,
+                                                             'train')
 
     model = mf.build_model(cfg, device=dev, train=True)
     optimizer = build_optimizer(cfg.OPTIMIZATION, model.parameters())
@@ -341,10 +362,11 @@ def main(argv=None):
     best_miou, best_epoch, step = resume(args, logger, ckpt_dir, model,
                                          optimizer)
 
+    shard = dict(world_size=world, rank=collectives.rank())
     _, train_loader, train_sampler = get_src_train_dataset(
-        cfg, args, dist=False, logger=logger)
-    val_loader, _ = get_val_dataset(args, cfg.DATA_CONFIG_TAR, dist=False,
-                                    logger=logger)
+        cfg, args, dist=world > 1, logger=logger, **shard)
+    val_loader, _ = get_val_dataset(args, cfg.DATA_CONFIG_TAR,
+                                    dist=world > 1, logger=logger, **shard)
     lr_fn = make_lr_fn(cfg.OPTIMIZATION, args.epochs, len(train_loader))
     profiler = None
     if args.profile:

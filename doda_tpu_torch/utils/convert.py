@@ -20,7 +20,10 @@ def _walk(tree, prefix=()):
         if hasattr(val, 'items'):
             yield from _walk(val, path)
         else:
-            yield path, np.asarray(val)
+            # a copy: numpy arrays, or torch tensors for the bfloat16
+            # leaves of a decoded msgpack body (numpy has no bfloat16)
+            yield path, val.clone() if torch.is_tensor(val) \
+                else torch.from_numpy(np.array(val))
 
 
 def params_from_jax(params, batch_stats) -> dict:
@@ -28,13 +31,13 @@ def params_from_jax(params, batch_stats) -> dict:
     e.g. ``jax.device_get(state.params)``) -> a state_dict for
     ``SparseConvNet.load_state_dict(strict=True)``."""
     sd = {}
-    for path, arr in _walk(params):
+    for path, t in _walk(params):
         if path[:-1] == ('linear',) and path[-1] == 'kernel':
-            sd['linear.weight'] = torch.from_numpy(arr.T.copy())
+            sd['linear.weight'] = t.T.contiguous()
         else:
-            sd['.'.join(path)] = torch.from_numpy(arr.copy())
-    for path, arr in _walk(batch_stats):
-        sd['.'.join(path)] = torch.from_numpy(arr.copy())
+            sd['.'.join(path)] = t
+    for path, t in _walk(batch_stats):
+        sd['.'.join(path)] = t
     return sd
 
 

@@ -2,7 +2,8 @@
 
 A subprocess imports every module of ``doda_tpu_torch`` and must end with
 no jax/flax/optax module loaded; an AST scan checks every import statement
-of the package and of ``chip_smoke.py``.
+of the package, of ``chip_smoke.py`` and of the check it loads from
+``tests/_torch_equivalence.py``.
 """
 
 import ast
@@ -12,7 +13,7 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
 PKG = ROOT / 'doda_tpu_torch'
-BANNED = ('jax', 'jaxlib', 'flax', 'optax', 'doda_tpu')
+BANNED = ('jax', 'jaxlib', 'flax', 'optax', 'msgpack', 'doda_tpu')
 
 
 def _modules():
@@ -47,7 +48,9 @@ def _imports(path):
 
 
 def test_sources_import_no_jax():
-    files = sorted(PKG.rglob('*.py')) + [ROOT / 'chip_smoke.py']
+    # chip_smoke.py also runs the ranks' check of tests/
+    files = sorted(PKG.rglob('*.py')) + [ROOT / 'chip_smoke.py',
+                                         ROOT / 'tests/_torch_equivalence.py']
     assert len(files) > 10
     for path in files:
         for name in _imports(path):

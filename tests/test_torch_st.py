@@ -29,6 +29,7 @@ from _torch_st_common import (CAPS, LRS, N_CLASSES, TOL, W_SRC, W_TAR,
 from doda_tpu.models import model_fn as jmf
 from doda_tpu.models import unet as junet
 from doda_tpu.utils import optim as joptim
+from doda_tpu_torch.config import CfgNode
 from doda_tpu_torch.models import model_fn as tmf
 from doda_tpu_torch.utils import optim as toptim
 from doda_tpu_torch.utils.convert import params_from_jax, params_to_jax
@@ -200,8 +201,11 @@ def test_st_step_refusals(reference):
     cfg = st_cfg()
     opt = toptim.build_optimizer(cfg.OPTIMIZATION, model.parameters())
     cfg.DATA_CONFIG_TAR.DATA_AUG.device = True    # elastic is post-mix
-    with pytest.raises(NotImplementedError, match='data-path'):
-        tmf.make_st_step(cfg, model, opt, CAPS, device='cpu')
+    cfg.DATA_CONFIG_TAR.DATA_PROCESSOR = CfgNode({'voxel_scale': 50})
+    # the device augmentation draws from the step count, so it needs one
+    with pytest.raises(ValueError, match='step count'):
+        tmf.make_st_step(cfg, model, opt, CAPS, device='cpu')(
+            st_points(st_batch(0)), st_points(st_batch(1)), 0.01, 1.0, 1.0)
     step = tmf.make_st_step(st_cfg(), model, opt, CAPS, device='cpu')
     model.eval()
     with pytest.raises(RuntimeError, match='train mode'):

@@ -238,10 +238,13 @@ def test_train_step_refusals(port_run):
     cfg = _cfg()
     opt = toptim.build_optimizer(cfg.OPTIMIZATION, model.parameters())
     cfg.DATA_CONFIG.DATA_AUG.device = True
-    with pytest.raises(NotImplementedError, match='data-path'):
-        tmf.make_train_step(cfg, model, opt, CAPS, device='cpu')
-    step = tmf.make_train_step(_cfg(), model, opt, CAPS, device='cpu')
+    cfg.DATA_CONFIG.DATA_PROCESSOR = CfgNode({'voxel_scale': 50})
     batch = tmf.PointBatch(*(torch.from_numpy(a) for a in _batch(0)))
+    # the device augmentation draws from the step count, so it needs one
+    with pytest.raises(ValueError, match='step count'):
+        tmf.make_train_step(cfg, model, opt, CAPS, device='cpu')(batch,
+                                                                 0.01)
+    step = tmf.make_train_step(_cfg(), model, opt, CAPS, device='cpu')
     model.eval()
     try:
         with pytest.raises(RuntimeError, match='train mode'):
