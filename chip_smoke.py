@@ -15,8 +15,11 @@ Phases, each printing one line:
      ragged tile and no rows); the fused K1 on the real plan's
      rulebooks (levels 0, 1, 5, 6) and on a synthetic one (ragged rows,
      absent faces with present diagonals, no rows), also against the
-     assembled K1; one full subm conv on a real plan under either engine,
-     forward, and its weight gradient in bf16 against float32 accumulation
+     assembled K1; the fused K1's prologue variant on the real rulebooks
+     and occupancy (levels 0 and 1), a synthetic cin = 24 and no rows, with
+     bias > 0 on half the channels, float32 output to 1e-4 of max|ref|;
+     one full subm conv on a real plan under either engine, forward, and
+     its weight gradient in bf16 against float32 accumulation
   4. forward: the flagship net (cfgs/scannet/spconv.yaml: mid 16, 7
      levels, 2 blocks per level, 20 classes) with seeded random weights
      serves bench-shaped batches (4 scenes, ~150k points each) through
@@ -32,7 +35,21 @@ Phases, each printing one line:
      peak memory; then one float32 step on the kernel path against the
      plain path, loss and every gradient; and three bf16 steps under
      ``sm_max_cin=0`` (fused K1 everywhere) beside the ``sm_max_cin=32`` ones
-  6. cli: the port's three CLIs in process (``doda_tpu_torch.tools``), at
+  6. fuse_norm: the flagship with ``fuse_norm=True`` (the fused norm +
+     ReLU engine: its 52 block convs on K1's prologue variant) against the
+     same weights unfused: the eval forward on the 4 bench scenes (launches
+     by route from the counters, scenes/sec, device time by bucket and
+     kernel launches, both ways; float32 logits to 1e-3, bf16 predictions
+     on >= 99% of points), a float32 train step on the pro_full routes
+     (loss 1e-4 relative, gradients 1e-3 of their scale) and three bf16
+     train steps both ways (launches, step time, peak memory, and the
+     bf16 fused step's gradient error against the float32 unfused step, at
+     most twice the bf16 unfused step's)
+  7. pointops: every point op, offset wrapper and voxelization function
+     on the card against the CPU on one bench scene's points (FPS of 4,096
+     of 150k points, kNN k = 16 of 4,096 queries among 16,384 points, a
+     0.05 m voxel grid): integer outputs equal, floats to 1e-5
+  8. cli: the port's three CLIs in process (``doda_tpu_torch.tools``), at
      full width and depth and the cfgs' batch size (4), on synthetic rooms
      of ~150k points written by ``tools/make_synth_data.py``: ``train``
      (cfgs/da_front3d_scannet/spconv.yaml, one epoch on 6 3D-FRONT-format
@@ -45,21 +62,21 @@ Phases, each printing one line:
      step's kernel launches read from the counters against the rule,
      scenes/sec, step ms, data-wait ms, peak memory, IoU and the files
      written, with the output tree asserted
-  7. import: a seeded reference ``.pth`` of the DA flagship (the
+  9. import: a seeded reference ``.pth`` of the DA flagship (the
      reference's key names and layouts), converted into the JAX package's
      format by ``doda_tpu_torch.tools.convert_torch_ckpt``, through
      ``test --ckpt`` on the 4 ScanNet rooms: launches, its mIoU equal to
      that of the same tree loaded through ``params_from_jax`` and run
      through ``make_eval_step``, one batch's float32 logits bit-equal
      between the two loads (all under deterministic algorithms)
-  8. device_aug: ``train`` and ``st``, one step each, with
+ 10. device_aug: ``train`` and ``st``, one step each, with
      ``DATA_AUG.device`` on: step ms, data wait and its share, peak memory,
      launches, beside phase cli's host-path readings; the augmentation's
      own device time; ``device_augment`` on the card against the CPU on
      the same CPU draws (feats to 1e-5, coords equal but for floor flips
      inside 1e-4 of an integer); the brick audit of each step's augmented
      batch
-  9. ddp: two gloo ranks spawned on the one card, one bench scene each
+ 11. ddp: two gloo ranks spawned on the one card, one bench scene each
      (150k and 100k points; st targets of 120k and 150k), against one
      process on both, float32 on the kernel path
      (``tests/_torch_equivalence.py``): for a train step and an st step
@@ -67,11 +84,12 @@ Phases, each printing one line:
      and running statistics; eval predictions and histograms;
      ``all_gather_objects``; each rank's peak memory; then ``train
      --launcher pytorch`` at WORLD_SIZE=1 for one step
- 10. timing: each kernel at the level-0 shape beside its bound, its plain
+ 12. timing: each kernel at the level-0 shape beside its bound, its plain
      version and, where there is one, a PyTorch library call computing the
-     same function; K1 in both versions, with the plane gather alone, at
-     the level-0 and level-1 shapes on the real rulebooks; K2 in both
-     versions at the level-0 and level-1 shapes
+     same function; K1 in both versions, with the plane gather alone, and
+     its prologue variant beside the unfused sequence it replaces (norm
+     apply + ReLU + mask + K1), at the level-0 and level-1 shapes on the
+     real rulebooks; K2 in both versions at the level-0 and level-1 shapes
 Then a JSON line of the kernels and, last, {"ok": true, "device": ...}.
 Any failure raises, and the script exits non-zero without that last line.
 """
@@ -92,6 +110,7 @@ import torch
 SM_MAX_CIN = 32            # the train phase's kernel choice: K2 for cin <= 32
 PEAK_BF16 = 989e12         # H100 SXM dense bf16 FLOP/s (data sheet)
 PEAK_BYTES = 3.35e12       # H100 SXM HBM3 bytes/s (data sheet)
+PEAK_F32 = 67e12           # H100 SXM float32 FLOP/s off the tensor cores
 
 
 def log(phase, **kv):
@@ -179,6 +198,12 @@ CHECKS = ((torch.float32, False, 1e-3), (torch.bfloat16, True, 2e-2))
 # max|ref|): float32 output, the same bf16 products summed in float32 in
 # another order; bf16 output, one rounding of the result
 FUSED_CHECKS = ((torch.float32, 1e-4), (torch.bfloat16, 2e-2))
+# (level, cin, cout) of the fused K1's checks on the bench rulebooks, in
+# both variants: a level's block conv and its 2p -> p tail at levels 0 and
+# 1, and the deepest block and tail, whose weights are streamed a chunk at a
+# time in tiles of TB = 8 bricks
+K1_BENCH_SHAPES = ((0, 16, 16), (0, 32, 16), (1, 32, 32), (1, 64, 32),
+                   (6, 112, 112), (5, 192, 96))
 # (B, cin, cout) of the K2 checks: every shape the rule can send it,
 # ragged B included
 K2_SHAPES = ((4099, 16, 16), (4096, 32, 16), (2048, 16, 32), (2048, 32, 32),
@@ -223,6 +248,35 @@ def check_fused(worst, key, x2, nbr, w):
                                        f'fused vs assembled K1 {key}')
 
 
+def check_fused_pro(worst, key, x2, nbr, w, occ, g):
+    """K1's prologue variant against its plain version (float32 output to
+    1e-4 of max|ref|, bf16 to one rounding), with a bias > 0 on half the
+    channels: the plain version without the occupancy mask must then miss
+    the float32 bound, so a kernel that skipped the mask would fail."""
+    from doda_tpu_torch.ops.banded_conv import (banded_conv_fused,
+                                                banded_conv_fused_plain,
+                                                occ_words)
+    cin = w.shape[1]
+    scale = 1 + 0.3 * torch.randn(cin, device='cuda', generator=g)
+    bias = 0.3 * torch.randn(cin, device='cuda', generator=g)
+    bias[::2] = bias[::2].abs() + 0.1
+    pro = (scale, bias, occ_words(occ))
+    for dt, bound in FUSED_CHECKS:
+        got = banded_conv_fused(x2, nbr, w, dt, pro)
+        torch.cuda.synchronize()
+        ref = banded_conv_fused_plain(x2, nbr, w, dt, pro)
+        worst[f'K1pro/{key}/{str(dt)[6:]}'] = _close(
+            got, ref, True, bound, f'banded_conv_fused prologue {key} {dt}')
+        if dt == torch.float32:
+            ref32 = ref
+    unmasked = banded_conv_fused_plain(
+        x2, nbr, w, torch.float32, (scale, bias,
+                                    occ_words(torch.ones_like(occ))))
+    miss = (unmasked - ref32).abs().max().item()
+    assert miss > 1e-4 * ref32.abs().max().item(), f'{key}: mask not tested'
+    worst[f'K1pro-unmasked/{key}'] = miss
+
+
 def phase_kernels(levels):
     from doda_tpu_torch.ops import bricks2d
     from doda_tpu_torch.ops.banded_conv import (banded_conv,
@@ -244,8 +298,7 @@ def phase_kernels(levels):
         return x2.to(bf), (w / (27 * cin) ** 0.5).to(bf)
 
     # the fused K1 on the bench batch's own rulebooks ...
-    for lvl, cin, cout in ((0, 16, 16), (0, 32, 16), (1, 32, 32),
-                           (6, 112, 112), (5, 192, 96)):
+    for lvl, cin, cout in K1_BENCH_SHAPES:
         nbr = levels[lvl].nbr
         x2, w = operands(nbr.shape[0], cin, cout)
         check_fused(worst, f'level{lvl}/{nbr.shape[0]}x{cin}x{cout}', x2,
@@ -265,6 +318,26 @@ def phase_kernels(levels):
     empty = banded_conv_fused(x2[:0], nbr[:0], w, bf)
     assert empty.shape == (0, 64 * 32)
     assert banded_conv_fused.launches == before     # nothing to launch
+
+    # its prologue variant (the fused norm + ReLU engine) on the bench
+    # batch's rulebooks and cell occupancy at the same shapes, on a
+    # synthetic rulebook at a cin that ends in a half chunk, and on no rows
+    from doda_tpu_torch.ops.banded_conv import occ_words
+    for lvl, cin, cout in K1_BENCH_SHAPES:
+        lv = levels[lvl]
+        x2, w = operands(lv.nbr.shape[0], cin, cout)
+        check_fused_pro(worst, f'level{lvl}/{lv.nbr.shape[0]}x{cin}x{cout}',
+                        x2, lv.nbr, w, lv.occ, g)
+    nbr = synth.synth_rulebook(1001, 12, seed=7)
+    x2, w = operands(1001, 24, 16)
+    occ = torch.rand(1001, 64, device='cuda', generator=g) < 0.6
+    check_fused_pro(worst, 'synthetic/1001x24x16', x2, nbr, w, occ, g)
+    before = banded_conv_fused.pro_launches
+    pro = (torch.ones(24, device='cuda'), torch.ones(24, device='cuda'),
+           occ_words(occ[:0]))
+    empty = banded_conv_fused(x2[:0], nbr[:0], w, torch.float32, pro)
+    assert empty.shape == (0, 64 * 16)
+    assert banded_conv_fused.pro_launches == before  # nothing to launch
 
     for b, cin, cout in ((1000, 3, 16), (4096, 16, 16), (4099, 32, 16),
                          (2048, 112, 112), (512, 192, 96)):
@@ -390,6 +463,7 @@ def phase_forward(cfg, batch, b_caps, card):
     def reset():
         banded_conv.launches = banded_conv_fused.launches = 0
         banded_conv_sm.launches = banded_conv_sm_taps.launches = 0
+        banded_conv_fused.pro_launches = 0
 
     reset()                                         # the counted path
     out = step(batch)
@@ -469,11 +543,13 @@ def phase_train(cfg, b_caps, card):
     def reset():
         banded_conv.launches = banded_conv_fused.launches = 0
         banded_conv_sm.launches = banded_conv_sm_taps.launches = 0
+        banded_conv_fused.pro_launches = 0
 
     def counts():
         # bf16 'sm' convs run K2's second version; its first version runs
         # only on float32 operands and must not appear here
         assert banded_conv_sm.launches == 0, banded_conv_sm.launches
+        assert banded_conv_fused.pro_launches == 0
         return {'sm': banded_conv_sm_taps.launches,
                 'fused': banded_conv_fused.launches,
                 'assembled': banded_conv.launches}
@@ -563,6 +639,315 @@ def phase_train(cfg, b_caps, card):
     return ran, f32_sm
 
 
+def _profile(fn):
+    """Device ms by ``tools/trace_fwd.py``'s buckets and kernel launches of
+    one call of ``fn``, from torch.profiler."""
+    import re
+    from torch.profiler import ProfilerActivity, profile
+    from doda_tpu_torch.tools.trace_fwd import BUCKETS, _device_us
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    buckets = {}
+    for e in kernels:
+        name = next((b for b, pat in BUCKETS if re.search(pat, e.key)),
+                    'other')
+        buckets[name] = buckets.get(name, 0.0) + _device_us(e) / 1e3
+    return {'device_ms': sum(buckets.values()),
+            'kernel_launches': int(sum(e.count for e in kernels)),
+            'buckets_ms': dict(sorted(buckets.items(),
+                                      key=lambda kv: -kv[1]))}
+
+
+def _grad_error(grads, ref):
+    """Relative L2 error of a step's gradients against a reference step's,
+    over all parameters, and the worst parameter's max error over its
+    scale."""
+    num = sum(((grads[n] - g) ** 2).sum().item() for n, g in ref.items())
+    den = sum((g ** 2).sum().item() for g in ref.values())
+    worst = max((grads[n] - g).abs().max().item()
+                / max(1.0, g.abs().max().item()) for n, g in ref.items())
+    return math.sqrt(num / den), worst
+
+
+def phase_fuse_norm(cfg, batch, b_caps, card):
+    """The flagship with ``fuse_norm=True`` (its block convs on K1's
+    prologue variant) against the same weights unfused: the eval forward
+    on the 4 bench scenes (launches by route, scenes/sec, device time and
+    buckets, both ways; float32 logits and bf16 predictions), then train
+    steps on 2 scenes (a float32 step on the pro_full routes; three bf16
+    steps both ways, the bf16 steps' gradient error against the float32
+    unfused step). Returns the launches of each route in the counted runs."""
+    from doda_tpu_torch.models import model_fn
+    from doda_tpu_torch.ops.banded_conv import banded_conv, banded_conv_fused
+    from doda_tpu_torch.ops.banded_conv_sm import (banded_conv_sm,
+                                                   banded_conv_sm_taps)
+    from doda_tpu_torch.utils import optim, synth
+    t_phase = time.perf_counter()
+    bf, f32 = torch.bfloat16, torch.float32
+    n_valid = int(batch.valid.sum())
+    batch = batch.to('cuda')
+    sd = synth.seeded_state_dict(model_fn.build_model(cfg), seed=0)
+
+    def counts():
+        assert banded_conv_sm.launches == banded_conv_sm_taps.launches == 0
+        return {'sm': 0, 'fused': banded_conv_fused.launches,
+                'assembled': banded_conv.launches,
+                'prologue': banded_conv_fused.pro_launches}
+
+    def evaluator(dtype, fuse):
+        model = model_fn.build_model(cfg, dtype=dtype, fuse_norm=fuse)
+        model.load_state_dict(sd, strict=True)
+        return model, model_fn.make_eval_step(cfg, model, b_caps)
+
+    model_f, step_f = evaluator(bf, True)
+    model_u, step_u = evaluator(bf, False)
+    want = model_f.subm_routes()
+    assert want == {'sm': 0, 'fused': 0, 'assembled': 1, 'prologue': 52}, \
+        want
+    step_f(batch)                                   # warm-up (set-up)
+    step_u(batch)
+    torch.cuda.synchronize()
+    launched = {}
+    _cli_reset()                                    # the counted path
+    out_f = step_f(batch)
+    torch.cuda.synchronize()
+    launched['eval_forward_fused'] = counts()
+    assert launched['eval_forward_fused'] == want, launched
+    _cli_reset()
+    out_u = step_u(batch)
+    torch.cuda.synchronize()
+    launched['eval_forward_unfused'] = counts()
+    assert launched['eval_forward_unfused'] == {
+        'sm': 0, 'fused': 52, 'assembled': 1, 'prologue': 0}, launched
+    logits = out_f['output']
+    assert logits.shape == (synth.BATCH, synth.N_CAP, 20)
+    assert torch.isfinite(logits).all() and int(out_f['count']) == n_valid
+    agree = (out_f['preds'] == out_u['preds'])[batch.valid].float().mean()
+    agree = agree.item()
+    assert agree >= 0.99, f'bf16 preds fused vs unfused agree on {agree}'
+
+    seconds = {True: [], False: []}                 # in turns: u, f, f, u
+    for fuse in (False, True, True, False):
+        step = step_f if fuse else step_u
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(3):
+            step(batch)
+        torch.cuda.synchronize()
+        seconds[fuse].append((time.perf_counter() - t0) / 3)
+    prof = {fuse: _profile(lambda: (step_f if fuse else step_u)(batch))
+            for fuse in (False, True)}
+    del model_f, step_f, model_u, step_u, out_f, out_u
+    torch.cuda.empty_cache()
+    (_, s32f), (_, s32u) = evaluator(f32, True), evaluator(f32, False)
+    lf, lu = s32f(batch)['output'], s32u(batch)['output']
+    err32 = (lf - lu).abs().max().item()
+    lim32 = 1e-3 * max(1.0, lu.abs().max().item())
+    assert err32 <= lim32, f'float32 logits fused vs unfused: {err32}'
+    del s32f, s32u, lf, lu, logits
+    torch.cuda.empty_cache()
+    readings = {
+        'launches': launched,
+        'eval_forward': {
+            'bf16_pred_agreement': agree,
+            'f32_logit_max_abs_err': err32, 'f32_logit_bound': lim32,
+            'seconds_per_forward_fused': seconds[True],
+            'seconds_per_forward_unfused': seconds[False],
+            'scenes_per_sec_fused': synth.BATCH / min(seconds[True]),
+            'scenes_per_sec_unfused': synth.BATCH / min(seconds[False]),
+            'profiled_fused': prof[True], 'profiled_unfused': prof[False]}}
+
+    tbatch = synth.make_batch(seed=0, batch=synth.TRAIN_BATCH)
+    synth.capacity_audit(tbatch, b_caps)
+    tbatch = tbatch.to('cuda')
+    lr = optim.make_lr_fn(cfg.OPTIMIZATION, cfg.OPTIMIZATION.NUM_EPOCHS,
+                          100)(1, 0)
+
+    def first_step(dtype, fuse):
+        """A trainer's first step from the seeded weights: its loss and
+        gradients; the model and step for more."""
+        model = model_fn.build_model(cfg, dtype=dtype, sm_max_cin=0,
+                                     train=True, fuse_norm=fuse)
+        model.load_state_dict(sd, strict=True)
+        opt = optim.build_optimizer(cfg.OPTIMIZATION, model.parameters())
+        step = model_fn.make_train_step(cfg, model, opt, b_caps)
+        loss = float(step(tbatch, lr)['loss'])
+        grads = {n: p.grad.float().clone()
+                 for n, p in model.named_parameters()}
+        return model, step, loss, grads
+
+    _, _, loss_u32, grads_u32 = first_step(f32, False)
+    torch.cuda.empty_cache()
+    _cli_reset()
+    _, _, loss_f32, grads_f32 = first_step(f32, True)
+    launched['train_f32_fused'] = counts()   # float32: the pro_full routes
+    assert launched['train_f32_fused'] == {
+        'sm': 0, 'fused': 0, 'assembled': 105, 'prologue': 0}, launched
+    assert abs(loss_f32 - loss_u32) <= 1e-4 * abs(loss_u32), (loss_f32,
+                                                             loss_u32)
+    _, f32_worst = _grad_error(grads_f32, grads_u32)
+    assert f32_worst <= 1e-3, f'float32 gradients fused vs unfused {f32_worst}'
+    del grads_f32
+    torch.cuda.empty_cache()
+
+    steps = 3
+    train = {}
+    for fuse in (False, True):
+        model, step, loss0, grads = first_step(bf, fuse)
+        rule = model.subm_routes()
+        rule_bwd = model.subm_routes(backward=True)
+        rule = {k: steps * (rule.get(k, 0) + rule_bwd.get(k, 0))
+                for k in ('sm', 'fused', 'assembled', 'prologue')}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _cli_reset()
+        t0 = time.perf_counter()
+        losses = [step(tbatch, lr)['loss'] for _ in range(steps)]
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        key = 'train_bf16_fused' if fuse else 'train_bf16_unfused'
+        launched[key] = counts()
+        assert launched[key] == rule, (key, launched[key], rule)
+        losses = [float(v) for v in losses]
+        assert all(math.isfinite(v) for v in losses), losses
+        l2, worst = _grad_error(grads, grads_u32)
+        train[key] = {
+            'seconds_per_step': dt / steps,
+            'trained_scenes_per_sec': steps * synth.TRAIN_BATCH / dt,
+            'peak_memory_gib': torch.cuda.max_memory_allocated() / 2 ** 30,
+            'first_loss': loss0, 'losses': losses,
+            'grad_rel_l2_err_vs_f32_unfused': l2,
+            'grad_worst_err_vs_f32_unfused': worst,
+            'loss_rel_err_vs_f32_unfused': abs(loss0 - loss_u32)
+            / abs(loss_u32)}
+        del model, step, grads
+        torch.cuda.empty_cache()
+    e_f = train['train_bf16_fused']['grad_rel_l2_err_vs_f32_unfused']
+    e_u = train['train_bf16_unfused']['grad_rel_l2_err_vs_f32_unfused']
+    assert e_f <= 2 * e_u, f'bf16 fused step error {e_f} > 2 x {e_u}'
+    readings['train'] = {'batch': synth.TRAIN_BATCH, 'lr': lr,
+                         'f32_loss_fused': loss_f32,
+                         'f32_loss_unfused': loss_u32,
+                         'f32_worst_gradient_err': f32_worst, **train}
+    log('fuse_norm', card=card, **readings,
+        phase_seconds=time.perf_counter() - t_phase)
+    _cli_reset()
+    return launched
+
+
+def phase_pointops(card):
+    """Every point op, offset wrapper and voxelization function of the
+    port on the card against the same function on the CPU, on one bench
+    scene's points (metres): integer outputs equal, floats to
+    rtol = atol = 1e-5; the host library's voxel hash against its numpy
+    path."""
+    import numpy as np
+    from doda_tpu_torch.native import host_ops
+    from doda_tpu_torch.ops import pointops as po
+    from doda_tpu_torch.ops import pointops_offsets as pof
+    from doda_tpu_torch.ops import voxelize as vox
+    from doda_tpu_torch.utils import synth
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(3)
+    xyz = synth.make_scene(rng).astype(np.float32) / 50.0   # (150k, 3) m
+    n = len(xyz)
+    sub = rng.permutation(n)[:16384]
+    base, q = xyz[sub], xyz[sub[:4096]] + 0.01
+    feats = rng.normal(size=(n, 4)).astype(np.float32)
+    times, errs = {}, {}
+
+    def both(name, fn, *args, exact=False):
+        """fn on the card and on the CPU; returns the card's outputs."""
+        outs = {}
+        for dev in ('cuda', 'cpu'):
+            a = [torch.as_tensor(x).to(dev) if isinstance(x, np.ndarray)
+                 else x for x in args]
+            if dev == 'cuda':
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a)
+            if dev == 'cuda':
+                torch.cuda.synchronize()
+            times[f'{name}/{dev}_ms'] = (time.perf_counter() - t0) * 1e3
+            outs[dev] = out if isinstance(out, tuple) else (out,)
+        for i, (g, c) in enumerate(zip(outs['cuda'], outs['cpu'])):
+            g, c = g.cpu(), c
+            if exact or not g.is_floating_point():
+                assert torch.equal(g, c), f'{name}[{i}] card != CPU'
+                errs[f'{name}[{i}]'] = 0.0
+            else:
+                torch.testing.assert_close(g, c, rtol=1e-5, atol=1e-5,
+                                           msg=f'{name}[{i}]')
+                errs[f'{name}[{i}]'] = (g - c).abs().max().item()
+        return outs['cuda']
+
+    sel, = both('furthest_point_sampling',
+                lambda x: po.furthest_point_sampling(x, 4096), xyz)
+    assert len(torch.unique(sel)) == 4096
+    idx, _ = both('knn', lambda a, b: po.knn(16, a, b), q, base)
+    both('grouping', po.grouping, base, idx.cpu().numpy())
+    both('interpolation', lambda a, b, f: po.interpolation(a, b, f), base,
+         q, feats[sub])
+    f1, fb = feats[sub[:4096]], feats[sub]
+    both('subtraction', po.subtraction, f1, fb, idx.cpu().numpy())
+    pos = rng.normal(size=(4096, 16, 4)).astype(np.float32)
+    wgt = rng.normal(size=(4096, 16, 2)).astype(np.float32)
+    both('aggregation', po.aggregation, fb, pos, wgt, idx.cpu().numpy())
+    bidx, cnt = both('ballquery', lambda a: po.ballquery(a, 0.05, 16),
+                     base[:4096])
+    assert (cnt > 1).any()
+    sem = (base[:4096, 2] > 0.5).astype(np.int32)
+    clusters, = both('bfs_cluster', lambda b, s, v: po.bfs_cluster(b, s, v),
+                     bidx.cpu().numpy(), sem, np.ones(4096, bool))
+    offsets = np.array([0, 1000, 1000, 2500, 4096], np.int32)
+    for name in ('sec_mean', 'sec_min', 'sec_max'):     # min/max: exact,
+        both(name, getattr(po, name), f1, offsets,       # inf when empty
+             exact=name != 'sec_mean')
+    pids = np.where(clusters.cpu().numpy() < 64,
+                    clusters.cpu().numpy(), -1).astype(np.int32)
+    both('roipool', lambda f, p: po.roipool(f, p, 64), f1, pids)
+    both('get_iou', lambda p, s: po.get_iou(p, s, 64, 2), pids, sem)
+
+    two = np.concatenate([base[:4096], base[4096:8192] + 50.0])
+    off, new_off = np.array([4096, 8192]), np.array([1024, 2048])
+    both('offsets.furthestsampling', lambda x: pof.furthestsampling(
+        x, off, new_off), two)
+    both('offsets.knnquery', lambda x: pof.knnquery(16, x, None, off, off),
+         two)
+    both('offsets.queryandgroup', lambda x, f: pof.queryandgroup(
+        8, x, None, f, None, off, off), two, fb[:8192])
+    both('offsets.interpolation', lambda x, y, f: pof.interpolation(
+        x, y, f, off, off), two, two + 0.01, fb[:8192])
+
+    coords = np.floor(xyz / 0.05).astype(np.int32)            # 0.05 m
+    valid = np.ones(n, bool)
+    table = both('voxelize_coords', lambda c, v: tuple(
+        vox.voxelize_coords(c, v, 131072).table), coords, valid)
+    assert 0 < int(table[2]) < 131072        # no voxel overflowed
+    for mode in (1, 2, 3, 4):
+        both(f'voxelize_feats/{mode}', lambda c, v, f: vox.voxelize_feats(
+            f, vox.voxelize_coords(c, v, 131072), mode), coords, valid,
+            feats, exact=mode in (1, 2))
+    both('devoxelize_feats', lambda c, v, f: vox.devoxelize_feats(
+        vox.voxelize_feats(f, g := vox.voxelize_coords(c, v, 131072), 4),
+        g), coords, valid, feats)
+    p2v, hv = host_ops.voxelize_unique(coords)
+    p2v_np, hv_np = host_ops.voxelize_unique(coords, native=False)
+    assert np.array_equal(p2v, p2v_np) and np.array_equal(hv, hv_np)
+    hm = host_ops.voxelize_mean(feats, p2v, len(hv))
+    np.testing.assert_allclose(hm, host_ops.voxelize_mean(
+        feats, p2v, len(hv), native=False), rtol=1e-5, atol=1e-5)
+    log('pointops', card=card, points=n, queries=4096, base=16384,
+        fps_samples=4096, knn_k=16, voxel_m=0.05, voxels=int(table[2]),
+        host_voxels=len(hv),
+        max_abs_err=errs, ms=times,
+        phase_seconds=time.perf_counter() - t_phase)
+
+
 CLI_POINTS = 150_000       # points per synthetic room of the cli phases
 CFG_DA = 'cfgs/da_front3d_scannet/spconv.yaml'
 CFG_ST = 'cfgs/da_front3d_scannet/spconv_st.yaml'
@@ -586,6 +971,7 @@ def _cli_reset():
                                                    banded_conv_sm_taps)
     banded_conv.launches = banded_conv_fused.launches = 0
     banded_conv_sm.launches = banded_conv_sm_taps.launches = 0
+    banded_conv_fused.pro_launches = 0
 
 
 def _lines(path):
@@ -1127,17 +1513,20 @@ def _bound(moved, ops):
             'bound_by': 'bytes' if t_bytes >= t_ops else 'operations'}
 
 
-def time_k1(nbr, halo, cin, cout, g):
+def time_k1(nbr, halo, occ, cin, cout, g):
     """K1 in both versions on one level's real rulebook, bf16: the fused
-    kernel, its plain version and bound; the plane gather alone; the
-    assembled kernel on those planes with its plain version, bound and the
-    cuDNN ``conv1d`` that computes the same function of the planes."""
+    kernel, its plain version and bound; its prologue variant beside the
+    unfused sequence it replaces (``MaskedBatchNorm`` apply + ReLU + mask
+    + the fused kernel); the plane gather alone; the assembled kernel on
+    those planes with its plain version, bound and the cuDNN ``conv1d``
+    that computes the same function of the planes."""
+    from doda_tpu_torch.models.norm import MaskedBatchNorm
     from doda_tpu_torch.ops import bricks2d
     from doda_tpu_torch.ops.banded_conv import (banded_conv,
                                                 banded_conv_fused,
                                                 banded_conv_fused_plain,
                                                 banded_conv_plain,
-                                                fused_smem_bytes)
+                                                fused_smem_bytes, occ_words)
     bf = torch.bfloat16
     rows = nbr.shape[0]
     x2 = torch.randn(rows, 64 * cin, device='cuda', generator=g).to(bf)
@@ -1165,6 +1554,46 @@ def time_k1(nbr, halo, cin, cout, g):
              'flops': needed, 'executed_flops': executed,
              'dynamic_smem_bytes': fused_smem_bytes(cin, cout)}
 
+    # the prologue variant: the same x2 read raw, the folded scale and bias
+    # of an eval-mode norm (bias > 0 on some channels), the level's
+    # occupancy words (made once a level, not timed)
+    norm = MaskedBatchNorm(cin).cuda().eval()
+    with torch.no_grad():
+        norm.mean.normal_(0, 0.2, generator=g)
+        norm.var.uniform_(0.5, 1.5, generator=g)
+        norm.scale.normal_(1, 0.2, generator=g)
+        norm.bias.normal_(0, 0.2, generator=g)
+        scale, bias = norm(x2, occ, fold=True)
+    assert (bias > 0).any()
+    pro = (scale, bias, occ_words(occ))
+    outp = banded_conv_fused(x2, nbr, w, bf, pro)
+    refp = banded_conv_fused_plain(x2, nbr, w, bf, pro)
+    errp = _close(outp, refp, True, 2e-2, 'prologue K1 at a timing shape')
+    del refp, outp
+    pro_ms = cuda_ms(lambda: banded_conv_fused(x2, nbr, w, bf, pro), 20)
+    pro_plain_ms = cuda_ms(
+        lambda: banded_conv_fused_plain(x2, nbr, w, bf, pro), 3)
+
+    def unfused():
+        with torch.no_grad():
+            h = torch.relu(norm(x2, occ))          # apply, mask, ReLU
+        return banded_conv_fused(h, nbr, w, bf)
+
+    unfused_ms = cuda_ms(unfused, 20)
+    # K1's bytes plus the occupancy words and the bf16 scale and bias; its
+    # taps on the tensor cores or 3 float32 operations (multiply, add, max)
+    # an input element on the CUDA cores, whichever takes longer: the two
+    # units run at the same time
+    moved_p = moved + rows * 8 + 2 * cin * 2
+    t_bytes = moved_p / PEAK_BYTES * 1e3
+    t_ops = max(needed / PEAK_BF16, 3 * x2.numel() / PEAK_F32) * 1e3
+    prologue = {'ms': pro_ms, 'plain_ms': pro_plain_ms, 'max_abs_err': errp,
+                'bound_ms': max(t_bytes, t_ops),
+                'bound_by': 'bytes' if t_bytes >= t_ops else 'operations',
+                'bytes': moved_p, 'unfused_sequence_ms': unfused_ms,
+                'fused_kernel_alone_ms': fused_ms, 'library_ms': None,
+                'dynamic_smem_bytes': fused_smem_bytes(cin, cout, True)}
+
     assembly_ms = cuda_ms(lambda: bricks2d._assemble_p6(x2, halo, bf), 10)
     rows6 = bricks2d._assemble_p6(x2, halo, bf)
     wb = bricks2d.banded_weights(w)
@@ -1190,7 +1619,8 @@ def time_k1(nbr, halo, cin, cout, g):
                  'executed_flops': 2 * rows * 4 * wb.numel(),
                  'library_ms': library_ms, 'library_max_abs_err': lib_err}
     return {'shape': [rows, cin, cout], 'fused': fused,
-            'assembly_ms': assembly_ms, 'banded_weights_ms': weights_ms,
+            'prologue': prologue, 'assembly_ms': assembly_ms,
+            'banded_weights_ms': weights_ms,
             'assembled': assembled, 'fused_vs_assembled_max_abs_err': vs_old}
 
 
@@ -1239,11 +1669,12 @@ def time_k2(b, cin, cout, g):
     return {'shape': [b, cin, cout], 'taps': taps, 'first': first}
 
 
-def phase_timing(levels, launches):
+def phase_timing(levels, launches, fuse_launches):
     """Each kernel at the level-0 bench shape, bf16, and at the level-1
     shape. ``launches`` maps a route to its (eval forward, train steps)
     counts, and 'sm_f32' to K2's first version's launches in the float32
-    train step."""
+    train step; ``fuse_launches`` the launches by route of each counted
+    run of phase fuse_norm."""
     from doda_tpu_torch.ops import _build
     from doda_tpu_torch.utils import synth
     b, cin, cout = synth.BATCH * synth.BRICK_CAP, 16, 16
@@ -1253,8 +1684,8 @@ def phase_timing(levels, launches):
     # K1: one row, both versions. The row's own numbers are the fused
     # version's, which runs 52 of the 53 convs of a forward; the assembled
     # version's stand under 'assembled'
-    l0 = time_k1(levels[0].nbr, levels[0].halo, 16, 16, g)
-    l1 = time_k1(levels[1].nbr, levels[1].halo, 32, 32, g)
+    l0 = time_k1(levels[0].nbr, levels[0].halo, levels[0].occ, 16, 16, g)
+    l1 = time_k1(levels[1].nbr, levels[1].halo, levels[1].occ, 32, 32, g)
     assert l0['shape'] == [b, cin, cout], l0['shape']
     for name, t in (('level 0', l0), ('level 1', l1)):
         log('timing', kernel='banded_conv', at=name, dtype='bfloat16', **t)
@@ -1262,15 +1693,21 @@ def phase_timing(levels, launches):
     fused_fwd, fused_train = launches['fused']
     old_fwd, old_train = launches['assembled']
     f0, a0 = l0['fused'], dict(l0['assembled'])
+    old_fuse = sum(n['assembled'] for n in fuse_launches.values())
     a0.update(source='doda_tpu_torch/csrc/banded_conv.cu',
-              launches=old_fwd + old_train, launches_eval_forward=old_fwd,
+              launches=old_fwd + old_train + old_fuse,
+              launches_fuse_norm_phase=old_fuse,
+              launches_eval_forward=old_fwd,
               launches_train_steps=old_train,
               **_build.resources('banded_conv'))
+    fuse_phase = sum(n['fused'] + n['prologue']
+                     for n in fuse_launches.values())
     rows.append({
         'name': 'banded_conv', 'route': 'cuda',
         'source': 'doda_tpu_torch/csrc/banded_conv_fused.cu',
         'replaces': 'doda_tpu/ops/pallas_banded.py:71',
-        'launches': fused_fwd + fused_train,
+        'launches': fused_fwd + fused_train + fuse_phase,
+        'launches_fuse_norm_phase': fuse_phase,
         'launches_eval_forward': fused_fwd,
         'launches_train_steps': fused_train,
         'max_abs_err': f0['max_abs_err'], 'ms': f0['ms'],
@@ -1285,6 +1722,17 @@ def phase_timing(levels, launches):
         'dynamic_smem_bytes': f0['dynamic_smem_bytes'],
         **_build.resources('banded_conv_fused'),
         'assembled': a0,
+        'prologue': {
+            'source': 'doda_tpu_torch/csrc/banded_conv_fused.cu (PRO)',
+            'replaces': 'doda_tpu/ops/pallas_banded.py:71 under '
+                        'DODA_FUSE_NORM (doda_tpu/ops/bricks2d.py:746)',
+            'launches': sum(n['prologue'] for n in fuse_launches.values()),
+            'launches_by_run': {k: n['prologue']
+                                for k, n in fuse_launches.items()},
+            **l0['prologue'],
+            'level1': {k: l1['prologue'][k] for k in (
+                'ms', 'plain_ms', 'bound_ms', 'bound_by',
+                'unfused_sequence_ms', 'fused_kernel_alone_ms')}},
         'level1': {'shape': l1['shape'], 'fused_ms': l1['fused']['ms'],
                    'fused_bound_ms': l1['fused']['bound_ms'],
                    'fused_bound_by': l1['fused']['bound_by'],
@@ -1352,8 +1800,10 @@ def main():
     phase_kernels(levels)
 
     fwd = phase_forward(cfg, batch, b_caps, card)
-    del batch
     train, f32_sm = phase_train(cfg, b_caps, card)
+    fuse_launches = phase_fuse_norm(cfg, batch, b_caps, card)
+    del batch
+    phase_pointops(card)
     tmp = Path(tempfile.mkdtemp(prefix='chip_smoke_cli_'))
     try:
         ctx = cli_rooms(tmp)
@@ -1364,7 +1814,7 @@ def main():
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     rows = phase_timing(levels, {**{k: (fwd[k], train[k]) for k in fwd},
-                                 'sm_f32': f32_sm})
+                                 'sm_f32': f32_sm}, fuse_launches)
     # each CLI run's launches, counted in the cli phases, join each
     # kernel's
     for row, route in ((rows[0], 'fused'), (rows[0]['assembled'],
@@ -1374,6 +1824,7 @@ def main():
     for r in rows:       # every kernel of the paths really ran on them
         assert r['launches'] > 0, r['name']
     assert rows[0]['assembled']['launches'] > 0
+    assert rows[0]['prologue']['launches'] > 0
     assert rows[1]['first_version']['launches_f32_train_step'] > 0
     log('run', card=card, seconds=time.perf_counter() - start)
     print(json.dumps({'kernels': rows}), flush=True)

@@ -52,6 +52,24 @@
 //    would put the two y-rows of a tile on the same banks: the two 16-byte
 //    halves of a cell are swapped on odd halo y-rows (and the weight rows
 //    have an odd pitch in 16-byte units), so ldmatrix is conflict-free.
+//
+// The prologue variant (PRO, the fused norm + ReLU engine). It replaces
+// the same TPU kernel as it runs under DODA_FUSE_NORM, on planes that
+// doda_tpu/ops/bricks2d.py::_assemble_p6 assembled with a prologue:
+// the conv reads where(occ, relu(x*scale + bias), 0) in place of x, and
+// that activation never reaches device memory. Each brick's occupancy is
+// one 64-bit word (bit c = cell c active, occ_words in ops/banded_conv.py).
+// When a tile's first halo chunk is issued, the words of its bricks' 27
+// neighbours are copied beside the rulebook (an absent neighbour's
+// zero-fill gives word 0). Once a stage has landed, every thread rewrites
+// the 16-byte cells it copied: relu(x*scale + bias) in float32 on the bf16
+// value and the bf16 scale and bias (multiply, then add, each rounded, as
+// the plain version does), rounded once to bf16, and zero where the cell's
+// bit is clear: a bias > 0 would otherwise light inactive cells through
+// the ReLU. A barrier then hands the stage to ldmatrix. The extra bytes
+// are the occupancy words (8 per brick, read up to 27 times from L2), so
+// the bound is K1's; the pass costs one shared-memory read and write of
+// each staged cell.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -77,7 +95,9 @@ template <int TB> struct Tile {
   static constexpr int STAGE_B = TB * HALO_B;
   static constexpr int NBR_INTS = (TB * TAPS + 31) / 32 * 32;
   static constexpr int COPIES = (TB * HCELLS * 2 + THREADS - 1) / THREADS;
-  static constexpr int MAX_SMEM = 2 * NBR_INTS * 4 + W_RESIDENT_B + 2 * STAGE_B;
+  static constexpr int OCC_B = NBR_INTS * 8;   // one stage of occupancy words
+  static constexpr int MAX_SMEM =
+      2 * NBR_INTS * 4 + 2 * OCC_B + W_RESIDENT_B + 2 * STAGE_B;
 };
 
 struct Params {
@@ -85,6 +105,9 @@ struct Params {
   const int* nbr;      // (rows, 27)
   const bf16* w;       // (27, cin, cout)
   void* out;           // (rows, 64*cout)
+  const bf16* scale;   // (cin,) prologue scale, or null
+  const bf16* bias;    // (cin,) prologue bias, or null
+  const unsigned long long* occw;  // (rows,) occupancy words, or null
   long long rows;
   long long ntiles;
   int cin, cout;
@@ -108,6 +131,13 @@ __device__ __forceinline__ void cp_async4(void* dst, const void* src) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
                    smem_u32(dst)),
                "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async8(void* dst, const void* src,
+                                          int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(src_bytes)
                : "memory");
 }
 __device__ __forceinline__ void cp_async_commit() {
@@ -150,12 +180,35 @@ __device__ __forceinline__ void store2(bf16* p, float a, float b) {
   *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
 }
 
-template <typename OutT, int TB>
+// relu(v*s + b) of 8 bf16 channels in float32, rounded once to bf16
+__device__ __forceinline__ uint4 prologue8(uint4 v, uint4 s, uint4 b) {
+  const __nv_bfloat162* v2 = reinterpret_cast<const __nv_bfloat162*>(&v);
+  const __nv_bfloat162* s2 = reinterpret_cast<const __nv_bfloat162*>(&s);
+  const __nv_bfloat162* b2 = reinterpret_cast<const __nv_bfloat162*>(&b);
+  uint4 out;
+  __nv_bfloat162* o2 = reinterpret_cast<__nv_bfloat162*>(&out);
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const float2 fv = __bfloat1622float2(v2[j]);
+    const float2 fs = __bfloat1622float2(s2[j]);
+    const float2 fb = __bfloat1622float2(b2[j]);
+    o2[j] = __floats2bfloat162_rn(
+        fmaxf(__fadd_rn(__fmul_rn(fv.x, fs.x), fb.x), 0.0f),
+        fmaxf(__fadd_rn(__fmul_rn(fv.y, fs.y), fb.y), 0.0f));
+  }
+  return out;
+}
+
+template <typename OutT, int TB, bool PRO>
 __global__ void __launch_bounds__(Tile<TB>::THREADS) fused_tc(const Params p) {
   using T = Tile<TB>;
   extern __shared__ __align__(128) unsigned char smem[];
   int* nbr_s = reinterpret_cast<int*>(smem);            // [2][NBR_INTS]
-  unsigned char* w_s = smem + 2 * T::NBR_INTS * 4;      // weight chunks
+  // [2][NBR_INTS] occupancy words of the rulebook's bricks (PRO only)
+  unsigned long long* occ_s =
+      reinterpret_cast<unsigned long long*>(smem + 2 * T::NBR_INTS * 4);
+  unsigned char* w_s =
+      smem + 2 * T::NBR_INTS * 4 + (PRO ? 2 * T::OCC_B : 0);  // weights
   const int wbuf_b = TAPS * CK * p.wpitch;              // one chunk
   unsigned char* h_s = w_s + (p.w_resident ? p.nk : 2) * wbuf_b;  // [2] stages
 
@@ -205,6 +258,13 @@ __global__ void __launch_bounds__(Tile<TB>::THREADS) fused_tc(const Params p) {
   auto issue_halo = [&](int kc, int stage, int nbuf) {
     const int* nb = nbr_s + nbuf * T::NBR_INTS;
     unsigned char* st = h_s + stage * T::STAGE_B;
+    if (PRO && kc == 0)   // a tile's first chunk: its neighbours' words
+      for (int e = tid; e < TB * TAPS; e += T::THREADS) {
+        const int src = nb[e];
+        const bool ok = src >= 0 && src < p.rows;
+        cp_async8(occ_s + nbuf * T::NBR_INTS + e, ok ? p.occw + src : p.occw,
+                  ok ? 8 : 0);
+      }
 #pragma unroll
     for (int k = 0; k < T::COPIES; ++k) {
       const uint32_t d = copy[k];
@@ -272,6 +332,35 @@ __global__ void __launch_bounds__(Tile<TB>::THREADS) fused_tc(const Params p) {
     }
     if (last) load_nbr(i + 2, (int)(i & 1));
     cp_async_commit();
+
+    if (PRO) {
+      // the landed stage's cells this thread copied -> the prologue of
+      // them, zero where the cell is inactive; then hand it to ldmatrix
+      const unsigned long long* ow = occ_s + (int)(i & 1) * T::NBR_INTS;
+      unsigned char* st = h_s + stage * T::STAGE_B;
+      // the chunk's scale and bias, per 8-channel half (cin % 8 == 0, so
+      // a half lies wholly inside cin or wholly past it)
+      const int c0 = kc * CK, c1 = c0 + 8;
+      const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
+      const uint4 s0 = __ldg(reinterpret_cast<const uint4*>(p.scale + c0));
+      const uint4 b0 = __ldg(reinterpret_cast<const uint4*>(p.bias + c0));
+      const uint4 s1 = c1 < p.cin
+          ? __ldg(reinterpret_cast<const uint4*>(p.scale + c1)) : zero;
+      const uint4 b1 = c1 < p.cin
+          ? __ldg(reinterpret_cast<const uint4*>(p.bias + c1)) : zero;
+#pragma unroll
+      for (int k = 0; k < T::COPIES; ++k) {
+        const uint32_t d = copy[k];
+        if (d >> 27) {
+          const bool hi = (d >> 26) & 1;
+          const bool on = (!hi || c1 < p.cin) &&
+                          ((ow[(d >> 12) & 0xff] >> ((d >> 20) & 63)) & 1);
+          uint4* cell = reinterpret_cast<uint4*>(st + ((d & 0xfff) << 4));
+          *cell = on ? prologue8(*cell, hi ? s1 : s0, hi ? b1 : b0) : zero;
+        }
+      }
+      __syncthreads();
+    }
 
     if (kc == 0) {
 #pragma unroll
@@ -346,7 +435,7 @@ __global__ void __launch_bounds__(Tile<TB>::THREADS) fused_tc(const Params p) {
 
 // cout chunk per block, shared-memory layout and size for a shape; returns
 // the bricks per tile
-int plan(int cin, int cout, Params* p, int* smem_bytes) {
+int plan(int cin, int cout, bool pro, Params* p, int* smem_bytes) {
   const int nchunks = (cout + 8 * NT_MAX - 1) / (8 * NT_MAX);
   p->nc = ((cout + nchunks - 1) / nchunks + 7) / 8 * 8;
   p->wpitch = 16 * ((p->nc / 8) | 1);
@@ -354,21 +443,23 @@ int plan(int cin, int cout, Params* p, int* smem_bytes) {
   const int wbuf_b = TAPS * CK * p->wpitch;
   p->w_resident = (long long)p->nk * wbuf_b <= W_RESIDENT_B;
   const int w_b = (p->w_resident ? p->nk : 2) * wbuf_b;
-  const int smem4 = 2 * Tile<4>::NBR_INTS * 4 + w_b + 2 * Tile<4>::STAGE_B;
+  const int smem4 = 2 * Tile<4>::NBR_INTS * 4 + (pro ? 2 * Tile<4>::OCC_B : 0) +
+                    w_b + 2 * Tile<4>::STAGE_B;
   if (smem4 <= TWO_BLOCKS_B) {
     *smem_bytes = smem4;
     return 4;
   }
-  *smem_bytes = 2 * Tile<8>::NBR_INTS * 4 + w_b + 2 * Tile<8>::STAGE_B;
+  *smem_bytes = 2 * Tile<8>::NBR_INTS * 4 + (pro ? 2 * Tile<8>::OCC_B : 0) +
+                w_b + 2 * Tile<8>::STAGE_B;
   return 8;
 }
 
-template <typename OutT, int TB>
+template <typename OutT, int TB, bool PRO>
 int launch(Params p, int smem_bytes, cudaStream_t s) {
   using T = Tile<TB>;
   p.ntiles = (p.rows + TB - 1) / TB;
   cudaError_t e = cudaFuncSetAttribute(
-      fused_tc<OutT, TB>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      fused_tc<OutT, TB, PRO>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       T::MAX_SMEM);
   if (e != cudaSuccess) return (int)e;
   int dev = 0, sms = 0, per_sm = 0;
@@ -377,7 +468,7 @@ int launch(Params p, int smem_bytes, cudaStream_t s) {
                                   dev)) != cudaSuccess)
     return (int)e;
   if ((e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-           &per_sm, fused_tc<OutT, TB>, T::THREADS, smem_bytes)) !=
+           &per_sm, fused_tc<OutT, TB, PRO>, T::THREADS, smem_bytes)) !=
       cudaSuccess)
     return (int)e;
   if (per_sm < 1) return (int)cudaErrorLaunchOutOfResources;
@@ -385,46 +476,62 @@ int launch(Params p, int smem_bytes, cudaStream_t s) {
   long long gx = (long long)per_sm * sms / ny;   // one resident wave
   if (gx < 1) gx = 1;
   if (gx > p.ntiles) gx = p.ntiles;
-  fused_tc<OutT, TB><<<dim3((unsigned)gx, (unsigned)ny), T::THREADS,
-                       smem_bytes, s>>>(p);
+  fused_tc<OutT, TB, PRO><<<dim3((unsigned)gx, (unsigned)ny), T::THREADS,
+                            smem_bytes, s>>>(p);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// Dynamic shared memory of a launch at (cin, cout), bytes; -1 if refused.
-extern "C" int doda_banded_conv_fused_smem(int cin, int cout) {
+// Dynamic shared memory of a launch at (cin, cout), with or without the
+// prologue, bytes; -1 if refused.
+extern "C" int doda_banded_conv_fused_smem(int cin, int cout, int pro) {
   if (cin <= 0 || cin % 8 || cout <= 0 || cout % 8) return -1;
   Params p;
   int smem_bytes = 0;
-  plan(cin, cout, &p, &smem_bytes);
+  plan(cin, cout, pro != 0, &p, &smem_bytes);
   return smem_bytes;
 }
 
-// out_dtype: 0 = float32, 1 = bfloat16; operands are bfloat16. Returns
-// cudaGetLastError().
+template <bool PRO>
+int dispatch(const Params& p, int tb, int smem_bytes, int out_dtype,
+             cudaStream_t s) {
+  if (tb == 4)
+    return out_dtype == 1 ? launch<bf16, 4, PRO>(p, smem_bytes, s)
+                          : launch<float, 4, PRO>(p, smem_bytes, s);
+  return out_dtype == 1 ? launch<bf16, 8, PRO>(p, smem_bytes, s)
+                        : launch<float, 8, PRO>(p, smem_bytes, s);
+}
+
+// out_dtype: 0 = float32, 1 = bfloat16; operands are bfloat16. scale, bias
+// (cin,) bf16 and occw (rows,) uint64 are all given (the prologue variant)
+// or all null. Returns cudaGetLastError().
 extern "C" int doda_banded_conv_fused(const void* x2, const void* nbr,
                                       const void* w, void* out,
                                       long long rows, int cin, int cout,
-                                      int out_dtype, void* stream) {
+                                      int out_dtype, const void* scale,
+                                      const void* bias, const void* occw,
+                                      void* stream) {
+  const bool pro = scale != nullptr;
   if (rows <= 0 || rows > 0x7fffffffLL || cin <= 0 || cin % 8 || cout <= 0 ||
-      cout % 8 || (out_dtype != 0 && out_dtype != 1))
+      cout % 8 || (out_dtype != 0 && out_dtype != 1) ||
+      (bias != nullptr) != pro || (occw != nullptr) != pro)
     return (int)cudaErrorInvalidValue;
   Params p;
   p.x = static_cast<const bf16*>(x2);
   p.nbr = static_cast<const int*>(nbr);
   p.w = static_cast<const bf16*>(w);
   p.out = out;
+  p.scale = static_cast<const bf16*>(scale);
+  p.bias = static_cast<const bf16*>(bias);
+  p.occw = static_cast<const unsigned long long*>(occw);
   p.rows = rows;
   p.ntiles = 0;
   p.cin = cin;
   p.cout = cout;
   int smem_bytes = 0;
-  const int tb = plan(cin, cout, &p, &smem_bytes);
+  const int tb = plan(cin, cout, pro, &p, &smem_bytes);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (tb == 4)
-    return out_dtype == 1 ? launch<bf16, 4>(p, smem_bytes, s)
-                          : launch<float, 4>(p, smem_bytes, s);
-  return out_dtype == 1 ? launch<bf16, 8>(p, smem_bytes, s)
-                        : launch<float, 8>(p, smem_bytes, s);
+  return pro ? dispatch<true>(p, tb, smem_bytes, out_dtype, s)
+             : dispatch<false>(p, tb, smem_bytes, out_dtype, s);
 }

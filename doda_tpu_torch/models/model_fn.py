@@ -64,10 +64,12 @@ def _n_classes(cfg) -> int:
 
 
 def build_model(cfg, device="cuda", dtype=torch.bfloat16,
-                sm_max_cin: int = 0, train: bool = False) -> SparseConvNet:
+                sm_max_cin: int = 0, train: bool = False,
+                fuse_norm: bool = False) -> SparseConvNet:
     """Model factory from the cfg schema (cfg keys MODEL.BACKBONE.*,
     cfgs/scannet/spconv.yaml) on ``device``, in eval mode unless ``train``.
-    ``sm_max_cin`` picks the subm-conv kernel per conv (see ``unet.py``)."""
+    ``sm_max_cin`` picks the subm-conv kernel per conv and ``fuse_norm``
+    turns on the fused norm + ReLU engine (see ``unet.py``)."""
     dev = resolve_device(device)
     bk = cfg.MODEL.BACKBONE
     in_ch = bk.in_channel + (3 if bk.get('use_xyz', False) else 0)
@@ -81,6 +83,7 @@ def build_model(cfg, device="cuda", dtype=torch.bfloat16,
         dsnorm=cfg.MODEL.get('dsnorm', False),
         dtype=dtype,
         sm_max_cin=sm_max_cin,
+        fuse_norm=fuse_norm,
     )
     return model.to(dev).train(train)
 

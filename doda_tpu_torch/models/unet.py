@@ -26,6 +26,16 @@ rulebook) in bf16 wherever cin and cout are multiples of 8, and the
 assembled version otherwise (``bricks2d.subm_route``). In train mode
 (``model.train()``) the norms use batch statistics and every conv carries
 its own backward (``ops/bricks2d.py``).
+
+``fuse_norm`` is the counterpart of the JAX package's ``DODA_FUSE_NORM=1``
+(off by default, as there): every norm in front of a conv returns its
+folded (scale, bias) and the conv applies relu(x*scale + bias) and the
+cell mask itself (``subm_conv3_norm_2d``, ``down_conv2_norm_2d``,
+``up_conv2_norm_2d``). On the fused route that happens inside K1 as it
+stages the halo, so the normalized activation is never written. The
+parameters and their names are the same either way. In train mode the
+folded scale and bias come from the batch statistics, so their gradients
+flow back through the statistics to x.
 """
 
 from __future__ import annotations
@@ -38,8 +48,11 @@ from torch import nn
 from ..ops.bricks import (CELLS, BrickGrid, brickify,
                           build_brick_downsample, build_brick_rulebook,
                           cell_feats_2d)
-from ..ops.bricks2d import (conv1x1_2d, down_conv2_2d, halo_index, sm_index,
-                            subm_conv3_2d, subm_route, up_conv2_2d, uses_sm)
+from ..ops.banded_conv import occ_words
+from ..ops.bricks2d import (conv1x1_2d, down_conv2_2d, down_conv2_norm_2d,
+                            halo_index, sm_index, subm_conv3_2d,
+                            subm_conv3_norm_2d, subm_route, up_conv2_2d,
+                            up_conv2_norm_2d, uses_sm)
 from ..utils.device import resolve_device
 from .norm import MaskedBatchNorm
 
@@ -123,6 +136,8 @@ class FlatLevel(NamedTuple):
     halo: torch.Tensor    # (Batch*cap, 216) int32 from halo_index(nbr)
     sm: torch.Tensor | None = None   # (Batch*cap, 176) from sm_index(nbr),
     #                                  only where the level has a K2 conv
+    occw: torch.Tensor | None = None  # (Batch*cap,) int64 occ_words(occ),
+    #                                   only under fuse_norm
 
 
 class FlatDown(NamedTuple):
@@ -140,16 +155,18 @@ def _flat_ids(ids: torch.Tensor, cap: int) -> torch.Tensor:
     return flat.reshape((-1,) + tuple(ids.shape[2:])).to(torch.int32)
 
 
-def flatten_plan(plan: LevelPlan, sm_levels=()):
+def flatten_plan(plan: LevelPlan, sm_levels=(), words: bool = False):
     """Batched LevelPlan -> per-level flat tables for the 2D engine; the
-    levels listed in ``sm_levels`` also get their source-major index."""
+    levels listed in ``sm_levels`` also get their source-major index, and
+    with ``words`` every level its occupancy words (the prologue K1's)."""
     levels, downs = [], []
     for lvl, (occ, nbr) in enumerate(zip(plan.occs, plan.nbrs)):
         flat_nbr = _flat_ids(nbr, occ.shape[1])
+        flat_occ = occ.reshape(-1, CELLS)
         levels.append(FlatLevel(
-            occ=occ.reshape(-1, CELLS), nbr=flat_nbr,
-            halo=halo_index(flat_nbr),
-            sm=sm_index(flat_nbr) if lvl in sm_levels else None))
+            occ=flat_occ, nbr=flat_nbr, halo=halo_index(flat_nbr),
+            sm=sm_index(flat_nbr) if lvl in sm_levels else None,
+            occw=occ_words(flat_occ) if words else None))
     for lvl, ds in enumerate(plan.downs):
         cap_c = plan.occs[lvl].shape[1]
         cap_p = plan.occs[lvl + 1].shape[1]
@@ -171,13 +188,33 @@ def _conv_param(*shape) -> nn.Parameter:
     return nn.Parameter(torch.empty(shape).uniform_(-bound, bound))
 
 
-class ResidualBlock(nn.Module):
+class _NormSubm(nn.Module):
+    """What the blocks share: BN -> ReLU -> SubMConv3, unfused or through
+    ``subm_conv3_norm_2d``."""
+
+    def __init__(self, dtype, sm_max_cin: int, fuse_norm: bool):
+        super().__init__()
+        self.dtype, self.sm_max_cin = dtype, sm_max_cin
+        self.fuse_norm = fuse_norm
+
+    def norm_conv(self, norm, kernel, x, lv: FlatLevel, domain):
+        if self.fuse_norm:
+            s, b = norm(x, lv.occ, domain, fold=True)
+            return subm_conv3_norm_2d(x, lv.occ, lv.halo, kernel, s, b,
+                                      self.dtype, lv.sm, self.sm_max_cin,
+                                      lv.nbr, lv.occw)
+        h = torch.relu(norm(x, lv.occ, domain))
+        return subm_conv3_2d(h, lv.occ, lv.halo, kernel, self.dtype, lv.sm,
+                             self.sm_max_cin, lv.nbr)
+
+
+class ResidualBlock(_NormSubm):
     """Pre-activation residual block (ref: model/unet_block.py:10-38)."""
 
     def __init__(self, cin: int, cout: int, dsnorm: bool = False,
-                 dtype=torch.bfloat16, sm_max_cin: int = 0):
-        super().__init__()
-        self.dtype, self.sm_max_cin = dtype, sm_max_cin
+                 dtype=torch.bfloat16, sm_max_cin: int = 0,
+                 fuse_norm: bool = False):
+        super().__init__(dtype, sm_max_cin, fuse_norm)
         if cin != cout:
             self.i_kernel = _conv_param(cin, cout)
         self.MaskedBatchNorm_0 = MaskedBatchNorm(cin, dsnorm=dsnorm)
@@ -190,29 +227,26 @@ class ResidualBlock(nn.Module):
             identity = conv1x1_2d(x, lv.occ, self.i_kernel, self.dtype)
         else:
             identity = x
-        h = torch.relu(self.MaskedBatchNorm_0(x, lv.occ, domain))
-        h = subm_conv3_2d(h, lv.occ, lv.halo, self.kernel1, self.dtype,
-                          lv.sm, self.sm_max_cin, lv.nbr)
-        h = torch.relu(self.MaskedBatchNorm_1(h, lv.occ, domain))
-        h = subm_conv3_2d(h, lv.occ, lv.halo, self.kernel2, self.dtype,
-                          lv.sm, self.sm_max_cin, lv.nbr)
+        h = self.norm_conv(self.MaskedBatchNorm_0, self.kernel1, x, lv,
+                           domain)
+        h = self.norm_conv(self.MaskedBatchNorm_1, self.kernel2, h, lv,
+                           domain)
         return h + identity
 
 
-class VGGBlock(nn.Module):
+class VGGBlock(_NormSubm):
     """BN -> ReLU -> SubMConv3 (ref: model/unet_block.py:41-52)."""
 
     def __init__(self, cin: int, cout: int, dsnorm: bool = False,
-                 dtype=torch.bfloat16, sm_max_cin: int = 0):
-        super().__init__()
-        self.dtype, self.sm_max_cin = dtype, sm_max_cin
+                 dtype=torch.bfloat16, sm_max_cin: int = 0,
+                 fuse_norm: bool = False):
+        super().__init__(dtype, sm_max_cin, fuse_norm)
         self.MaskedBatchNorm_0 = MaskedBatchNorm(cin, dsnorm=dsnorm)
         self.kernel = _conv_param(27, cin, cout)
 
     def forward(self, x, lv: FlatLevel, domain):
-        h = torch.relu(self.MaskedBatchNorm_0(x, lv.occ, domain))
-        return subm_conv3_2d(h, lv.occ, lv.halo, self.kernel, self.dtype,
-                             lv.sm, self.sm_max_cin, lv.nbr)
+        return self.norm_conv(self.MaskedBatchNorm_0, self.kernel, x, lv,
+                              domain)
 
 
 def _concat_channels(a: torch.Tensor, b: torch.Tensor, ca: int,
@@ -228,25 +262,26 @@ class UBlock(nn.Module):
 
     def __init__(self, planes: tuple, block_reps: int = 2,
                  residual: bool = True, dsnorm: bool = False,
-                 dtype=torch.bfloat16, sm_max_cin: int = 0):
+                 dtype=torch.bfloat16, sm_max_cin: int = 0,
+                 fuse_norm: bool = False):
         super().__init__()
         self.planes, self.block_reps, self.dtype = planes, block_reps, dtype
+        self.fuse_norm = fuse_norm
         block = ResidualBlock if residual else VGGBlock
+        kw = dict(dsnorm=dsnorm, dtype=dtype, sm_max_cin=sm_max_cin,
+                  fuse_norm=fuse_norm)
         p = planes[0]
         for i in range(block_reps):
-            setattr(self, f'block{i}', block(p, p, dsnorm, dtype, sm_max_cin))
+            setattr(self, f'block{i}', block(p, p, **kw))
         if len(planes) == 1:
             return
         self.conv_norm = MaskedBatchNorm(p, dsnorm=dsnorm)
         self.down_kernel = _conv_param(8, p, planes[1])
-        self.u = UBlock(planes[1:], block_reps, residual, dsnorm, dtype,
-                        sm_max_cin)
+        self.u = UBlock(planes[1:], block_reps, residual, **kw)
         self.deconv_norm = MaskedBatchNorm(planes[1], dsnorm=dsnorm)
         self.up_kernel = _conv_param(8, planes[1], p)
         for i in range(block_reps):
-            setattr(self, f'tail{i}',
-                    block(2 * p if i == 0 else p, p, dsnorm, dtype,
-                          sm_max_cin))
+            setattr(self, f'tail{i}', block(2 * p if i == 0 else p, p, **kw))
 
     def forward(self, x, levels, downs, level: int, domain):
         p = self.planes[0]
@@ -257,12 +292,23 @@ class UBlock(nn.Module):
             return x
         identity = x
         occ_p = levels[level + 1].occ
-        h = torch.relu(self.conv_norm(x, lv.occ, domain))
-        h = down_conv2_2d(h, occ_p, downs[level], self.down_kernel,
-                          self.dtype)
+        if self.fuse_norm:
+            s, b = self.conv_norm(x, lv.occ, domain, fold=True)
+            h = down_conv2_norm_2d(x, lv.occ, occ_p, downs[level],
+                                   self.down_kernel, s, b, self.dtype)
+        else:
+            h = torch.relu(self.conv_norm(x, lv.occ, domain))
+            h = down_conv2_2d(h, occ_p, downs[level], self.down_kernel,
+                              self.dtype)
         h = self.u(h, levels, downs, level + 1, domain)
-        h = torch.relu(self.deconv_norm(h, occ_p, domain))
-        h = up_conv2_2d(h, lv.occ, downs[level], self.up_kernel, self.dtype)
+        if self.fuse_norm:
+            s, b = self.deconv_norm(h, occ_p, domain, fold=True)
+            h = up_conv2_norm_2d(h, occ_p, lv.occ, downs[level],
+                                 self.up_kernel, s, b, self.dtype)
+        else:
+            h = torch.relu(self.deconv_norm(h, occ_p, domain))
+            h = up_conv2_2d(h, lv.occ, downs[level], self.up_kernel,
+                            self.dtype)
         x = _concat_channels(identity, h, p, p)   # skip-concat (2p)
         for i in range(self.block_reps):
             x = getattr(self, f'tail{i}')(x, lv, domain)
@@ -276,11 +322,11 @@ class SparseConvNet(nn.Module):
                  n_classes: int = 20, block_reps: int = 2,
                  block_residual: bool = True, num_levels: int = 7,
                  dsnorm: bool = False, dtype=torch.bfloat16,
-                 sm_max_cin: int = 0):
+                 sm_max_cin: int = 0, fuse_norm: bool = False):
         super().__init__()
         self.in_channel, self.mid_channel = in_channel, mid_channel
         self.num_levels, self.dtype = num_levels, dtype
-        self.sm_max_cin = sm_max_cin
+        self.sm_max_cin, self.fuse_norm = sm_max_cin, fuse_norm
         m = mid_channel
         self.input_kernel = _conv_param(27, in_channel, m)
         planes = tuple(m * (i + 1) for i in range(num_levels))
@@ -292,7 +338,7 @@ class SparseConvNet(nn.Module):
                    ((p, p), (2 * p, p), (p, 2 * p),
                     (in_channel, m) if lvl == 0 else (p, p))))
         self.unet = UBlock(planes, block_reps, block_residual, dsnorm, dtype,
-                           sm_max_cin)
+                           sm_max_cin, fuse_norm)
         self.output_norm = MaskedBatchNorm(m, dsnorm=dsnorm)
         self.linear = nn.Linear(m, n_classes)
 
@@ -301,15 +347,22 @@ class SparseConvNet(nn.Module):
         from the parameter shapes: every (27, cin, cout) kernel runs one
         forward conv on (cin, cout); with ``backward`` the dx convs are
         counted instead, on the flipped shape (cout, cin), except the input
-        conv's, whose input needs no gradient."""
+        conv's, whose input needs no gradient. Under ``fuse_norm`` a block
+        conv's forward on the fused route is a launch of K1's prologue
+        variant, counted under 'prologue' (the dx convs take none)."""
         counts = {'sm': 0, 'fused': 0, 'assembled': 0}
+        if self.fuse_norm:
+            counts['prologue'] = 0
         for name, p in self.named_parameters():
             if p.dim() != 3 or p.shape[0] != 27:
                 continue
             _, cin, cout = p.shape
             if not backward:
-                counts[subm_route(cin, cout, self.dtype,
-                                  self.sm_max_cin)] += 1
+                route = subm_route(cin, cout, self.dtype, self.sm_max_cin)
+                if self.fuse_norm and route == 'fused' \
+                        and name != 'input_kernel':
+                    route = 'prologue'
+                counts[route] += 1
             elif name != 'input_kernel':
                 counts[subm_route(cout, cin, self.dtype,
                                   self.sm_max_cin)] += 1
@@ -324,7 +377,7 @@ class SparseConvNet(nn.Module):
         m = self.mid_channel
         bt, n = point_feats.shape[:2]
         cap0 = plan.grid0.occ.shape[1]
-        levels, downs = flatten_plan(plan, self.sm_levels)
+        levels, downs = flatten_plan(plan, self.sm_levels, self.fuse_norm)
 
         # flat cell id of every point across the batch, null = rows*64
         gidx = plan.grid0.flat_index()

@@ -17,6 +17,13 @@ w (27, cin, cout). It assembles each brick's halo in shared memory and
 multiplies only the taps, so neither the planes nor the banded weights are
 built. Its plain version is the first route on plain PyTorch:
 ``banded_conv_plain(_assemble_p6(x2, halo_index(nbr)), banded_weights(w))``.
+
+With ``pro=(scale, bias, occw)`` the fused version is the prologue variant
+of the fused norm + ReLU engine: the conv reads
+``where(occ, relu(x2*scale + bias), 0)`` in place of x2, applied to each
+halo cell where the kernel stages it; ``occw`` holds one 64-bit
+occupancy word a brick (``occ_words``). Its plain version applies
+``bricks2d.pro_full`` first.
 """
 
 from __future__ import annotations
@@ -97,12 +104,31 @@ banded_conv.launches = 0
 # the fused version: activation + rulebook in, conv out
 # ---------------------------------------------------------------------------
 
+def occ_words(occ: torch.Tensor) -> torch.Tensor:
+    """(rows, 64) bool cell occupancy -> (rows,) int64, bit c = cell c
+    (bit 63 is the sign bit: the words are the kernel's uint64)."""
+    one = torch.ones(64, dtype=torch.int64, device=occ.device)
+    bits = one.bitwise_left_shift(torch.arange(64, device=occ.device))
+    return torch.where(occ, bits, 0).sum(1)
+
+
+def occ_from_words(occw: torch.Tensor) -> torch.Tensor:
+    """The inverse of ``occ_words``: (rows,) int64 -> (rows, 64) bool."""
+    shift = torch.arange(64, device=occw.device)
+    return (occw[:, None].bitwise_right_shift(shift) & 1).bool()
+
+
 def banded_conv_fused_plain(x2: torch.Tensor, nbr: torch.Tensor,
-                            w: torch.Tensor, out_dtype) -> torch.Tensor:
+                            w: torch.Tensor, out_dtype,
+                            pro=None) -> torch.Tensor:
     """The assembled route on plain PyTorch: halo planes by one gather,
-    banded weights, 12 float32 matmuls."""
+    banded weights, 12 float32 matmuls; with ``pro=(scale, bias, occw)``
+    the planes of ``pro_full`` of x2 (the prologue in float32, rounded
+    once to the operands' dtype)."""
     from . import bricks2d
-    rows6 = bricks2d._assemble_p6(x2, bricks2d.halo_index(nbr), w.dtype)
+    if pro is not None:
+        pro = (pro[0], pro[1], occ_from_words(pro[2]))
+    rows6 = bricks2d._assemble_p6(x2, bricks2d.halo_index(nbr), w.dtype, pro)
     return banded_conv_plain(rows6, bricks2d.banded_weights(w), out_dtype)
 
 
@@ -112,16 +138,17 @@ def _fused_lib():
     lib.doda_banded_conv_fused.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_void_p]
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
     lib.doda_banded_conv_fused.restype = ctypes.c_int
-    lib.doda_banded_conv_fused_smem.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.doda_banded_conv_fused_smem.argtypes = [ctypes.c_int, ctypes.c_int,
+                                                ctypes.c_int]
     lib.doda_banded_conv_fused_smem.restype = ctypes.c_int
     return lib
 
 
-def fused_smem_bytes(cin: int, cout: int) -> int:
+def fused_smem_bytes(cin: int, cout: int, pro: bool = False) -> int:
     """Dynamic shared memory of one fused launch at (cin, cout)."""
-    return _fused_lib().doda_banded_conv_fused_smem(cin, cout)
+    return _fused_lib().doda_banded_conv_fused_smem(cin, cout, int(pro))
 
 
 def _check_fused(x2, nbr, w, out_dtype) -> None:
@@ -154,26 +181,55 @@ def _check_fused(x2, nbr, w, out_dtype) -> None:
                          'aligned')
 
 
+def _check_pro(pro, x2, cin):
+    scale, bias, occw = pro
+    for name, t in (('scale', scale), ('bias', bias)):
+        if t.device != x2.device or t.dtype != torch.bfloat16 \
+                or t.shape != (cin,) or not t.is_contiguous() \
+                or t.data_ptr() % 16:
+            raise ValueError(f'banded_conv_fused: {name} {t.dtype} '
+                             f'{tuple(t.shape)} on {t.device}; need a '
+                             f'contiguous 16-byte aligned bf16 ({cin},) on '
+                             f'{x2.device}')
+    if occw.device != x2.device or occw.dtype != torch.int64 \
+            or occw.shape != (x2.shape[0],) or not occw.is_contiguous():
+        raise ValueError(f'banded_conv_fused: occw {occw.dtype} '
+                         f'{tuple(occw.shape)}; need int64 (rows,) from '
+                         'occ_words')
+
+
 def banded_conv_fused(x2: torch.Tensor, nbr: torch.Tensor, w: torch.Tensor,
-                      out_dtype) -> torch.Tensor:
+                      out_dtype, pro=None) -> torch.Tensor:
     """x2 (rows, 64*cin), nbr (rows, 27) int32 with null id == rows,
-    w (27, cin, cout) -> (rows, 64*cout), unmasked."""
+    w (27, cin, cout) -> (rows, 64*cout), unmasked. ``pro=(scale, bias,
+    occw)`` runs the prologue variant; it counts its launches in
+    ``banded_conv_fused.pro_launches``, the plain conv in ``.launches``."""
     if all(t.device.type == 'cpu' for t in (x2, nbr, w)):
-        return banded_conv_fused_plain(x2, nbr, w, out_dtype)
+        return banded_conv_fused_plain(x2, nbr, w, out_dtype, pro)
     _check_fused(x2, nbr, w, out_dtype)
     rows, cin, cout = x2.shape[0], w.shape[1], w.shape[2]
+    ptrs = (None, None, None)
+    if pro is not None:
+        pro = (pro[0].to(torch.bfloat16).contiguous(),
+               pro[1].to(torch.bfloat16).contiguous(), pro[2])
+        _check_pro(pro, x2, cin)
+        ptrs = tuple(t.data_ptr() for t in pro)
     out = torch.empty((rows, 64 * cout), dtype=out_dtype, device=x2.device)
     if rows == 0:
         return out
     err = _fused_lib().doda_banded_conv_fused(
         x2.data_ptr(), nbr.data_ptr(), w.data_ptr(), out.data_ptr(), rows,
-        cin, cout, _DTYPE_CODES[out_dtype],
+        cin, cout, _DTYPE_CODES[out_dtype], *ptrs,
         torch.cuda.current_stream(x2.device).cuda_stream)
     if err != 0:
         raise RuntimeError('banded_conv_fused: kernel launch failed with '
                            f'CUDA error {err}')
-    banded_conv_fused.launches += 1
+    if pro is None:
+        banded_conv_fused.launches += 1
+    else:
+        banded_conv_fused.pro_launches += 1
     return out
 
 
 banded_conv_fused.launches = 0
+banded_conv_fused.pro_launches = 0

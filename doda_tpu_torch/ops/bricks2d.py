@@ -42,6 +42,18 @@ dx of a subm conv is the same conv on the flipped stencil
 flipped shape selects, and dW contracts the re-assembled halo planes with
 the cotangent. The functions save x2 and the index tables, not the
 assembled windows.
+
+Fused norm + ReLU prologue (``subm_conv3_norm_2d``, ``down_conv2_norm_2d``,
+``up_conv2_norm_2d``; the JAX package's ``DODA_FUSE_NORM`` engine). A conv
+takes the folded per-channel (scale, bias) of the batch norm in front of it
+and reads ``where(occ, relu(x*scale + bias), 0)`` (``_apply_pro``) in
+place of x, so the normalized activation is never written. On the fused
+route the prologue runs inside K1 where it stages the halo; on the 'sm'
+and 'assembled' routes and in the down/up convs ``pro_full`` applies it
+once up front, as the JAX package does for its source-major engines. The
+backward runs dh through the plain conv's dx kernel, then the prologue's
+backward in one pass: dx = dh*scale*relu'*occ, and dscale and dbias
+summed over rows and cells; dW contracts the prologue's planes.
 """
 
 from __future__ import annotations
@@ -51,7 +63,7 @@ import functools
 import numpy as np
 import torch
 
-from .banded_conv import banded_conv, banded_conv_fused
+from .banded_conv import banded_conv, banded_conv_fused, occ_words
 from .banded_conv_sm import banded_conv_sm, banded_conv_sm_taps
 from .bricks import BRICK, CELLS, _H, WINDOWS
 
@@ -99,11 +111,60 @@ def halo_index(nbr: torch.Tensor) -> torch.Tensor:
     return flat.to(torch.int32)
 
 
-def _assemble_p6(x2: torch.Tensor, halo: torch.Tensor,
-                 compute_dtype) -> torch.Tensor:
-    """(rows, 64*cin) -> (rows, 6, 36*cin) halo planes in compute_dtype."""
+# ---------------------------------------------------------------------------
+# the fused norm + ReLU prologue
+# ---------------------------------------------------------------------------
+
+def _apply_pro(val: torch.Tensor, mask: torch.Tensor, pro, cin: int,
+               compute_dtype) -> torch.Tensor:
+    """val (rows, n*cin), mask (rows, n) bool ->
+    where(mask, relu(val*scale + bias), 0), channel-tiled, in
+    compute_dtype: float32 arithmetic on the compute_dtype-rounded value,
+    scale and bias (a multiply, then an add), rounded once."""
+    scale, bias = pro[0], pro[1]
+    rows, n = mask.shape
+    y = val.to(compute_dtype).to(torch.float32, copy=True)  # val intact
+    y = y.reshape(rows, n, cin).mul_(scale.to(compute_dtype).float())
+    y.add_(bias.to(compute_dtype).float()).relu_()
+    y = y.to(compute_dtype).masked_fill_(~mask[:, :, None], 0)
+    return y.reshape(rows, n * cin)
+
+
+def pro_full(x2: torch.Tensor, pro, cin: int, compute_dtype) -> torch.Tensor:
+    """Materialized where(occ, relu(x*scale + bias), 0) of (rows, 64*cin),
+    ``pro = (scale, bias, occ)``: for the convs that take a normalized
+    activation."""
+    return _apply_pro(x2, pro[2], pro, cin, compute_dtype)
+
+
+def _pro_backward(x2, h, scale, dh, compute_dtype):
+    """The prologue's backward in one pass, from its output h (``pro_full``
+    of x2) and the cotangent dh of h: dx = dh*scale*relu'*occ in x2's
+    dtype (relu'*occ is h > 0, the forward's own signs; the float32
+    product of two compute_dtype values rounded once), and float32
+    dscale = sum dh*relu'*occ*x and dbias = sum dh*relu'*occ over rows
+    and cells (float32 accumulation of the exact products)."""
+    cin = scale.shape[0]
+    live = h.reshape(-1, cin) > 0
+    dh_live = torch.where(live, dh.reshape(-1, cin).to(compute_dtype), 0)
+    dx = (dh_live * scale.to(compute_dtype)).reshape(x2.shape).to(x2.dtype)
+    xc = x2.to(compute_dtype).reshape(-1, cin)
+    dscale = _contract_rows(dh_live, xc).diagonal()
+    dbias = dh_live.sum(0, dtype=torch.float32)
+    return dx, dscale.to(scale.dtype), dbias.to(scale.dtype)
+
+
+def _assemble_p6(x2: torch.Tensor, halo: torch.Tensor, compute_dtype,
+                 pro=None) -> torch.Tensor:
+    """(rows, 64*cin) -> (rows, 6, 36*cin) halo planes in compute_dtype.
+
+    ``pro = (scale, bias, occ)``: the planes of the prologue's output, the
+    gather of ``pro_full`` (an absent neighbour's cells are zero either
+    way)."""
     rows, lanes = x2.shape
     cin = lanes // CELLS
+    if pro is not None:
+        x2 = pro_full(x2, pro, cin, compute_dtype)
     x = x2.to(compute_dtype).reshape(rows * CELLS, cin)
     x = torch.cat([x, x.new_zeros(1, cin)])
     return x.index_select(0, halo.reshape(-1)).reshape(rows, 6, PLANE * cin)
@@ -255,12 +316,22 @@ def _flip_weights(w: torch.Tensor) -> torch.Tensor:
     return w.flip(0).transpose(1, 2)
 
 
-def _subm_raw(x2, halo, sm, weights, compute_dtype, sm_max_cin, nbr=None):
+def _subm_raw(x2, halo, sm, weights, compute_dtype, sm_max_cin, nbr=None,
+              pro=None, occw=None):
     """Assembly + conv core, unmasked (the backward's dx must keep the
-    gradient at inactive cells; masked producers upstream zero it)."""
+    gradient at inactive cells; masked producers upstream zero it).
+
+    ``pro = (scale, bias, occ)``: the conv of the prologue's output. The
+    fused route runs it inside K1, from the occupancy words ``occw``
+    (made from occ where not given); the other routes apply ``pro_full``
+    once up front, as the JAX package's source-major engines do."""
     cin, cout = weights.shape[1], weights.shape[2]
     w = weights.to(compute_dtype)
     route = subm_route(cin, cout, compute_dtype, sm_max_cin)
+    out_dtype = x2.dtype
+    if pro is not None and route != 'fused':
+        x2 = pro_full(x2, pro, cin, compute_dtype).to(out_dtype)
+        pro = None
     if route == 'sm':
         if sm is None:
             raise ValueError(f'subm conv {cin}->{cout} selects K2 '
@@ -276,10 +347,13 @@ def _subm_raw(x2, halo, sm, weights, compute_dtype, sm_max_cin, nbr=None):
             raise ValueError(f'subm conv {cin}->{cout} in {compute_dtype} '
                              'selects the fused K1 but was given no '
                              'rulebook (nbr)')
+        if pro is not None:
+            pro = (pro[0], pro[1],
+                   occ_words(pro[2]) if occw is None else occw)
         return banded_conv_fused(x2.to(compute_dtype), nbr, w.contiguous(),
-                                 x2.dtype)
+                                 out_dtype, pro)
     return banded_conv(_assemble_p6(x2, halo, compute_dtype),
-                       banded_weights(w), x2.dtype)
+                       banded_weights(w), out_dtype)
 
 
 def _contract_rows(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -309,6 +383,21 @@ def _dwb_to_dw(dwb: torch.Tensor, cin: int, cout: int) -> torch.Tensor:
     return dwb.new_zeros(27, cin, cout).index_add_(0, k, d5[i, q, :, r, :])
 
 
+def _subm_dw(rows6: torch.Tensor, g: torch.Tensor, compute_dtype, cin: int,
+             cout: int) -> torch.Tensor:
+    """Raster float32 dW (27, cin, cout) from the conv input's halo planes
+    and the masked cotangent. Planes x..x+2 of a brick are one contiguous
+    run of 3K lanes, so output slice x contributes one (3K, N) product to
+    the three taps at once."""
+    b, _, k = rows6.shape
+    g4 = g.to(compute_dtype).reshape(b, BRICK, OUTP * cout)
+    dwb = sum(_contract_rows(
+        rows6.as_strided((b, 3 * k), (6 * k, 1),
+                         rows6.storage_offset() + x * k),
+        g4[:, x]) for x in range(BRICK))
+    return _dwb_to_dw(dwb.reshape(3, k, OUTP * cout), cin, cout)
+
+
 class _SubmConv(torch.autograd.Function):
     """Port of ``subm_conv3_2d``'s custom VJP (``_subm2d_bwd``)."""
 
@@ -325,7 +414,6 @@ class _SubmConv(torch.autograd.Function):
     def backward(ctx, g):
         x2, weights, occ, halo, sm, nbr = ctx.saved_tensors
         cd = ctx.compute_dtype
-        b = x2.shape[0]
         cin, cout = weights.shape[1], weights.shape[2]
         g = _mask(g, occ, cout)
         dx = dw = None
@@ -335,18 +423,8 @@ class _SubmConv(torch.autograd.Function):
             dx = _subm_raw(g, halo, sm, _flip_weights(weights), cd,
                            ctx.sm_max_cin, nbr).to(x2.dtype)
         if ctx.needs_input_grad[1]:
-            # planes x..x+2 of a brick are one contiguous run of 3K lanes,
-            # so output slice x contributes one (3K, N) product to the
-            # three taps at once
-            rows6 = _assemble_p6(x2, halo, cd)
-            k = rows6.shape[2]
-            g4 = g.to(cd).reshape(b, BRICK, OUTP * cout)
-            dwb = sum(_contract_rows(
-                rows6.as_strided((b, 3 * k), (6 * k, 1),
-                                 rows6.storage_offset() + x * k),
-                g4[:, x]) for x in range(BRICK))
-            dw = _dwb_to_dw(dwb.reshape(3, k, OUTP * cout), cin,
-                            cout).to(weights.dtype)
+            dw = _subm_dw(_assemble_p6(x2, halo, cd), g, cd, cin,
+                          cout).to(weights.dtype)
         return dx, dw, None, None, None, None, None, None
 
 
@@ -369,6 +447,55 @@ def subm_conv3_2d(x2: torch.Tensor, occ: torch.Tensor, halo: torch.Tensor,
     """
     return _SubmConv.apply(x2, weights, occ, halo, sm, compute_dtype,
                            sm_max_cin, nbr)
+
+
+class _SubmConvNorm(torch.autograd.Function):
+    """Port of ``subm_conv3_norm_2d``'s custom VJP (``_subm_norm_bwd``)."""
+
+    @staticmethod
+    def forward(ctx, x2, weights, scale, bias, occ, halo, sm, compute_dtype,
+                sm_max_cin, nbr, occw):
+        ctx.save_for_backward(x2, weights, scale, bias, occ, halo, sm, nbr)
+        ctx.compute_dtype, ctx.sm_max_cin = compute_dtype, sm_max_cin
+        out = _subm_raw(x2, halo, sm, weights, compute_dtype, sm_max_cin,
+                        nbr, (scale, bias, occ), occw)
+        return _mask(out, occ, weights.shape[2])
+
+    @staticmethod
+    def backward(ctx, g):
+        x2, weights, scale, bias, occ, halo, sm, nbr = ctx.saved_tensors
+        cd = ctx.compute_dtype
+        cin, cout = weights.shape[1], weights.shape[2]
+        g = _mask(g, occ, cout)
+        dx = dw = ds = db = None
+        h = pro_full(x2, (scale, bias, occ), cin, cd)
+        if any(ctx.needs_input_grad[i] for i in (0, 2, 3)):
+            # the cotangent of the prologue's output through the plain
+            # conv's dx kernel, then the prologue's backward
+            dh = _subm_raw(g, halo, sm, _flip_weights(weights), cd,
+                           ctx.sm_max_cin, nbr)
+            dx, ds, db = _pro_backward(x2, h, scale, dh, cd)
+        if ctx.needs_input_grad[1]:
+            dw = _subm_dw(_assemble_p6(h, halo, cd), g, cd, cin,
+                          cout).to(weights.dtype)
+        return dx, dw, ds, db, None, None, None, None, None, None, None
+
+
+def subm_conv3_norm_2d(x2: torch.Tensor, occ: torch.Tensor,
+                       halo: torch.Tensor, weights: torch.Tensor,
+                       scale: torch.Tensor, bias: torch.Tensor,
+                       compute_dtype=torch.bfloat16,
+                       sm: torch.Tensor | None = None, sm_max_cin: int = 0,
+                       nbr: torch.Tensor | None = None,
+                       occw: torch.Tensor | None = None) -> torch.Tensor:
+    """``subm_conv3_2d(where(occ, relu(x2*scale + bias), 0))`` with the
+    per-channel (cin,) scale and bias of a folded batch norm, without
+    materializing the normalized activation on the fused route. ``occw``
+    (rows,) int64 is ``occ_words(occ)``, made once per level; other
+    arguments as ``subm_conv3_2d``. Differentiable in x2, weights, scale
+    and bias."""
+    return _SubmConvNorm.apply(x2, weights, scale, bias, occ, halo, sm,
+                               compute_dtype, sm_max_cin, nbr, occw)
 
 
 # ---------------------------------------------------------------------------
@@ -429,6 +556,45 @@ def _octant_gather(par_ow: torch.Tensor, child_parent: torch.Tensor,
     return _gather_rows(par_ow.reshape(p * 8, width), idx)
 
 
+def _down_apply(x, weights, parent_children, occ_p, compute_dtype,
+                out_dtype):
+    """The stride-2 down conv of x (B, 64*cin), already in compute_dtype
+    -> (P, 64*cout) in out_dtype, masked to the parents' cells."""
+    b, lanes = x.shape
+    cin = lanes // CELLS
+    cout = weights.shape[-1]
+    x = _lane_permute(x, _wo_cells(), cin)
+    w = weights.reshape(8 * cin, cout).to(compute_dtype)
+    child_out = (x.reshape(b * WINDOWS, 8 * cin) @ w).reshape(
+        b, WINDOWS * cout)
+    pow_ = _children_gather(child_out, parent_children)
+    p_raster = _lane_permute(pow_, _inv(_ow_cells()), cout).to(out_dtype)
+    return _mask(p_raster, occ_p, cout)
+
+
+def _down_grads(x, weights, g, occ_p, child_parent, parity, compute_dtype,
+                need_dx, need_dw):
+    """(dx in compute_dtype, float32 dW) of ``_down_apply`` at its input x
+    (B, 64*cin) in compute_dtype, from the output's cotangent g."""
+    b, lanes = x.shape
+    cin = lanes // CELLS
+    cout = weights.shape[-1]
+    g = _mask(g, occ_p, cout).to(compute_dtype)
+    g_ow = _lane_permute(g, _ow_cells(), cout)
+    gc_rows = _octant_gather(g_ow, child_parent, parity,
+                             WINDOWS * cout).reshape(b * WINDOWS, cout)
+    dx = dw = None
+    if need_dx:
+        w = weights.reshape(8 * cin, cout).to(compute_dtype)
+        dx_wo = (gc_rows @ w.T).reshape(b, CELLS * cin)
+        dx = _lane_permute(dx_wo, _inv(_wo_cells()), cin)
+    if need_dw:
+        xw = _lane_permute(x, _wo_cells(), cin)
+        dw = _contract_rows(xw.reshape(b * WINDOWS, 8 * cin), gc_rows)
+        dw = dw.reshape(8, cin, cout)
+    return dx, dw
+
+
 class _DownConv(torch.autograd.Function):
     """Port of ``down_conv2_2d`` and ``_down2d_bwd``."""
 
@@ -437,38 +603,18 @@ class _DownConv(torch.autograd.Function):
                 parent_children, compute_dtype):
         ctx.save_for_backward(x2, weights, occ_p, child_parent, parity)
         ctx.compute_dtype = compute_dtype
-        b, lanes = x2.shape
-        cin = lanes // CELLS
-        cout = weights.shape[-1]
-        x = _lane_permute(x2.to(compute_dtype), _wo_cells(), cin)
-        w = weights.reshape(8 * cin, cout).to(compute_dtype)
-        child_out = (x.reshape(b * WINDOWS, 8 * cin) @ w).reshape(
-            b, WINDOWS * cout)
-        pow_ = _children_gather(child_out, parent_children)
-        p_raster = _lane_permute(pow_, _inv(_ow_cells()), cout).to(x2.dtype)
-        return _mask(p_raster, occ_p, cout)
+        return _down_apply(x2.to(compute_dtype), weights, parent_children,
+                           occ_p, compute_dtype, x2.dtype)
 
     @staticmethod
     def backward(ctx, g):
         x2, weights, occ_p, child_parent, parity = ctx.saved_tensors
-        cd = ctx.compute_dtype
-        b, lanes = x2.shape
-        cin = lanes // CELLS
-        cout = weights.shape[-1]
-        g = _mask(g, occ_p, cout).to(cd)
-        g_ow = _lane_permute(g, _ow_cells(), cout)
-        gc_rows = _octant_gather(g_ow, child_parent, parity,
-                                 WINDOWS * cout).reshape(b * WINDOWS, cout)
-        dx = dw = None
-        if ctx.needs_input_grad[0]:
-            w = weights.reshape(8 * cin, cout).to(cd)
-            dx_wo = (gc_rows @ w.T).reshape(b, CELLS * cin)
-            dx = _lane_permute(dx_wo, _inv(_wo_cells()), cin).to(x2.dtype)
-        if ctx.needs_input_grad[1]:
-            x = _lane_permute(x2.to(cd), _wo_cells(), cin)
-            dw = _contract_rows(x.reshape(b * WINDOWS, 8 * cin), gc_rows)
-            dw = dw.reshape(8, cin, cout).to(weights.dtype)
-        return dx, dw, None, None, None, None, None
+        dx, dw = _down_grads(x2.to(ctx.compute_dtype), weights, g, occ_p,
+                             child_parent, parity, ctx.compute_dtype,
+                             *ctx.needs_input_grad[:2])
+        return (None if dx is None else dx.to(x2.dtype),
+                None if dw is None else dw.to(weights.dtype),
+                None, None, None, None, None)
 
 
 def down_conv2_2d(x2: torch.Tensor, occ_p: torch.Tensor, down,
@@ -483,13 +629,94 @@ def down_conv2_2d(x2: torch.Tensor, occ_p: torch.Tensor, down,
                            down.parity, down.parent_children, compute_dtype)
 
 
-class _UpConv(torch.autograd.Function):
-    """Port of ``up_conv2_2d`` and ``_up2d_bwd``."""
+class _DownConvNorm(torch.autograd.Function):
+    """Port of ``down_conv2_norm_2d`` and ``_downn_bwd``: the prologue on
+    the children, applied once up front."""
 
     @staticmethod
-    def _corner(p2, child_parent, parity, cin, compute_dtype):
-        par_ow = _lane_permute(p2.to(compute_dtype), _ow_cells(), cin)
-        return _octant_gather(par_ow, child_parent, parity, WINDOWS * cin)
+    def forward(ctx, x2, weights, scale, bias, occ_c, occ_p, child_parent,
+                parity, parent_children, compute_dtype):
+        ctx.save_for_backward(x2, weights, scale, bias, occ_c, occ_p,
+                              child_parent, parity)
+        ctx.compute_dtype = compute_dtype
+        cin = x2.shape[1] // CELLS
+        h = pro_full(x2, (scale, bias, occ_c), cin, compute_dtype)
+        return _down_apply(h, weights, parent_children, occ_p,
+                           compute_dtype, x2.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        (x2, weights, scale, bias, occ_c, occ_p, child_parent,
+         parity) = ctx.saved_tensors
+        cd = ctx.compute_dtype
+        need_dw = ctx.needs_input_grad[1]
+        h = pro_full(x2, (scale, bias, occ_c), x2.shape[1] // CELLS, cd)
+        dh, dw = _down_grads(h, weights, g, occ_p, child_parent, parity, cd,
+                             True, need_dw)
+        dx, ds, db = _pro_backward(x2, h, scale, dh, cd)
+        return (dx, None if dw is None else dw.to(weights.dtype), ds, db,
+                None, None, None, None, None, None)
+
+
+def down_conv2_norm_2d(x2: torch.Tensor, occ_c: torch.Tensor,
+                       occ_p: torch.Tensor, down, weights: torch.Tensor,
+                       scale: torch.Tensor, bias: torch.Tensor,
+                       compute_dtype=torch.bfloat16) -> torch.Tensor:
+    """``down_conv2_2d`` of where(occ_c, relu(x2*scale + bias), 0): occ_c
+    is the children's cell mask, occ_p the parents' output mask."""
+    return _DownConvNorm.apply(x2, weights, scale, bias, occ_c, occ_p,
+                               down.child_parent, down.parity,
+                               down.parent_children, compute_dtype)
+
+
+def _up_corner(p, child_parent, parity):
+    """(P, 64*cin) parents -> (B, 8*cin): each child's octant."""
+    cin = p.shape[1] // CELLS
+    par_ow = _lane_permute(p, _ow_cells(), cin)
+    return _octant_gather(par_ow, child_parent, parity, WINDOWS * cin)
+
+
+def _up_apply(p, weights, child_parent, parity, occ_c, compute_dtype,
+              out_dtype):
+    """The stride-2 up conv of p (P, 64*cin), already in compute_dtype
+    -> (B, 64*cout) in out_dtype, masked to the children's cells."""
+    cin = p.shape[1] // CELLS
+    cout = weights.shape[-1]
+    b = child_parent.shape[0]
+    corner = _up_corner(p, child_parent, parity)
+    # W[o, c, :] -> (cin, 8*cout) so out lanes come back (o, cout)
+    w = weights.permute(1, 0, 2).reshape(cin, 8 * cout).to(compute_dtype)
+    out8 = (corner.reshape(b * WINDOWS, cin) @ w).reshape(
+        b, WINDOWS * 8 * cout)
+    out = _lane_permute(out8, _inv(_wo_cells()), cout).to(out_dtype)
+    return _mask(out, occ_c, cout)
+
+
+def _up_grads(p, weights, g, occ_c, child_parent, parity, parent_children,
+              compute_dtype, need_dp, need_dw):
+    """(dp in compute_dtype, float32 dW) of ``_up_apply`` at its input p
+    (P, 64*cin) in compute_dtype, from the output's cotangent g."""
+    cin = p.shape[1] // CELLS
+    cout = weights.shape[-1]
+    b = child_parent.shape[0]
+    g = _mask(g, occ_c, cout).to(compute_dtype)
+    g_rows = _lane_permute(g, _wo_cells(), cout).reshape(
+        b * WINDOWS, 8 * cout)
+    dp = dw = None
+    if need_dp:
+        w = weights.permute(1, 0, 2).reshape(cin, 8 * cout).to(compute_dtype)
+        dcorner = (g_rows @ w.T).reshape(b, WINDOWS * cin)
+        dp_ow = _children_gather(dcorner, parent_children)
+        dp = _lane_permute(dp_ow, _inv(_ow_cells()), cin)
+    if need_dw:
+        corner = _up_corner(p, child_parent, parity)
+        dw8 = _contract_rows(corner.reshape(b * WINDOWS, cin), g_rows)
+        dw = dw8.reshape(cin, 8, cout).permute(1, 0, 2)
+    return dp, dw
+
+
+class _UpConv(torch.autograd.Function):
+    """Port of ``up_conv2_2d`` and ``_up2d_bwd``."""
 
     @staticmethod
     def forward(ctx, p2, weights, occ_c, child_parent, parity,
@@ -497,40 +724,19 @@ class _UpConv(torch.autograd.Function):
         ctx.save_for_backward(p2, weights, occ_c, child_parent, parity,
                               parent_children)
         ctx.compute_dtype = compute_dtype
-        cin = p2.shape[1] // CELLS
-        cout = weights.shape[-1]
-        b = child_parent.shape[0]
-        corner = _UpConv._corner(p2, child_parent, parity, cin,
-                                 compute_dtype)
-        # W[o, c, :] -> (cin, 8*cout) so out lanes come back (o, cout)
-        w = weights.permute(1, 0, 2).reshape(cin, 8 * cout).to(compute_dtype)
-        out8 = (corner.reshape(b * WINDOWS, cin) @ w).reshape(
-            b, WINDOWS * 8 * cout)
-        out = _lane_permute(out8, _inv(_wo_cells()), cout).to(p2.dtype)
-        return _mask(out, occ_c, cout)
+        return _up_apply(p2.to(compute_dtype), weights, child_parent, parity,
+                         occ_c, compute_dtype, p2.dtype)
 
     @staticmethod
     def backward(ctx, g):
         (p2, weights, occ_c, child_parent, parity,
          parent_children) = ctx.saved_tensors
-        cd = ctx.compute_dtype
-        cin = p2.shape[1] // CELLS
-        cout = weights.shape[-1]
-        b = child_parent.shape[0]
-        g = _mask(g, occ_c, cout).to(cd)
-        g_rows = _lane_permute(g, _wo_cells(), cout).reshape(
-            b * WINDOWS, 8 * cout)
-        dp = dw = None
-        if ctx.needs_input_grad[0]:
-            w = weights.permute(1, 0, 2).reshape(cin, 8 * cout).to(cd)
-            dcorner = (g_rows @ w.T).reshape(b, WINDOWS * cin)
-            dp_ow = _children_gather(dcorner, parent_children)
-            dp = _lane_permute(dp_ow, _inv(_ow_cells()), cin).to(p2.dtype)
-        if ctx.needs_input_grad[1]:
-            corner = _UpConv._corner(p2, child_parent, parity, cin, cd)
-            dw8 = _contract_rows(corner.reshape(b * WINDOWS, cin), g_rows)
-            dw = dw8.reshape(cin, 8, cout).permute(1, 0, 2).to(weights.dtype)
-        return dp, dw, None, None, None, None, None
+        dp, dw = _up_grads(p2.to(ctx.compute_dtype), weights, g, occ_c,
+                           child_parent, parity, parent_children,
+                           ctx.compute_dtype, *ctx.needs_input_grad[:2])
+        return (None if dp is None else dp.to(p2.dtype),
+                None if dw is None else dw.to(weights.dtype),
+                None, None, None, None, None)
 
 
 def up_conv2_2d(p2: torch.Tensor, occ_c: torch.Tensor, down,
@@ -541,6 +747,46 @@ def up_conv2_2d(p2: torch.Tensor, occ_c: torch.Tensor, down,
     Each child reads the 8 parent cells of its octant through W[offset]."""
     return _UpConv.apply(p2, weights, occ_c, down.child_parent, down.parity,
                          down.parent_children, compute_dtype)
+
+
+class _UpConvNorm(torch.autograd.Function):
+    """Port of ``up_conv2_norm_2d`` and ``_upn_bwd``: the prologue on the
+    parents, applied once up front."""
+
+    @staticmethod
+    def forward(ctx, p2, weights, scale, bias, occ_p, occ_c, child_parent,
+                parity, parent_children, compute_dtype):
+        ctx.save_for_backward(p2, weights, scale, bias, occ_p, occ_c,
+                              child_parent, parity, parent_children)
+        ctx.compute_dtype = compute_dtype
+        h = pro_full(p2, (scale, bias, occ_p), p2.shape[1] // CELLS,
+                     compute_dtype)
+        return _up_apply(h, weights, child_parent, parity, occ_c,
+                         compute_dtype, p2.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        (p2, weights, scale, bias, occ_p, occ_c, child_parent, parity,
+         parent_children) = ctx.saved_tensors
+        cd = ctx.compute_dtype
+        h = pro_full(p2, (scale, bias, occ_p), p2.shape[1] // CELLS, cd)
+        dh, dw = _up_grads(h, weights, g, occ_c, child_parent, parity,
+                           parent_children, cd, True,
+                           ctx.needs_input_grad[1])
+        dp, ds, db = _pro_backward(p2, h, scale, dh, cd)
+        return (dp, None if dw is None else dw.to(weights.dtype), ds, db,
+                None, None, None, None, None, None)
+
+
+def up_conv2_norm_2d(p2: torch.Tensor, occ_p: torch.Tensor,
+                     occ_c: torch.Tensor, down, weights: torch.Tensor,
+                     scale: torch.Tensor, bias: torch.Tensor,
+                     compute_dtype=torch.bfloat16) -> torch.Tensor:
+    """``up_conv2_2d`` of where(occ_p, relu(p2*scale + bias), 0): occ_p is
+    the parents' cell mask, occ_c the children's output mask."""
+    return _UpConvNorm.apply(p2, weights, scale, bias, occ_p, occ_c,
+                             down.child_parent, down.parity,
+                             down.parent_children, compute_dtype)
 
 
 def conv1x1_2d(x2: torch.Tensor, occ: torch.Tensor, weights: torch.Tensor,

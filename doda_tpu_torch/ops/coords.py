@@ -1,11 +1,14 @@
-"""Packed brick-coordinate keys, dedup and table lookup (one scene).
+"""Packed coordinate keys, dedup and table lookup (one scene).
 
-Port of the packed single-key half of ``doda_tpu/ops/coords.py``. Brick
-coords are packed into one int32 key ``(x << 20) | (y << 10) | z``; coords
-outside [0, 1024) per axis count as invalid. Tables are sorted by that key,
-so table ids are ranks in the packed order, exactly as in the JAX package.
-Every miss (invalid point, absent neighbour, overflowed capacity) maps to
-the null id ``cap``.
+Port of ``doda_tpu/ops/coords.py``'s ``unique_coords`` and ``pad_rows``
+and of its packed single-key half. Brick coords are packed into one int32
+key ``(x << 20) | (y << 10) | z``; coords outside [0, 1024) per axis count
+as invalid. Voxel coords (``unique_coords``, up to ``MAX_COORD`` per axis)
+take one int64 key ``x * 2^32 + y * 2^16 + z``, which sorts as the JAX
+package's two int32 keys (x, y * 2^16 + z) do. Tables are sorted by their
+key, so table ids are ranks in the packed order, exactly as in the JAX
+package. Every miss (invalid point, absent neighbour, overflowed capacity)
+maps to the null id ``cap``.
 """
 
 from __future__ import annotations
@@ -16,6 +19,7 @@ import torch
 
 MAX_COORD = 2 ** 15 - 1
 SENTINEL = torch.iinfo(torch.int32).max
+SENTINEL64 = torch.iinfo(torch.int64).max
 PACK_BITS = 10
 _PACK_LIM = 1 << PACK_BITS
 
@@ -24,7 +28,8 @@ class CoordTable(NamedTuple):
     """A deduplicated coordinate table sorted by packed key.
 
     coords : (cap, 3) int32 — unique coords; rows >= n hold MAX_COORD.
-    key    : (cap,) int32 — packed key of each row; SENTINEL past n.
+    key    : (cap,) packed key of each row, SENTINEL past n: int32 for
+             brick tables, int64 (SENTINEL64) for ``unique_coords``.
     n      : () int32 — number of valid rows (<= cap).
     p2v    : (N,) int32 — input row -> table id; misses -> cap.
     """
@@ -100,3 +105,46 @@ def lookup_packed(table: CoordTable, query_coords: torch.Tensor,
     pos = pos.clamp(max=cap - 1)
     hit = (table.key[pos] == qk) & (qk != SENTINEL)
     return torch.where(hit, pos.to(torch.int32), cap)
+
+
+def _pack64(coords: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    c = coords.to(torch.int64)
+    k = (c[..., 0] << 32) | (c[..., 1] << 16) | c[..., 2]
+    return torch.where(valid, k, SENTINEL64)
+
+
+def unique_coords(coords: torch.Tensor, valid: torch.Tensor,
+                  cap: int) -> CoordTable:
+    """Deduplicate (N, 3) coords, 0 <= c <= MAX_COORD, into a table of
+    capacity ``cap`` sorted lexicographically by (x, y, z).
+
+    Coords beyond the first ``cap`` unique ones overflow into the null
+    slot and are dropped (``n`` is clamped to ``cap``)."""
+    dev = coords.device
+    n_pts = coords.shape[0]
+    ks, order = torch.sort(_pack64(coords, valid), stable=True)
+    valid_s = ks != SENTINEL64
+    new = torch.ones_like(valid_s)
+    new[1:] = ks[1:] != ks[:-1]
+    new &= valid_s
+    vid_s = torch.cumsum(new, 0, dtype=torch.int32) - 1
+    n = (vid_s[-1] + 1).clamp(max=cap).to(torch.int32) if n_pts \
+        else torch.zeros((), dtype=torch.int32, device=dev)
+    vid_s = torch.where(valid_s & (vid_s < cap), vid_s, cap)
+
+    slot = torch.where(new & (vid_s < cap), vid_s, cap).long()
+    table = torch.full((cap + 1, 3), MAX_COORD, dtype=torch.int32,
+                       device=dev)
+    table[slot] = torch.stack([ks >> 32, (ks >> 16) & 0xffff, ks & 0xffff],
+                              -1).to(torch.int32)
+    table = table[:cap]         # row cap took every non-new write
+
+    p2v = torch.empty(n_pts, dtype=torch.int32, device=dev)
+    p2v[order] = vid_s
+    key = _pack64(table, torch.arange(cap, device=dev) < n)
+    return CoordTable(coords=table, key=key, n=n, p2v=p2v)
+
+
+def pad_rows(values: torch.Tensor) -> torch.Tensor:
+    """Append one zero row so null-slot gathers (id == cap) return 0."""
+    return torch.cat([values, values.new_zeros((1,) + values.shape[1:])])

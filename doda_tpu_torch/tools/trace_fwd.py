@@ -2,14 +2,15 @@
 device time.
 
     python -m doda_tpu_torch.tools.trace_fwd [--train] [--sm-max-cin N]
-                                             [--trace PATH]
+                                             [--fuse-norm] [--trace PATH]
 
 from the repo root. Builds the flagship (cfgs/scannet/spconv.yaml) with
 seeded weights in bf16, runs ``make_eval_step`` on 4 bench scenes (with
 ``--train``: ``make_train_step`` on 2 scenes, SGD as in the YAML;
 ``--sm-max-cin`` picks the subm-conv kernels, by default 0, K1 everywhere,
-for the forward and 32, K2 at levels 0 and 1, for the train step) twice to
-warm up, times three calls on the host clock, then profiles one with
+for the forward and 32, K2 at levels 0 and 1, for the train step;
+``--fuse-norm`` turns on the fused norm + ReLU engine, whose block convs
+run K1's prologue variant, a bucket of its own) twice to warm up, times three calls on the host clock, then profiles one with
 ``torch.profiler``. Prints one JSON line: the call's wall
 time, the device's busy share of it, device time per bucket of kernels, and
 the top kernels. ``--trace`` also writes a Chrome trace.
@@ -34,6 +35,7 @@ from ..utils import optim, synth
 
 # first match wins; kernel names as the CUDA runtime reports them
 BUCKETS = (
+    ('banded_conv_fused prologue (K1, fused norm)', r'fused_tc.*(true|Lb1E)'),
     ('banded_conv_fused (K1, fused)', r'fused_tc'),
     ('banded_conv (K1, assembled)', r'banded_tc|banded_f32'),
     ('banded_conv_sm (K2, both versions)', r'sm_taps_tc|sm_tc|sm_f32'),
@@ -59,6 +61,8 @@ def main(argv=None):
     ap.add_argument('--sm-max-cin', type=int, default=None,
                     help='convs with cin up to this run on K2 '
                          '(default: 0, or 32 with --train)')
+    ap.add_argument('--fuse-norm', action='store_true',
+                    help='the fused norm + ReLU engine (fuse_norm=True)')
     ap.add_argument('--trace', help='write a Chrome trace to this path')
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -75,7 +79,7 @@ def main(argv=None):
     sm_max_cin = args.sm_max_cin if args.sm_max_cin is not None else (
         32 if args.train else 0)
     model = model_fn.build_model(cfg, sm_max_cin=sm_max_cin,
-                                 train=args.train)
+                                 train=args.train, fuse_norm=args.fuse_norm)
     model.load_state_dict(synth.seeded_state_dict(model, seed=0))
     if args.train:
         opt = optim.build_optimizer(cfg.OPTIMIZATION, model.parameters())
@@ -115,7 +119,8 @@ def main(argv=None):
                          text=True, timeout=60).stdout.strip()
     print(json.dumps({
         'card': smi, 'mode': 'train step' if args.train else 'eval forward',
-        'sm_max_cin': sm_max_cin, 'scenes': int(batch.coords.shape[0]),
+        'sm_max_cin': sm_max_cin, 'fuse_norm': args.fuse_norm,
+        'scenes': int(batch.coords.shape[0]),
         'wall_ms': wall_ms,
         'profiled_device_ms': device_ms,
         'device_busy_share': device_ms / wall_ms if wall_ms else None,

@@ -86,9 +86,18 @@ def test_region_eval_batches_match(root, same_native):
 
 
 def _mix_epochs(pkg, cfg, update):
-    """Two epochs of the TACM-mixed target loader with its split sampler
+    """Two epochs of the TACM-mixed target set with its split sampler
     initialized and updated from each batch, as the st loop does; returns
-    the batches and the sampler."""
+    the batches and the sampler.
+
+    The items are made on this thread, batch by batch in the sampler's
+    order, as the loader would make them (its epoch hand-over, full
+    batches, ``collate_batch``), each batch's update before the next
+    batch's items. Through the threaded loader, which makes items up to
+    (prefetch + 1) batches ahead, whether an item's TACM draw saw the
+    queue before or after an earlier batch's update depended on thread
+    timing (ROADMAP.md section C); the loader itself is covered by the
+    other tests of this file."""
     mixed, loader, sampler = pkg.build_mix_dataloader(
         cfg.DATA_CONFIG_TAR, cfg.DATA_CONFIG, 2, workers=2, seed=SEED)
     split = mixed.split_sampler
@@ -99,7 +108,12 @@ def _mix_epochs(pkg, cfg, update):
     batches = []
     for epoch in range(2):
         sampler.set_epoch(epoch)
-        for batch in loader:
+        mixed.set_epoch(epoch)
+        idx = sampler.indices()
+        for i in range(0, len(idx) - loader.batch_size + 1,
+                       loader.batch_size):
+            batch = mixed.collate_batch(
+                [mixed[int(j)] for j in idx[i:i + loader.batch_size]])
             update(split, batch.extras, cq.num_class, True)
             batches.append(batch)
     return batches, split

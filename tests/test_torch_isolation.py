@@ -25,7 +25,9 @@ def _modules():
 
 def test_import_loads_no_jax():
     mods = list(_modules())
-    assert 'doda_tpu_torch.ops.banded_conv' in mods
+    for name in ('ops.banded_conv', 'ops.bricks2d', 'ops.pointops',
+                 'ops.pointops_offsets', 'ops.voxelize', 'native.host_ops'):
+        assert f'doda_tpu_torch.{name}' in mods, name
     code = ('import importlib, sys\n'
             f'for m in {mods!r}:\n'
             '    importlib.import_module(m)\n'
