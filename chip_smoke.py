@@ -45,11 +45,26 @@ Phases, each printing one line:
      train steps both ways (launches, step time, peak memory, and the
      bf16 fused step's gradient error against the float32 unfused step, at
      most twice the bf16 unfused step's)
-  7. pointops: every point op, offset wrapper and voxelization function
+  7. engines: the JAX package's other subm-conv engines in the same
+     flagship with the same weights (``conv_engine`` 'slab', 'xla',
+     'oracle', and '2d' with ``deep_xla_rows=4096``: levels 3-6 on the
+     concat-assembly engine), each against '2d': the bench scenes'
+     occupied x-slices within ``default_slab_caps`` and the card's slab
+     maps equal to the CPU's; the eval forward on the 4 bench scenes
+     (float32 logits to 1e-3, bf16 predictions >= 99%, launches and engine
+     calls against ``subm_routes``, ms in two turns, peak memory); a
+     float32 train step on 2 scenes (loss 1e-4 relative, gradients 1e-3,
+     ms, peak memory); K1 against references that share none of its
+     halo tables at levels 0 and 1 of the real rulebooks (the oracle, the
+     slab and concat-assembly convs against K1's float32 path, the fused
+     K1 against the oracle, the voxel-level ``sparse.subm_conv`` on scene
+     0's voxels; 1e-4 of max|ref|); cuDNN ``conv3d`` alone over the
+     oracle's assembled bf16 halo (the library call of K1's function)
+  8. pointops: every point op, offset wrapper and voxelization function
      on the card against the CPU on one bench scene's points (FPS of 4,096
      of 150k points, kNN k = 16 of 4,096 queries among 16,384 points, a
      0.05 m voxel grid): integer outputs equal, floats to 1e-5
-  8. cli: the port's three CLIs in process (``doda_tpu_torch.tools``), at
+  9. cli: the port's three CLIs in process (``doda_tpu_torch.tools``), at
      full width and depth and the cfgs' batch size (4), on synthetic rooms
      of ~150k points written by ``tools/make_synth_data.py``: ``train``
      (cfgs/da_front3d_scannet/spconv.yaml, one epoch on 6 3D-FRONT-format
@@ -61,22 +76,24 @@ Phases, each printing one line:
      target rooms: pseudo labels, TACM-mixed batches, DSNorm); every
      step's kernel launches read from the counters against the rule,
      scenes/sec, step ms, data-wait ms, peak memory, IoU and the files
-     written, with the output tree asserted
-  9. import: a seeded reference ``.pth`` of the DA flagship (the
+     written, with the output tree asserted; ``doda_tpu_torch.tools.
+     visualize`` on one room with ``test``'s dumps (the .ply files' header,
+     vertex count and colours)
+ 10. import: a seeded reference ``.pth`` of the DA flagship (the
      reference's key names and layouts), converted into the JAX package's
      format by ``doda_tpu_torch.tools.convert_torch_ckpt``, through
      ``test --ckpt`` on the 4 ScanNet rooms: launches, its mIoU equal to
      that of the same tree loaded through ``params_from_jax`` and run
      through ``make_eval_step``, one batch's float32 logits bit-equal
      between the two loads (all under deterministic algorithms)
- 10. device_aug: ``train`` and ``st``, one step each, with
+ 11. device_aug: ``train`` and ``st``, one step each, with
      ``DATA_AUG.device`` on: step ms, data wait and its share, peak memory,
      launches, beside phase cli's host-path readings; the augmentation's
      own device time; ``device_augment`` on the card against the CPU on
      the same CPU draws (feats to 1e-5, coords equal but for floor flips
      inside 1e-4 of an integer); the brick audit of each step's augmented
      batch
- 11. ddp: two gloo ranks spawned on the one card, one bench scene each
+ 12. ddp: two gloo ranks spawned on the one card, one bench scene each
      (150k and 100k points; st targets of 120k and 150k), against one
      process on both, float32 on the kernel path
      (``tests/_torch_equivalence.py``): for a train step and an st step
@@ -84,12 +101,13 @@ Phases, each printing one line:
      and running statistics; eval predictions and histograms;
      ``all_gather_objects``; each rank's peak memory; then ``train
      --launcher pytorch`` at WORLD_SIZE=1 for one step
- 12. timing: each kernel at the level-0 shape beside its bound, its plain
+ 13. timing: each kernel at the level-0 shape beside its bound, its plain
      version and, where there is one, a PyTorch library call computing the
      same function; K1 in both versions, with the plane gather alone, and
      its prologue variant beside the unfused sequence it replaces (norm
      apply + ReLU + mask + K1), at the level-0 and level-1 shapes on the
-     real rulebooks; K2 in both versions at the level-0 and level-1 shapes
+     real rulebooks; K2 in both versions at the level-0 and level-1 shapes;
+     K1's and K2's library time is phase engines' conv3d
 Then a JSON line of the kernels and, last, {"ok": true, "device": ...}.
 Any failure raises, and the script exits non-zero without that last line.
 """
@@ -839,6 +857,343 @@ def phase_fuse_norm(cfg, batch, b_caps, card):
     return launched
 
 
+# (conv_engine, deep_xla_rows) of phase engines, each against '2d': at
+# batch 4, deep_xla_rows=4096 sends levels 3-6 (3,072 / 1,024 / 512 / 512
+# flat rows) to the concat-assembly engine
+ENGINE_RUNS = (('slab', 0), ('xla', 0), ('oracle', 0), ('2d', 4096))
+ENGINE_CONVS = (('slab', 'subm_conv3_slab'), ('xla', 'subm_conv3_v2'),
+                ('oracle', 'subm_conv3'))
+
+
+def counting_engines():
+    """Context that counts the forward calls of the engines' convs on the
+    model's path (they launch no kernel), by engine name; returns (the
+    context, the counts)."""
+    from contextlib import ExitStack
+    from doda_tpu_torch.models import unet
+    calls = {k: 0 for k, _ in ENGINE_CONVS}
+    stack = ExitStack()
+    for key, name in ENGINE_CONVS:
+        def counted(*a, _fn=getattr(unet, name), _key=key, **k):
+            calls[_key] += 1
+            return _fn(*a, **k)
+        stack.enter_context(patch.object(unet, name, counted))
+    return stack, calls
+
+
+def _routes_ran(calls):
+    """The launches by route from the kernels' counters, and the engines'
+    calls, as ``subm_routes`` keys them."""
+    ran = _cli_launches()
+    ran.update(calls)
+    return ran
+
+
+def _routes_match(ran, want):
+    return all(ran.get(k, 0) == v for k, v in want.items()) and \
+        sum(ran.values()) == sum(want.values())
+
+
+def engine_k1_checks(levels, slab_levels, batch, plan):
+    """K1 against references that do not share its halo tables, float32,
+    at levels 0 and 1 of the bench batch's real rulebooks: the oracle and
+    the slab conv against ``subm_conv3_2d`` on the kernel path (K1's first
+    version in float32), the fused K1 (bf16 operands, float32 output)
+    against the oracle on the same rounded operands, ``subm_conv3_v2``
+    against K1 too, and the voxel-level
+    ``sparse.subm_conv`` on scene 0's voxel table (its rulebook from
+    ``build_subm_rulebook``, card against CPU) against K1 at those
+    voxels. Bounds 1e-4 of max|ref|. Also times ``F.conv3d`` alone on the
+    oracle's assembled bf16 halo, the library call of K1's function."""
+    import torch.nn.functional as F
+    from doda_tpu_torch.ops import bricks, bricks2d, slabs, sparse
+    from doda_tpu_torch.ops.banded_conv import banded_conv, banded_conv_fused
+    from doda_tpu_torch.ops.coords import (CoordTable, lookup_packed,
+                                           unique_coords)
+    g = torch.Generator(device='cuda').manual_seed(4)
+    bf, f32 = torch.bfloat16, torch.float32
+    errs, library = {}, {}
+    # scene 0's voxel table and the level-0 brick cell of each voxel
+    pts = batch.coords[0][batch.valid[0]].to('cuda')
+    n_pts = pts.shape[0]
+    table0 = unique_coords(pts, torch.ones_like(pts[:, 0], dtype=torch.bool),
+                           n_pts)
+    pt_idx = torch.nonzero(batch.valid[0]).squeeze(1).to('cuda')
+    vox_pt = torch.zeros(n_pts + 1, dtype=torch.long, device='cuda')
+    vox_pt[table0.p2v.long()] = pt_idx
+    cell0 = plan.grid0.flat_index()[0][vox_pt[:n_pts]]
+    ds = sparse.build_downsample(table0, n_pts)
+    parent = CoordTable(*(t[0] for t in plan.downs[0].parent))
+    for lvl, cin in ((0, 16), (1, 32)):
+        lv, slab = levels[lvl], slab_levels[lvl].slab
+        rows = lv.occ.shape[0]
+        x3 = torch.randn(rows, 64, cin, device='cuda', generator=g)
+        x3 = x3 * lv.occ[..., None]
+        w = torch.randn(27, cin, cin, device='cuda', generator=g)
+        w = w / (27 * cin) ** 0.5
+        x2 = x3.reshape(rows, -1)
+        before = banded_conv.launches
+        k1 = bricks2d.subm_conv3_2d(x2, lv.occ, lv.halo, w, f32, lv.sm, 0,
+                                    lv.nbr)
+        assert banded_conv.launches == before + 1     # the kernel path
+        oracle = bricks.subm_conv3(x3, lv.occ, lv.nbr, w, f32)
+        key = f'level{lvl}/{rows}x{cin}x{cin}'
+        errs[f'oracle-vs-K1/{key}'] = _close(
+            oracle.reshape(rows, -1), k1, True, 1e-4, f'oracle vs K1 {key}')
+        errs[f'slab-vs-K1/{key}'] = _close(
+            slabs.subm_conv3_slab(x2, slab, w, f32), k1, True, 1e-4,
+            f'slab vs K1 {key}')
+        errs[f'xla-vs-K1/{key}'] = _close(
+            bricks.subm_conv3_v2(x3, lv.occ, lv.nbr, w, f32).reshape(rows, -1),
+            k1, True, 1e-4, f'subm_conv3_v2 vs K1 {key}')
+        xb, wb = x3.to(bf), w.to(bf)
+        fused = bricks2d._mask(banded_conv_fused(
+            xb.reshape(rows, -1), lv.nbr, wb, f32), lv.occ, cin)
+        errs[f'fusedK1-vs-oracle/{key}'] = _close(
+            fused, bricks.subm_conv3(xb.float(), lv.occ, lv.nbr, wb.float(),
+                                     f32).reshape(rows, -1), True, 1e-4,
+            f'fused K1 vs oracle {key}')
+
+        # the voxel-level engine on scene 0: no bricks at all
+        table = table0 if lvl == 0 else ds.parent
+        rb = sparse.build_subm_rulebook(table, 3)
+        rb_cpu = sparse.build_subm_rulebook(CoordTable(
+            *(t.cpu() for t in table)), 3)
+        assert torch.equal(rb.cpu(), rb_cpu), f'voxel rulebook {lvl}'
+        if lvl == 0:
+            cell = cell0
+        else:
+            vc = table.coords
+            bid = lookup_packed(parent, torch.div(vc, 4, rounding_mode='floor'),
+                                table.valid)
+            m = vc % 4
+            cell = bid.long() * 64 + m[:, 0] * 16 + m[:, 1] * 4 + m[:, 2]
+        n = int(table.n)
+        cell = cell[:n]
+        # every voxel lands on an active cell of its level (a wrong map
+        # would compare zeros with zeros)
+        assert (cell < rows * 64).all() and lv.occ.reshape(-1)[cell].all()
+        feats = x3.new_zeros(table.cap, cin)     # rows past n: the null id
+        feats[:n] = x3.reshape(-1, cin)[cell]
+        vox = sparse.subm_conv(feats, rb, w, f32)[:n]
+        want = k1.reshape(-1, cin)[cell]
+        assert want.abs().max() > 0.1
+        errs[f'voxel-vs-K1/level{lvl}/{n}x{cin}x{cin}'] = _close(
+            vox, want, True, 1e-4, f'voxel subm_conv vs K1 level {lvl}')
+        errs[f'voxels/level{lvl}'] = n
+
+        # K1's library reading: F.conv3d alone over the oracle's assembled
+        # bf16 halo (channels-last), and the oracle's assembly + conv
+        halo = bricks.shell_halo(xb, lv.nbr, bf)
+        hin = halo.permute(0, 4, 1, 2, 3)
+        wc = wb.reshape(3, 3, 3, cin, cin).permute(4, 3, 0, 1, 2).contiguous(
+            memory_format=torch.channels_last_3d)
+        lib = F.conv3d(hin, wc)
+        lib_out = bricks2d._mask(lib.permute(0, 2, 3, 4, 1).reshape(rows, -1),
+                                 lv.occ, cin)
+        k1b = bricks2d._mask(banded_conv_fused(xb.reshape(rows, -1), lv.nbr,
+                                               wb, bf), lv.occ, cin)
+        library[f'level{lvl}'] = {
+            'shape': [rows, cin, cin],
+            'conv3d_ms': cuda_ms(lambda: F.conv3d(hin, wc), 10),
+            'oracle_assembly_plus_conv_ms': cuda_ms(
+                lambda: bricks.subm_conv3(xb, lv.occ, lv.nbr, wb, bf), 3),
+            'oracle_assembly_ms': cuda_ms(
+                lambda: bricks.shell_halo(xb, lv.nbr, bf), 3),
+            'fused_k1_ms': cuda_ms(lambda: banded_conv_fused(
+                xb.reshape(rows, -1), lv.nbr, wb, bf), 10),
+            'conv3d_vs_fused_k1_max_abs_err': _close(
+                lib_out, k1b, True, 2e-2, f'conv3d vs fused K1 {key}')}
+        del halo, hin, lib, lib_out, k1b, oracle, fused, x3, x2, k1
+        torch.cuda.empty_cache()
+    return errs, library
+
+
+def phase_engines(cfg, batch, b_caps, card, levels):
+    """The JAX package's other subm-conv engines in the flagship, each
+    against '2d' (``ENGINE_RUNS``), with phase forward's seeded weights:
+    the slab capacity of the bench scenes and the card's slab maps against
+    the CPU's; the eval forward on the 4 bench scenes (float32 logits to
+    1e-3 of max(1, max|logit|), bf16 predictions on >= 99% of points,
+    launches and engine calls by route against ``subm_routes``, forward
+    ms in two turns, peak memory); one float32 train step on 2 scenes
+    (loss 1e-4 relative, every gradient 1e-3 of its scale; launches, ms,
+    peak memory); then ``engine_k1_checks``. One line per engine.
+    Returns K1's library reading and the phase's kernel launches."""
+    from doda_tpu_torch.models import model_fn
+    from doda_tpu_torch.models.unet import (SLAB_LEVELS, build_level_plan,
+                                            default_slab_caps, flatten_plan)
+    from doda_tpu_torch.utils import optim, synth
+    t_phase = time.perf_counter()
+    bf, f32 = torch.bfloat16, torch.float32
+    cpu_batch = batch
+    batch = batch.to('cuda')
+    valid = batch.valid
+
+    # slab capacity: every scene's occupied x-slices fit at levels 0 and 1,
+    # so no engine compares on a truncated plan; the card's maps equal the
+    # CPU's
+    plan = build_level_plan(batch.coords, batch.valid, b_caps, slabs=True)
+    ref = build_level_plan(cpu_batch.coords, cpu_batch.valid, b_caps,
+                           device='cpu', slabs=True)
+    capacity = {}
+    for lvl, cap in enumerate(default_slab_caps(b_caps)):
+        occ = plan.occs[lvl]
+        slices = occ.reshape(occ.shape[0], -1, 16).any(-1).sum(1)
+        bricks = occ.any(-1).sum(1)
+        assert int(slices.max()) <= cap, (lvl, slices.tolist(), cap)
+        for name, a, b in zip(plan.slabs[lvl]._fields, plan.slabs[lvl],
+                              ref.slabs[lvl]):
+            assert torch.equal(a.cpu(), b), f'slab maps {lvl} {name}'
+        capacity[f'level{lvl}'] = {
+            'slice_cap': cap, 'occupied_slices': slices.tolist(),
+            'slices_per_brick': float(slices.sum() / bricks.sum())}
+    assert len(capacity) == SLAB_LEVELS
+    slab_levels, _ = flatten_plan(plan)
+    del ref
+
+    sd = synth.seeded_state_dict(model_fn.build_model(cfg), seed=0)
+    level_rows = [synth.BATCH * c for c in b_caps]
+    train_rows = [synth.TRAIN_BATCH * c for c in b_caps]
+
+    def evaluator(dtype, engine='2d', deep=0):
+        model = model_fn.build_model(cfg, dtype=dtype, conv_engine=engine,
+                                     deep_xla_rows=deep)
+        model.load_state_dict(sd, strict=True)
+        return model, model_fn.make_eval_step(cfg, model, b_caps)
+
+    _, step = evaluator(bf)
+    ref_preds = step(batch)['preds']
+    _, step = evaluator(f32)
+    ref_logits = step(batch)['output']
+    lim32 = 1e-3 * max(1.0, ref_logits.abs().max().item())
+    del step
+    torch.cuda.empty_cache()
+
+    tbatch = synth.make_batch(seed=0, batch=synth.TRAIN_BATCH)
+    synth.capacity_audit(tbatch, b_caps)
+    tbatch = tbatch.to('cuda')
+    lr = optim.make_lr_fn(cfg.OPTIMIZATION, cfg.OPTIMIZATION.NUM_EPOCHS,
+                          100)(1, 0)
+
+    def trainer(engine='2d', deep=0):
+        """A float32 trainer's first step from the seeded weights: its loss,
+        gradients, launches, time and peak memory."""
+        model = model_fn.build_model(cfg, dtype=f32, train=True,
+                                     conv_engine=engine, deep_xla_rows=deep)
+        model.load_state_dict(sd, strict=True)
+        opt = optim.build_optimizer(cfg.OPTIMIZATION, model.parameters())
+        step = model_fn.make_train_step(cfg, model, opt, b_caps)
+        ctx, calls = counting_engines()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _cli_reset()
+        t0 = time.perf_counter()
+        with ctx:
+            loss = float(step(tbatch, lr)['loss'])
+        torch.cuda.synchronize()
+        step_ms = 1e3 * (time.perf_counter() - t0)
+        ran = _routes_ran(calls)
+        fwd = model.subm_routes(level_rows=train_rows)
+        bwd = model.subm_routes(True, level_rows=train_rows)
+        want = {k: fwd.get(k, 0) + bwd.get(k, 0) for k in {**fwd, **bwd}}
+        for k in calls:          # the engines' calls are forward calls
+            if k in want:
+                want[k] = fwd[k]
+        assert _routes_match(ran, want), (engine, deep, ran, want)
+        grads = {n: p.grad.float().clone()
+                 for n, p in model.named_parameters()}
+        out = {'loss': loss, 'grads': grads, 'launches': ran,
+               'step_ms': step_ms,
+               'peak_memory_gib': torch.cuda.max_memory_allocated() / 2 ** 30}
+        del model, opt, step
+        torch.cuda.empty_cache()
+        return out
+
+    base = trainer()
+    launched = {'train_f32_2d': base['launches']}
+    readings = {}
+    for engine, deep in ENGINE_RUNS:
+        name = engine if not deep else f'2d+deep_xla_rows={deep}'
+        model, step = evaluator(bf, engine, deep)
+        want = model.subm_routes(level_rows=level_rows)
+        step(batch)                                 # warm-up (set-up)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ctx, calls = counting_engines()
+        _cli_reset()                                # the counted path
+        with ctx:
+            out = step(batch)
+        torch.cuda.synchronize()
+        ran = _routes_ran(calls)
+        assert _routes_match(ran, want), (name, ran, want)
+        launched[f'eval_{name}'] = ran
+        agree = (out['preds'] == ref_preds)[valid].float().mean().item()
+        assert agree >= 0.99, f'{name}: bf16 preds agree on {agree}'
+        turns = []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step(batch)
+            torch.cuda.synchronize()
+            turns.append(1e3 * (time.perf_counter() - t0))
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        del model, step, out
+        torch.cuda.empty_cache()
+        _, step32 = evaluator(f32, engine, deep)
+        err32 = (step32(batch)['output'] - ref_logits).abs().max().item()
+        assert err32 <= lim32, f'{name}: float32 logits off by {err32}'
+        del step32
+        torch.cuda.empty_cache()
+
+        tr = trainer(engine, deep)
+        launched[f'train_f32_{name}'] = tr['launches']
+        assert abs(tr['loss'] - base['loss']) <= 1e-4 * abs(base['loss']), (
+            name, tr['loss'], base['loss'])
+        worst = 0.0
+        for n, gref in base['grads'].items():
+            err = (tr['grads'][n] - gref).abs().max().item()
+            scale = max(1.0, gref.abs().max().item())
+            assert err <= 1e-3 * scale, f'{name}: float32 gradient {n}: {err}'
+            worst = max(worst, err / scale)
+        readings[name] = {
+            'routes_eval_forward': want, 'bf16_pred_agreement': agree,
+            'f32_logit_max_abs_err': err32, 'f32_logit_bound': lim32,
+            'forward_ms_turns': turns,
+            'scenes_per_sec': synth.BATCH * 1e3 / min(turns),
+            'eval_peak_memory_gib': peak,
+            'train_f32': {'loss': tr['loss'], 'loss_2d': base['loss'],
+                          'worst_gradient_err': worst,
+                          'launches': tr['launches'],
+                          'first_step_ms': tr['step_ms'],
+                          'first_step_ms_2d': base['step_ms'],
+                          'peak_memory_gib': tr['peak_memory_gib'],
+                          'peak_memory_gib_2d': base['peak_memory_gib']}}
+        del tr
+    del base
+    torch.cuda.empty_cache()
+
+    errs, library = engine_k1_checks(levels, slab_levels, cpu_batch, plan)
+    readings['slab']['capacity'] = capacity
+    readings['slab']['slab_maps_equal_to_cpu'] = True
+    for name, r in readings.items():
+        key = {'2d+deep_xla_rows=4096': None}.get(name, name)
+        if key:
+            r['independent_k1_max_abs_err'] = {
+                k: v for k, v in errs.items() if k.startswith(key)}
+        if name == 'oracle':
+            r['k1_library'] = library
+            r['fused_k1_vs_oracle_max_abs_err'] = {
+                k: v for k, v in errs.items() if k.startswith('fusedK1')}
+        log('engines', engine=name, card=card, **r)
+    log('engines', engine='voxel', card=card,
+        independent_k1_max_abs_err={k: v for k, v in errs.items()
+                                    if k.startswith('vox')},
+        phase_seconds=time.perf_counter() - t_phase)
+    _cli_reset()
+    return library, launched
+
+
 def phase_pointops(card):
     """Every point op, offset wrapper and voxelization function of the
     port on the card against the same function on the CPU, on one bench
@@ -1116,6 +1471,51 @@ def _eval_miou(cfg, model, split='test'):
     return calc_metrics(*hist)[0], first
 
 
+PLY_HEADER = ['ply', 'format ascii 1.0', None, 'property float x',
+              'property float y', 'property float z', 'property uchar red',
+              'property uchar green', 'property uchar blue', 'end_header']
+
+
+def check_visualize(tmp, dumps):
+    """``python -m doda_tpu_torch.tools.visualize``'s ``main`` on one
+    ScanNet room with ``test``'s txt dumps: each .ply file's header, its
+    vertex count (the room's points) and its colours (ground truth and
+    predictions from the palette or the ignore gray, the predictions'
+    those of the dumped ids)."""
+    import numpy as np
+    from doda_tpu_torch.tools import visualize
+    from doda_tpu_torch.utils.visualize import class_palette
+    t0 = time.perf_counter()
+    scene = sorted((tmp / 'scannetv2' / 'val').glob('*.pth'))[0]
+    prefix = visualize.main([
+        '--dataset', 'scannet', '--data_root', str(tmp / 'scannetv2'),
+        '--split', 'val', '--scene', scene.stem, '--result_dir', str(dumps),
+        '--out', str(tmp / 'vis')])
+    n = _points(scene)
+    palette = class_palette('scannet')
+    allowed = {tuple(c) for c in palette.tolist()} | {(128, 128, 128)}
+    preds = np.loadtxt(dumps / f'{scene.stem}.txt', dtype=np.int64)
+    files = {}
+    for kind in ('input', 'gt', 'pred'):
+        path = Path(f'{prefix}_{kind}.ply')
+        lines = path.read_text().splitlines()
+        head = PLY_HEADER[:2] + [f'element vertex {n}'] + PLY_HEADER[3:]
+        assert lines[:len(head)] == head, (kind, lines[:len(head)])
+        body = lines[len(head):]
+        assert len(body) == n, (kind, len(body), n)
+        cols = np.array([ln.split()[3:] for ln in body], np.int64)
+        seen = np.unique(cols, axis=0)
+        assert (cols >= 0).all() and (cols <= 255).all(), kind
+        if kind != 'input':
+            assert {tuple(c) for c in seen.tolist()} <= allowed, kind
+        if kind == 'pred':
+            assert np.array_equal(cols, palette[preds]), kind
+        files[kind] = {'bytes': path.stat().st_size, 'vertices': len(body),
+                       'colours': len(seen)}
+    return {'scene': scene.stem, 'files': files,
+            'seconds': time.perf_counter() - t0}
+
+
 def phase_cli(card, ctx):
     """The port's three CLIs in process, at full width and depth and the
     cfgs' batch size, on synthetic rooms of ~150k points: train on
@@ -1162,7 +1562,8 @@ def phase_cli(card, ctx):
     readings['test'] = cli_report(ctx, 'test', card, run, result,
                                   miou=result['miou'],
                                   miou_make_eval_step=miou_step,
-                                  allacc=result['allacc'])
+                                  allacc=result['allacc'],
+                                  visualize=check_visualize(tmp, out / 'txt'))
     launches['test'] = run['launches']
     del model
 
@@ -1669,12 +2070,14 @@ def time_k2(b, cin, cout, g):
     return {'shape': [b, cin, cout], 'taps': taps, 'first': first}
 
 
-def phase_timing(levels, launches, fuse_launches):
+def phase_timing(levels, launches, fuse_launches, library, engine_launches):
     """Each kernel at the level-0 bench shape, bf16, and at the level-1
     shape. ``launches`` maps a route to its (eval forward, train steps)
     counts, and 'sm_f32' to K2's first version's launches in the float32
-    train step; ``fuse_launches`` the launches by route of each counted
-    run of phase fuse_norm."""
+    train step; ``fuse_launches`` and ``engine_launches`` the launches by
+    route of each counted run of phases fuse_norm and engines; ``library``
+    phase engines' ``F.conv3d`` readings over the oracle's halo, the
+    library call of the subm conv that K1 and K2 compute."""
     from doda_tpu_torch.ops import _build
     from doda_tpu_torch.utils import synth
     b, cin, cout = synth.BATCH * synth.BRICK_CAP, 16, 16
@@ -1694,28 +2097,38 @@ def phase_timing(levels, launches, fuse_launches):
     old_fwd, old_train = launches['assembled']
     f0, a0 = l0['fused'], dict(l0['assembled'])
     old_fuse = sum(n['assembled'] for n in fuse_launches.values())
+    old_eng = sum(n['assembled'] for n in engine_launches.values())
     a0.update(source='doda_tpu_torch/csrc/banded_conv.cu',
-              launches=old_fwd + old_train + old_fuse,
+              launches=old_fwd + old_train + old_fuse + old_eng,
               launches_fuse_norm_phase=old_fuse,
+              launches_engines_phase=old_eng,
               launches_eval_forward=old_fwd,
               launches_train_steps=old_train,
               **_build.resources('banded_conv'))
     fuse_phase = sum(n['fused'] + n['prologue']
                      for n in fuse_launches.values())
+    eng_phase = sum(n['fused'] for n in engine_launches.values())
+    lib = {'call': 'torch.nn.functional.conv3d over the shell-gather '
+                   "oracle's assembled (rows, 6, 6, 6, cin) bf16 halo, "
+                   'channels-last (phase engines)', **library}
     rows.append({
         'name': 'banded_conv', 'route': 'cuda',
         'source': 'doda_tpu_torch/csrc/banded_conv_fused.cu',
         'replaces': 'doda_tpu/ops/pallas_banded.py:71',
-        'launches': fused_fwd + fused_train + fuse_phase,
+        'launches': fused_fwd + fused_train + fuse_phase + eng_phase,
         'launches_fuse_norm_phase': fuse_phase,
+        'launches_engines_phase': eng_phase,
         'launches_eval_forward': fused_fwd,
         'launches_train_steps': fused_train,
         'max_abs_err': f0['max_abs_err'], 'ms': f0['ms'],
         'plain_ms': f0['plain_ms'], 'bound_ms': f0['bound_ms'],
         'bound_by': f0['bound_by'],
-        # no single PyTorch call computes the conv from (x2, nbr, w); the
-        # conv1d of the assembled planes stands under 'assembled'
-        'library_ms': None,
+        # the same function from one PyTorch call: cuDNN's conv3d over the
+        # oracle's assembled halo at the same shape (its assembly not
+        # timed); the conv1d of the assembled planes stands under
+        # 'assembled'
+        'library_ms': library['level0']['conv3d_ms'],
+        'library': lib,
         'fused_ms': f0['ms'], 'fused_bound_ms': f0['bound_ms'],
         'assembly_ms': l0['assembly_ms'],
         'executed_flops': f0['executed_flops'],
@@ -1760,8 +2173,10 @@ def phase_timing(levels, launches, fuse_launches):
         'launches_train_steps': train, 'max_abs_err': t0['max_abs_err'],
         'ms': t0['ms'], 'plain_ms': t0['plain_ms'],
         'bound_ms': t0['bound_ms'], 'bound_by': t0['bound_by'],
-        # no single PyTorch call computes it from these operands
-        'library_ms': None,
+        # the same subm conv at the same shape: phase engines' conv3d over
+        # the oracle's assembled halo (level 0, 16 -> 16)
+        'library_ms': library['level0']['conv3d_ms'],
+        'library': lib,
         'executed_flops': t0['executed_flops'],
         'dynamic_smem_bytes': t0['dynamic_smem_bytes'],
         **_build.resources('banded_conv_sm_taps'),
@@ -1802,6 +2217,8 @@ def main():
     fwd = phase_forward(cfg, batch, b_caps, card)
     train, f32_sm = phase_train(cfg, b_caps, card)
     fuse_launches = phase_fuse_norm(cfg, batch, b_caps, card)
+    library, engine_launches = phase_engines(cfg, batch, b_caps, card,
+                                             levels)
     del batch
     phase_pointops(card)
     tmp = Path(tempfile.mkdtemp(prefix='chip_smoke_cli_'))
@@ -1814,7 +2231,8 @@ def main():
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     rows = phase_timing(levels, {**{k: (fwd[k], train[k]) for k in fwd},
-                                 'sm_f32': f32_sm}, fuse_launches)
+                                 'sm_f32': f32_sm}, fuse_launches, library,
+                        engine_launches)
     # each CLI run's launches, counted in the cli phases, join each
     # kernel's
     for row, route in ((rows[0], 'fused'), (rows[0]['assembled'],

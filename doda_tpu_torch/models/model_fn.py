@@ -65,11 +65,14 @@ def _n_classes(cfg) -> int:
 
 def build_model(cfg, device="cuda", dtype=torch.bfloat16,
                 sm_max_cin: int = 0, train: bool = False,
-                fuse_norm: bool = False) -> SparseConvNet:
+                fuse_norm: bool = False, conv_engine: str = '2d',
+                deep_xla_rows: int = 0) -> SparseConvNet:
     """Model factory from the cfg schema (cfg keys MODEL.BACKBONE.*,
     cfgs/scannet/spconv.yaml) on ``device``, in eval mode unless ``train``.
-    ``sm_max_cin`` picks the subm-conv kernel per conv and ``fuse_norm``
-    turns on the fused norm + ReLU engine (see ``unet.py``)."""
+    ``sm_max_cin`` picks the subm-conv kernel per conv, ``fuse_norm``
+    turns on the fused norm + ReLU engine, and ``conv_engine`` ('2d',
+    'slab', 'xla', 'oracle') and ``deep_xla_rows`` pick the subm-conv
+    engine (see ``unet.py``)."""
     dev = resolve_device(device)
     bk = cfg.MODEL.BACKBONE
     in_ch = bk.in_channel + (3 if bk.get('use_xyz', False) else 0)
@@ -84,8 +87,17 @@ def build_model(cfg, device="cuda", dtype=torch.bfloat16,
         dtype=dtype,
         sm_max_cin=sm_max_cin,
         fuse_norm=fuse_norm,
+        conv_engine=conv_engine,
+        deep_xla_rows=deep_xla_rows,
     )
     return model.to(dev).train(train)
+
+
+def plan_for(model: SparseConvNet, batch: PointBatch, b_caps, device):
+    """The level plan of ``batch`` that ``model`` reads: with the slab maps
+    under ``conv_engine='slab'`` only."""
+    return build_level_plan(batch.coords, batch.valid, b_caps, device,
+                            slabs=model.conv_engine == 'slab')
 
 
 def model_input(cfg, batch: PointBatch) -> torch.Tensor:
@@ -163,7 +175,7 @@ def make_eval_step(cfg, model: SparseConvNet, b_caps, device="cuda"):
     @torch.no_grad()
     def eval_step(batch: PointBatch, domain: int = 0, thres=None) -> dict:
         batch = batch.to(dev)
-        plan = build_level_plan(batch.coords, batch.valid, b_caps, dev)
+        plan = plan_for(model, batch, b_caps, dev)
         training = model.training
         model.eval()
         try:
@@ -243,7 +255,7 @@ def make_train_step(cfg, model: SparseConvNet,
         if aug is not None:
             batch = _augment(aug, batch, _aug_seed(cfg), _need_step(step))
         with torch.no_grad():
-            plan = build_level_plan(batch.coords, batch.valid, b_caps, dev)
+            plan = plan_for(model, batch, b_caps, dev)
             labels = torch.where(batch.valid, batch.labels, ignore)
         logits = model(model_input(cfg, batch), plan, domain)
         loss = criterion(logits, labels, loss_weight)
@@ -349,7 +361,7 @@ def make_st_step(cfg, model: SparseConvNet,
         if aug is not None:
             batch = _augment(aug, batch, _aug_seed(cfg), key)
         with torch.no_grad():
-            plan = build_level_plan(batch.coords, batch.valid, b_caps, dev)
+            plan = plan_for(model, batch, b_caps, dev)
             labels = torch.where(batch.valid, batch.labels, ignore)
         logits = model(model_input(cfg, batch), plan, domain)
         if soft is not None:

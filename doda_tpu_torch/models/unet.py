@@ -36,6 +36,26 @@ stages the halo, so the normalized activation is never written. The
 parameters and their names are the same either way. In train mode the
 folded scale and bias come from the batch statistics, so their gradients
 flow back through the statistics to x.
+
+``conv_engine`` is the counterpart of the JAX package's ``DODA_CONV`` and
+``deep_xla_rows`` of its ``DODA_DEEP_XLA`` (``_fsubm``); both are
+arguments here, never environment variables. '2d' (the default) runs every
+subm conv on ``bricks2d.subm_conv3_2d`` and its kernels; 'slab' runs the
+subm convs of the levels that carry slab maps (``SLAB_LEVELS``: levels 0
+and 1) on ``slabs.subm_conv3_slab`` and the rest as '2d'; 'xla' runs every
+subm conv on the concat-assembly engine ``bricks.subm_conv3_v2``, and
+'oracle' on the shell-gather oracle ``bricks.subm_conv3``. Under '2d' and
+'slab', a level with no more flat rows than ``deep_xla_rows`` (0: none)
+takes ``subm_conv3_v2`` for the convs it would give '2d'. The engines
+other than '2d' are plain PyTorch (gathers, ``torch.matmul`` and
+``F.conv3d``) and launch no kernel. The down and up convs stay on
+``bricks2d`` under every engine. The fused norm engine applies where the
+JAX package's ``_fuse_norm_ok`` lets it: on '2d', and under 'slab' at the
+levels without slab maps; elsewhere the blocks run unfused. The JAX
+package's blocks rebuild their ``FlatLevel`` without its slab maps, so
+there ``DODA_CONV=slab`` reaches the input conv alone; here it reaches
+every subm conv of levels 0 and 1. The engines agree to float32
+rounding, so the logits do too.
 """
 
 from __future__ import annotations
@@ -47,14 +67,23 @@ from torch import nn
 
 from ..ops.bricks import (CELLS, BrickGrid, brickify,
                           build_brick_downsample, build_brick_rulebook,
-                          cell_feats_2d)
+                          cell_feats_2d, subm_conv3, subm_conv3_v2)
 from ..ops.banded_conv import occ_words
 from ..ops.bricks2d import (conv1x1_2d, down_conv2_2d, down_conv2_norm_2d,
                             halo_index, sm_index, subm_conv3_2d,
                             subm_conv3_norm_2d, subm_route, up_conv2_2d,
                             up_conv2_norm_2d, uses_sm)
+from ..ops.slabs import (SlabMaps, build_slab_maps, flatten_slab,
+                         subm_conv3_slab)
 from ..utils.device import resolve_device
 from .norm import MaskedBatchNorm
+
+CONV_ENGINES = ('2d', 'slab', 'xla', 'oracle')
+
+# Levels whose subm convs run on the slab engine under conv_engine='slab':
+# the JAX package measured occupied-slice fractions of 43% at level 0, 57%
+# at level 1 and ~95% deeper on ScanNet-shaped scenes.
+SLAB_LEVELS = 2
 
 
 class LevelPlan(NamedTuple):
@@ -64,12 +93,15 @@ class LevelPlan(NamedTuple):
     occs  : tuple of (Batch, cap_l, 64) bool
     nbrs  : tuple of (Batch, cap_l, 27) int32
     downs : tuple of BrickDown between level l and l+1
+    slabs : tuple of SlabMaps for the levels < SLAB_LEVELS, or () where
+            the plan was built without them
     """
 
     grid0: BrickGrid
     occs: tuple
     nbrs: tuple
     downs: tuple
+    slabs: tuple = ()
 
 
 def default_brick_caps(b_cap0: int, num_levels: int,
@@ -89,7 +121,20 @@ def default_brick_caps(b_cap0: int, num_levels: int,
     return tuple(caps)
 
 
-def _scene_plan(coords, valid, b_caps):
+def default_slab_caps(b_caps, floor: int = 64) -> tuple:
+    """Occupied-slice capacity of each slab level: 2.25x the brick cap at
+    level 0 and 3x at level 1 (the JAX package measured 1.71 and 2.27
+    occupied slices a brick of 4), rounded up to 128 rows. Slices past
+    the cap are dropped, as overflowing bricks are."""
+    ratios = (9, 12)   # quarters of a brick: 2.25x, 3x
+    caps = []
+    for lvl in range(min(SLAB_LEVELS, len(b_caps))):
+        cap = b_caps[lvl] * ratios[min(lvl, len(ratios) - 1)] // 4
+        caps.append(max((cap + 127) // 128 * 128, floor))
+    return tuple(caps)
+
+
+def _scene_plan(coords, valid, b_caps, slabs=False):
     grid0 = brickify(coords, valid, b_caps[0])
     occs = [grid0.occ]
     nbrs = [build_brick_rulebook(grid0.table)]
@@ -101,8 +146,10 @@ def _scene_plan(coords, valid, b_caps):
         table, occ = ds.parent, ds.parent_occ
         occs.append(occ)
         nbrs.append(build_brick_rulebook(table))
+    slab = tuple(build_slab_maps(occs[lvl], nbrs[lvl], cap) for lvl, cap in
+                 enumerate(default_slab_caps(b_caps))) if slabs else ()
     return LevelPlan(grid0=grid0, occs=tuple(occs), nbrs=tuple(nbrs),
-                     downs=tuple(downs))
+                     downs=tuple(downs), slabs=slab)
 
 
 def _stack(items):
@@ -116,12 +163,14 @@ def _stack(items):
 
 
 def build_level_plan(coords, valid, b_caps: Sequence[int],
-                     device="cuda") -> LevelPlan:
-    """Batched plan: coords (Batch, N, 3) voxel coords, valid (Batch, N)."""
+                     device="cuda", slabs: bool = False) -> LevelPlan:
+    """Batched plan: coords (Batch, N, 3) voxel coords, valid (Batch, N).
+    ``slabs`` also builds the slab maps of the levels < SLAB_LEVELS, which
+    only ``conv_engine='slab'`` reads."""
     dev = resolve_device(device)
     coords = torch.as_tensor(coords, device=dev).to(torch.int32)
     valid = torch.as_tensor(valid, device=dev).to(torch.bool)
-    return _stack([_scene_plan(coords[s], valid[s], tuple(b_caps))
+    return _stack([_scene_plan(coords[s], valid[s], tuple(b_caps), slabs)
                    for s in range(coords.shape[0])])
 
 
@@ -138,6 +187,7 @@ class FlatLevel(NamedTuple):
     #                                  only where the level has a K2 conv
     occw: torch.Tensor | None = None  # (Batch*cap,) int64 occ_words(occ),
     #                                   only under fuse_norm
+    slab: SlabMaps | None = None     # flat slab maps, where the plan has them
 
 
 class FlatDown(NamedTuple):
@@ -163,10 +213,14 @@ def flatten_plan(plan: LevelPlan, sm_levels=(), words: bool = False):
     for lvl, (occ, nbr) in enumerate(zip(plan.occs, plan.nbrs)):
         flat_nbr = _flat_ids(nbr, occ.shape[1])
         flat_occ = occ.reshape(-1, CELLS)
+        slab = None
+        if lvl < len(plan.slabs):
+            sm_ = plan.slabs[lvl]
+            slab = flatten_slab(sm_, sm_.row2slice.shape[1], occ.shape[1])
         levels.append(FlatLevel(
             occ=flat_occ, nbr=flat_nbr, halo=halo_index(flat_nbr),
             sm=sm_index(flat_nbr) if lvl in sm_levels else None,
-            occw=occ_words(flat_occ) if words else None))
+            occw=occ_words(flat_occ) if words else None, slab=slab))
     for lvl, ds in enumerate(plan.downs):
         cap_c = plan.occs[lvl].shape[1]
         cap_p = plan.occs[lvl + 1].shape[1]
@@ -188,24 +242,64 @@ def _conv_param(*shape) -> nn.Parameter:
     return nn.Parameter(torch.empty(shape).uniform_(-bound, bound))
 
 
-class _NormSubm(nn.Module):
-    """What the blocks share: BN -> ReLU -> SubMConv3, unfused or through
-    ``subm_conv3_norm_2d``."""
+def subm_engine(conv_engine: str, has_slab: bool, rows: int,
+                deep_xla_rows: int) -> str:
+    """The engine of a subm conv (the JAX package's ``_fsubm``) at a level
+    of ``rows`` flat rows, with or without slab maps: '2d', 'slab', 'xla'
+    or 'oracle'. ``deep_xla_rows`` 0 sends no level to 'xla'."""
+    if conv_engine == 'slab' and has_slab:
+        return 'slab'
+    if conv_engine in ('2d', 'slab'):
+        return 'xla' if 0 < deep_xla_rows and rows <= deep_xla_rows \
+            else '2d'
+    return conv_engine
 
-    def __init__(self, dtype, sm_max_cin: int, fuse_norm: bool):
+
+def fuse_norm_ok(conv_engine: str, has_slab: bool) -> bool:
+    """Whether ``fuse_norm`` folds a norm into the conv behind it (the JAX
+    package's ``_fuse_norm_ok``): on '2d', and under 'slab' at a level
+    without slab maps."""
+    return conv_engine == '2d' or (conv_engine == 'slab' and not has_slab)
+
+
+def _fsubm(x2, lv: FlatLevel, w, dtype, sm_max_cin: int, conv_engine: str,
+           deep_xla_rows: int):
+    """The subm conv of x2 (rows, 64*cin) on the engine ``subm_engine``
+    picks; (rows, 64*cout) in x2.dtype, masked."""
+    engine = subm_engine(conv_engine, lv.slab is not None, x2.shape[0],
+                         deep_xla_rows)
+    if engine == '2d':
+        return subm_conv3_2d(x2, lv.occ, lv.halo, w, dtype, lv.sm,
+                             sm_max_cin, lv.nbr)
+    if engine == 'slab':
+        return subm_conv3_slab(x2, lv.slab, w, dtype)
+    rows = x2.shape[0]
+    conv = subm_conv3_v2 if engine == 'xla' else subm_conv3
+    out = conv(x2.reshape(rows, CELLS, -1), lv.occ, lv.nbr, w, dtype)
+    return out.reshape(rows, -1).to(x2.dtype)
+
+
+class _NormSubm(nn.Module):
+    """What the blocks share: BN -> ReLU -> SubMConv3, unfused (on the
+    engine ``subm_engine`` picks) or through ``subm_conv3_norm_2d``."""
+
+    def __init__(self, dtype, sm_max_cin: int, fuse_norm: bool,
+                 conv_engine: str = '2d', deep_xla_rows: int = 0):
         super().__init__()
         self.dtype, self.sm_max_cin = dtype, sm_max_cin
         self.fuse_norm = fuse_norm
+        self.conv_engine, self.deep_xla_rows = conv_engine, deep_xla_rows
 
     def norm_conv(self, norm, kernel, x, lv: FlatLevel, domain):
-        if self.fuse_norm:
+        if self.fuse_norm and fuse_norm_ok(self.conv_engine,
+                                           lv.slab is not None):
             s, b = norm(x, lv.occ, domain, fold=True)
             return subm_conv3_norm_2d(x, lv.occ, lv.halo, kernel, s, b,
                                       self.dtype, lv.sm, self.sm_max_cin,
                                       lv.nbr, lv.occw)
         h = torch.relu(norm(x, lv.occ, domain))
-        return subm_conv3_2d(h, lv.occ, lv.halo, kernel, self.dtype, lv.sm,
-                             self.sm_max_cin, lv.nbr)
+        return _fsubm(h, lv, kernel, self.dtype, self.sm_max_cin,
+                      self.conv_engine, self.deep_xla_rows)
 
 
 class ResidualBlock(_NormSubm):
@@ -213,8 +307,10 @@ class ResidualBlock(_NormSubm):
 
     def __init__(self, cin: int, cout: int, dsnorm: bool = False,
                  dtype=torch.bfloat16, sm_max_cin: int = 0,
-                 fuse_norm: bool = False):
-        super().__init__(dtype, sm_max_cin, fuse_norm)
+                 fuse_norm: bool = False, conv_engine: str = '2d',
+                 deep_xla_rows: int = 0):
+        super().__init__(dtype, sm_max_cin, fuse_norm, conv_engine,
+                         deep_xla_rows)
         if cin != cout:
             self.i_kernel = _conv_param(cin, cout)
         self.MaskedBatchNorm_0 = MaskedBatchNorm(cin, dsnorm=dsnorm)
@@ -239,8 +335,10 @@ class VGGBlock(_NormSubm):
 
     def __init__(self, cin: int, cout: int, dsnorm: bool = False,
                  dtype=torch.bfloat16, sm_max_cin: int = 0,
-                 fuse_norm: bool = False):
-        super().__init__(dtype, sm_max_cin, fuse_norm)
+                 fuse_norm: bool = False, conv_engine: str = '2d',
+                 deep_xla_rows: int = 0):
+        super().__init__(dtype, sm_max_cin, fuse_norm, conv_engine,
+                         deep_xla_rows)
         self.MaskedBatchNorm_0 = MaskedBatchNorm(cin, dsnorm=dsnorm)
         self.kernel = _conv_param(27, cin, cout)
 
@@ -263,13 +361,15 @@ class UBlock(nn.Module):
     def __init__(self, planes: tuple, block_reps: int = 2,
                  residual: bool = True, dsnorm: bool = False,
                  dtype=torch.bfloat16, sm_max_cin: int = 0,
-                 fuse_norm: bool = False):
+                 fuse_norm: bool = False, conv_engine: str = '2d',
+                 deep_xla_rows: int = 0):
         super().__init__()
         self.planes, self.block_reps, self.dtype = planes, block_reps, dtype
-        self.fuse_norm = fuse_norm
+        self.fuse_norm, self.conv_engine = fuse_norm, conv_engine
         block = ResidualBlock if residual else VGGBlock
         kw = dict(dsnorm=dsnorm, dtype=dtype, sm_max_cin=sm_max_cin,
-                  fuse_norm=fuse_norm)
+                  fuse_norm=fuse_norm, conv_engine=conv_engine,
+                  deep_xla_rows=deep_xla_rows)
         p = planes[0]
         for i in range(block_reps):
             setattr(self, f'block{i}', block(p, p, **kw))
@@ -292,7 +392,9 @@ class UBlock(nn.Module):
             return x
         identity = x
         occ_p = levels[level + 1].occ
-        if self.fuse_norm:
+        fused = self.fuse_norm and fuse_norm_ok(self.conv_engine,
+                                                lv.slab is not None)
+        if fused:
             s, b = self.conv_norm(x, lv.occ, domain, fold=True)
             h = down_conv2_norm_2d(x, lv.occ, occ_p, downs[level],
                                    self.down_kernel, s, b, self.dtype)
@@ -301,7 +403,7 @@ class UBlock(nn.Module):
             h = down_conv2_2d(h, occ_p, downs[level], self.down_kernel,
                               self.dtype)
         h = self.u(h, levels, downs, level + 1, domain)
-        if self.fuse_norm:
+        if fused:
             s, b = self.deconv_norm(h, occ_p, domain, fold=True)
             h = up_conv2_norm_2d(h, occ_p, lv.occ, downs[level],
                                  self.up_kernel, s, b, self.dtype)
@@ -322,11 +424,16 @@ class SparseConvNet(nn.Module):
                  n_classes: int = 20, block_reps: int = 2,
                  block_residual: bool = True, num_levels: int = 7,
                  dsnorm: bool = False, dtype=torch.bfloat16,
-                 sm_max_cin: int = 0, fuse_norm: bool = False):
+                 sm_max_cin: int = 0, fuse_norm: bool = False,
+                 conv_engine: str = '2d', deep_xla_rows: int = 0):
         super().__init__()
+        if conv_engine not in CONV_ENGINES:
+            raise ValueError(f'conv_engine {conv_engine!r} is none of '
+                             f'{CONV_ENGINES}')
         self.in_channel, self.mid_channel = in_channel, mid_channel
         self.num_levels, self.dtype = num_levels, dtype
         self.sm_max_cin, self.fuse_norm = sm_max_cin, fuse_norm
+        self.conv_engine, self.deep_xla_rows = conv_engine, deep_xla_rows
         m = mid_channel
         self.input_kernel = _conv_param(27, in_channel, m)
         planes = tuple(m * (i + 1) for i in range(num_levels))
@@ -338,26 +445,51 @@ class SparseConvNet(nn.Module):
                    ((p, p), (2 * p, p), (p, 2 * p),
                     (in_channel, m) if lvl == 0 else (p, p))))
         self.unet = UBlock(planes, block_reps, block_residual, dsnorm, dtype,
-                           sm_max_cin, fuse_norm)
+                           sm_max_cin, fuse_norm, conv_engine, deep_xla_rows)
         self.output_norm = MaskedBatchNorm(m, dsnorm=dsnorm)
         self.linear = nn.Linear(m, n_classes)
 
-    def subm_routes(self, backward: bool = False) -> dict:
+    def subm_routes(self, backward: bool = False, level_rows=None) -> dict:
         """Kernel launches of the subm convs by ``bricks2d.subm_route``,
         from the parameter shapes: every (27, cin, cout) kernel runs one
         forward conv on (cin, cout); with ``backward`` the dx convs are
         counted instead, on the flipped shape (cout, cin), except the input
         conv's, whose input needs no gradient. Under ``fuse_norm`` a block
         conv's forward on the fused route is a launch of K1's prologue
-        variant, counted under 'prologue' (the dx convs take none)."""
+        variant, counted under 'prologue' (the dx convs take none). The
+        convs that ``conv_engine`` or ``deep_xla_rows`` send to another
+        engine launch no kernel; they are counted under the engine's name
+        ('slab', 'xla', 'oracle'), forward and backward alike. Under
+        ``deep_xla_rows`` the count needs ``level_rows``, the flat rows
+        (scenes x brick cap) of each level."""
         counts = {'sm': 0, 'fused': 0, 'assembled': 0}
         if self.fuse_norm:
             counts['prologue'] = 0
+        if self.conv_engine != '2d':
+            counts[self.conv_engine] = 0
+        if self.deep_xla_rows:
+            if level_rows is None:
+                raise ValueError('deep_xla_rows routes by the rows of each '
+                                 'level: pass level_rows')
+            counts['xla'] = 0
         for name, p in self.named_parameters():
             if p.dim() != 3 or p.shape[0] != 27:
                 continue
             _, cin, cout = p.shape
-            if not backward:
+            lvl = name.split('.').count('u')
+            has_slab = self.conv_engine == 'slab' and lvl < SLAB_LEVELS
+            if self.fuse_norm and name != 'input_kernel' \
+                    and fuse_norm_ok(self.conv_engine, has_slab):
+                engine = '2d'
+            else:
+                engine = subm_engine(
+                    self.conv_engine, has_slab,
+                    level_rows[lvl] if self.deep_xla_rows else 0,
+                    self.deep_xla_rows)
+            if engine != '2d':
+                if not backward or name != 'input_kernel':
+                    counts[engine] += 1
+            elif not backward:
                 route = subm_route(cin, cout, self.dtype, self.sm_max_cin)
                 if self.fuse_norm and route == 'fused' \
                         and name != 'input_kernel':
@@ -369,11 +501,16 @@ class SparseConvNet(nn.Module):
         return counts
 
     def forward(self, point_feats: torch.Tensor, plan: LevelPlan,
-                domain: int = 0) -> torch.Tensor:
-        """point_feats (Batch, N, Cin) -> logits (Batch, N, classes), f32.
+                domain: int = 0, return_mid_feat: bool = False):
+        """point_feats (Batch, N, Cin) -> logits (Batch, N, classes), f32;
+        with ``return_mid_feat`` (out_feats (Batch, N, mid), logits), the
+        point features in front of the head.
 
         The voxel (mean) reduction happens here, as in the fused
         pointgroup_ops.voxelization call at ref model/unet.py:91."""
+        if self.conv_engine == 'slab' and not plan.slabs:
+            raise ValueError("conv_engine='slab' needs a plan built with "
+                             'slabs=True')
         m = self.mid_channel
         bt, n = point_feats.shape[:2]
         cap0 = plan.grid0.occ.shape[1]
@@ -386,9 +523,9 @@ class SparseConvNet(nn.Module):
         flat = torch.where(miss, bt * cap0 * CELLS, gidx + offs).reshape(-1)
 
         x = cell_feats_2d(point_feats.reshape(bt * n, -1), flat, bt * cap0)
-        x = subm_conv3_2d(x.to(self.dtype), levels[0].occ, levels[0].halo,
-                          self.input_kernel, self.dtype, levels[0].sm,
-                          self.sm_max_cin, levels[0].nbr)
+        x = _fsubm(x.to(self.dtype), levels[0], self.input_kernel,
+                   self.dtype, self.sm_max_cin, self.conv_engine,
+                   self.deep_xla_rows)
         x = self.unet(x, levels, downs, 0, domain)
 
         # output norm folded past the voxel -> point gather (f32 affine)
@@ -399,4 +536,5 @@ class SparseConvNet(nn.Module):
         gathered = gathered.reshape(bt, n, m).float()
         out_feats = torch.where(miss[..., None], 0,
                                 torch.relu(gathered * o_scale + o_bias))
-        return self.linear(out_feats)
+        logits = self.linear(out_feats)
+        return (out_feats, logits) if return_mid_feat else logits

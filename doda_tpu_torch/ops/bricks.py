@@ -1,21 +1,34 @@
 """Dense 4^3 bricks over the sparse voxel set (one scene).
 
-Port of the plan-building half of ``doda_tpu/ops/bricks.py``: points are
+Port of ``doda_tpu/ops/bricks.py``. The plan-building half: points are
 deduplicated into 4x4x4 bricks (``brickify``), each brick gets its 27
 neighbour bricks (``build_brick_rulebook``) and each level is linked to the
 next coarser one by a stride-2 map (``build_brick_downsample``). Cell
 ``x*16 + y*4 + z`` of a brick is one voxel; activations are wide-lane
 ``(bricks, 64*C)`` tensors that are zero at inactive cells.
+
+The 3D brick convs, on ``(bricks, 64, C)`` features: the shell-gather
+oracle ``subm_conv3`` and the concat-assembly engine ``subm_conv3_v2``
+each assemble every brick's (6, 6, 6) halo, the first from the facing
+faces, edges and corners of its 26 neighbours (``_shell_layout``), the
+second from a piece-major table of boundary cells (``extract_pieces``),
+and convolve it with one dense ``F.conv3d`` (VALID, a cross-correlation,
+as ``lax.conv_general_dilated`` is). Neither shares the halo tables of
+``bricks2d`` (``halo_index``), so each is an independent reference for the
+kernels' indexing. ``down_conv2`` and ``up_conv2`` are the stride-2 oracles,
+with the JAX package's custom VJPs as ``torch.autograd.Function``s.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
-from .coords import CoordTable, unique_coords_packed
+from .coords import CoordTable, pad_rows, unique_coords_packed
 from .sparse import build_subm_rulebook
 
 BRICK = 4
@@ -83,9 +96,23 @@ def brick_feats_2d(feats: torch.Tensor, grid: BrickGrid,
     return cell_feats_2d(feats, grid.flat_index(), grid.b_cap, mode)
 
 
+def brick_feats(feats: torch.Tensor, grid: BrickGrid,
+                mode: int = 4) -> torch.Tensor:
+    """(N, C) -> (b_cap, 64, C): mode 4 the mean over each cell, 3 the
+    sum."""
+    return brick_feats_2d(feats, grid, mode).reshape(grid.b_cap, CELLS, -1)
+
+
+def unbrick_feats(bfeats: torch.Tensor, grid: BrickGrid) -> torch.Tensor:
+    """Cell features back to points (voxel -> point gather, ref
+    model/unet.py:62): (b_cap, 64, C) -> (N, C), zero at null points."""
+    return pad_rows(bfeats.reshape(-1, bfeats.shape[-1]))[
+        grid.flat_index().long()]
+
+
 def build_brick_rulebook(table: CoordTable) -> torch.Tensor:
     """(b_cap, 27) neighbour-brick ids (shared by every conv of a level)."""
-    return build_subm_rulebook(table, 3)
+    return build_subm_rulebook(table, 3, packed=True)
 
 
 def _parity_cell_map() -> np.ndarray:
@@ -155,3 +182,369 @@ def build_brick_downsample(table: CoordTable, occ: torch.Tensor,
     return BrickDown(parent=parent, parent_occ=hits[:p_cap] > 0,
                      child_parent=child_parent, parity=parity,
                      parent_children=pc[:p_cap])
+
+
+# ---------------------------------------------------------------------------
+# 3D submanifold convs: halo assembly + one dense conv
+# ---------------------------------------------------------------------------
+
+H = BRICK + 2               # halo side
+CONV_CHUNK = 32768          # bricks per F.conv3d call (bounds the halo's
+#                             transient memory, as the JAX package's chunks
+#                             do; at level 0 of a batch of 4 a bf16 halo of
+#                             cin 32 is 2.3 GB)
+
+_OFFS3 = [(dx, dy, dz) for dx in (-1, 0, 1) for dy in (-1, 0, 1)
+          for dz in (-1, 0, 1)]
+
+
+def _axis_range(d: int):
+    """Source cells along one axis contributed to a neighbour at offset d."""
+    if d == -1:
+        return [BRICK - 1]
+    if d == 0:
+        return list(range(BRICK))
+    return [0]
+
+
+@functools.lru_cache(maxsize=None)
+def _shell_layout(c: int):
+    """Static maps for the exact shell-gather halo.
+
+    Returns (piece_cols, halo_perm):
+    * piece_cols: (offset index o, column array) for the 26 neighbour
+      directions: the columns of a brick's flat (64*c) row that direction o
+      needs (its facing face, edge or corner);
+    * halo_perm: columns into concat([center, gathered pieces...], axis=1)
+      building the flat (BRICK+2)^3 * c halo.
+    """
+    piece_cols = []
+    piece_start = {}
+    start = CELLS * c  # the concat buffer begins with the center brick
+    for o, (dx, dy, dz) in enumerate(_OFFS3):
+        if (dx, dy, dz) == (0, 0, 0):
+            continue
+        cells = [x * BRICK * BRICK + y * BRICK + z
+                 for x in _axis_range(dx)
+                 for y in _axis_range(dy)
+                 for z in _axis_range(dz)]
+        cols = (np.asarray(cells, np.int64)[:, None] * c
+                + np.arange(c, dtype=np.int64)).reshape(-1)
+        piece_cols.append((o, cols))
+        piece_start[o] = start
+        start += len(cols)
+
+    def split(h):
+        if h == 0:
+            return -1, BRICK - 1
+        if h <= BRICK:
+            return 0, h - 1
+        return 1, 0
+
+    hp = np.zeros((H, H, H, c), np.int64)
+    for hx in range(H):
+        dx, sx = split(hx)
+        for hy in range(H):
+            dy, sy = split(hy)
+            for hz in range(H):
+                dz, sz = split(hz)
+                if (dx, dy, dz) == (0, 0, 0):
+                    base = (sx * BRICK * BRICK + sy * BRICK + sz) * c
+                else:
+                    o = ((dx + 1) * 3 + (dy + 1)) * 3 + (dz + 1)
+                    rx, ry, rz = (_axis_range(dx), _axis_range(dy),
+                                  _axis_range(dz))
+                    pos = (rx.index(sx) * len(ry) * len(rz)
+                           + ry.index(sy) * len(rz) + rz.index(sz))
+                    base = piece_start[o] + pos * c
+                hp[hx, hy, hz] = base + np.arange(c)
+    return piece_cols, hp.reshape(-1)
+
+
+def _conv_halo(halo: torch.Tensor, weights: torch.Tensor,
+               compute_dtype) -> torch.Tensor:
+    """(B, 6, 6, 6, cin) halos -> (B, 64, cout) float32: the dense 3^3 conv
+    in compute_dtype. weights (27, cin, cout) raster (dx, dy, dz) are the
+    DHWIO kernel of the JAX package; F.conv3d takes them as (cout, cin, 3,
+    3, 3) and the halo channels-last, as a permuted view."""
+    cin, cout = weights.shape[1], weights.shape[2]
+    w = weights.reshape(3, 3, 3, cin, cout).permute(4, 3, 0, 1, 2)
+    out = F.conv3d(halo.to(compute_dtype).permute(0, 4, 1, 2, 3),
+                   w.to(compute_dtype))
+    return out.permute(0, 2, 3, 4, 1).reshape(-1, CELLS, cout).float()
+
+
+def _by_chunks(fn, rows: int) -> torch.Tensor:
+    """fn(slice) over row chunks of CONV_CHUNK, concatenated."""
+    return torch.cat([fn(slice(i, i + CONV_CHUNK))
+                      for i in range(0, max(rows, 1), CONV_CHUNK)])
+
+
+def _shell_pieces(bfeats: torch.Tensor, compute_dtype):
+    """The center rows and the 26 compact shell tables, each with a zero
+    row for the null id."""
+    b_cap, _, cin = bfeats.shape
+    x2 = bfeats.to(compute_dtype).reshape(b_cap, CELLS * cin)
+    piece_cols, _ = _shell_layout(cin)
+    return pad_rows(x2), [
+        pad_rows(x2[:, torch.as_tensor(cols, device=x2.device)])
+        for _, cols in piece_cols]
+
+
+def _shell_assemble(x2p, pieces, nbr: torch.Tensor, cin: int):
+    piece_cols, halo_perm = _shell_layout(cin)
+    nbr = nbr.long()
+    parts = [x2p[nbr[:, 13]]]           # center == the brick's own row
+    parts += [p[nbr[:, o]] for p, (o, _) in zip(pieces, piece_cols)]
+    perm = torch.as_tensor(halo_perm, device=nbr.device)
+    return torch.cat(parts, dim=1)[:, perm].reshape(-1, H, H, H, cin)
+
+
+def shell_halo(bfeats: torch.Tensor, nbr: torch.Tensor,
+               compute_dtype=torch.bfloat16) -> torch.Tensor:
+    """The oracle's assembled halos of every brick: (B, 6, 6, 6, cin)."""
+    return _shell_assemble(*_shell_pieces(bfeats, compute_dtype), nbr,
+                           bfeats.shape[-1])
+
+
+def subm_conv3(bfeats: torch.Tensor, occ: torch.Tensor, nbr: torch.Tensor,
+               weights: torch.Tensor,
+               compute_dtype=torch.bfloat16) -> torch.Tensor:
+    """Submanifold 3^3 conv on bricks: shell-gather halo + dense conv.
+
+    bfeats  (B, 64, cin) — zero at inactive cells
+    occ     (B, 64) bool; nbr (B, 27) rulebook, null id == B
+    weights (27, cin, cout) raster (dx, dy, dz)
+    returns (B, 64, cout) float32, masked to active cells
+
+    Each neighbour direction contributes only its facing face, edge or
+    corner cells (26 small row gathers). Differentiable through autograd
+    (the JAX function has no custom VJP)."""
+    cin = bfeats.shape[-1]
+    x2p, pieces = _shell_pieces(bfeats, compute_dtype)
+    out = _by_chunks(lambda sl: _conv_halo(
+        _shell_assemble(x2p, pieces, nbr[sl], cin), weights, compute_dtype),
+        nbr.shape[0])
+    return torch.where(occ[..., None], out, 0.0)
+
+
+def _src_tgt_slices(d: int):
+    """Per-axis (source cells in the neighbour, halo target cells)."""
+    if d == -1:
+        return slice(BRICK - 1, BRICK), slice(0, 1)
+    if d == 0:
+        return slice(0, BRICK), slice(1, BRICK + 1)
+    return slice(0, 1), slice(BRICK + 1, BRICK + 2)
+
+
+@functools.lru_cache(maxsize=None)
+def _piece_plan():
+    """Static plan: per direction (offset index, source slices, halo
+    target slices, start in the piece-major table, cell count)."""
+    plan = []
+    start = 0
+    for o, (dx, dy, dz) in enumerate(_OFFS3):
+        if (dx, dy, dz) == (0, 0, 0):
+            continue
+        (sx, tx), (sy, ty), (sz, tz) = (_src_tgt_slices(dx),
+                                        _src_tgt_slices(dy),
+                                        _src_tgt_slices(dz))
+        n = ((sx.stop - sx.start) * (sy.stop - sy.start)
+             * (sz.stop - sz.start))
+        plan.append((o, (sx, sy, sz), (tx, ty, tz), start, n))
+        start += n
+    return tuple(plan), start   # start == 152 piece cells
+
+
+def extract_pieces(x4: torch.Tensor) -> torch.Tensor:
+    """(B, 4, 4, 4, C) -> (B, 152, C): boundary cells, piece-major; the
+    cells that direction-o neighbours read from a brick are the rows
+    [start_o, start_o + n_o)."""
+    plan, _ = _piece_plan()
+    return torch.cat([x4[:, sx, sy, sz].reshape(x4.shape[0], -1,
+                                                x4.shape[-1])
+                      for _, (sx, sy, sz), _, _, _ in plan], dim=1)
+
+
+def _concat_assemble(x4: torch.Tensor, tab: torch.Tensor,
+                     nbr: torch.Tensor) -> torch.Tensor:
+    """Halos (B, 6, 6, 6, cin) of x4's bricks by concatenation: each
+    direction's piece gathered from the padded piece table ``tab``."""
+    plan, _ = _piece_plan()
+    cin = x4.shape[-1]
+    nbr = nbr.long()
+    parts = {(0, 0, 0): x4}
+    for o, (sx, sy, sz), _, st, n in plan:
+        shape = (-1, sx.stop - sx.start, sy.stop - sy.start,
+                 sz.stop - sz.start, cin)
+        parts[_OFFS3[o]] = tab[:, st:st + n][nbr[:, o]].reshape(shape)
+
+    def xrow(dx):
+        return torch.cat([torch.cat([parts[(dx, dy, dz)] for dz in (-1, 0, 1)],
+                                    dim=3) for dy in (-1, 0, 1)], dim=2)
+
+    return torch.cat([xrow(-1), xrow(0), xrow(1)], dim=1)
+
+
+def subm_conv3_v2(bfeats: torch.Tensor, occ: torch.Tensor,
+                  nbr: torch.Tensor, weights: torch.Tensor,
+                  compute_dtype=torch.bfloat16) -> torch.Tensor:
+    """Submanifold 3^3 conv, concat-assembly engine (the JAX package's
+    ``DODA_CONV=xla`` and ``DODA_DEEP_XLA`` route): boundary cells
+    extracted once into a piece-major table, one row gather per
+    direction, the halo built by concatenation, one dense conv. Same
+    signature and semantics as ``subm_conv3``."""
+    b_cap, _, cin = bfeats.shape
+    x4 = bfeats.to(compute_dtype).reshape(b_cap, BRICK, BRICK, BRICK, cin)
+    tab = pad_rows(extract_pieces(x4))
+    out = _by_chunks(lambda sl: _conv_halo(
+        _concat_assemble(x4[sl], tab, nbr[sl]), weights, compute_dtype),
+        b_cap)
+    return torch.where(occ[..., None], out, 0.0)
+
+
+# ---------------------------------------------------------------------------
+# stride-2 down/up oracles between brick levels
+# ---------------------------------------------------------------------------
+
+def down_maps(ds: BrickDown):
+    """The JAX ``BrickDown``'s ``target_cells`` (b_cap, 8): the parent cell
+    of each child window, and ``parent_src`` (p_cap, 64): the flat child
+    window slot (child * 8 + w) feeding each parent cell, b_cap * 8 for
+    none. Derived from child_parent and parity where an oracle asks, so
+    the plan does not carry them."""
+    dev = ds.parity.device
+    p_cap, b_cap = ds.parent_occ.shape[0], ds.child_parent.shape[0]
+    target = torch.as_tensor(_PARITY_CELLS, device=dev)[ds.parity.long()]
+    cp = ds.child_parent.long()[:, None]
+    flat = torch.where(cp < p_cap, cp * CELLS + target, p_cap * CELLS)
+    inv = torch.full((p_cap * CELLS + 1,), b_cap * WINDOWS,
+                     dtype=torch.int32, device=dev)
+    inv[flat.reshape(-1)] = torch.arange(b_cap * WINDOWS, dtype=torch.int32,
+                                         device=dev)
+    return (target.to(torch.int32),
+            inv[:p_cap * CELLS].reshape(p_cap, CELLS))
+
+
+def _down_im2col(bfeats: torch.Tensor, compute_dtype) -> torch.Tensor:
+    """(B, 64, cin) -> (B*8, 8*cin) k2s2 window rows."""
+    b_cap, _, cin = bfeats.shape
+    x = bfeats.to(compute_dtype).reshape(b_cap, _H, 2, _H, 2, _H, 2, cin)
+    return x.permute(0, 1, 3, 5, 2, 4, 6, 7).reshape(b_cap * WINDOWS,
+                                                     8 * cin)
+
+
+def _down_uncol(dx_col: torch.Tensor, b_cap: int, cin: int) -> torch.Tensor:
+    """Transpose of ``_down_im2col`` (a relayout, so exact)."""
+    x = dx_col.reshape(b_cap, _H, _H, _H, 2, 2, 2, cin)
+    return x.permute(0, 1, 4, 2, 5, 3, 6, 7).reshape(b_cap, CELLS, cin)
+
+
+def _gather_child(g: torch.Tensor, child_parent: torch.Tensor,
+                  target: torch.Tensor) -> torch.Tensor:
+    """g (P, 64, C) -> (B, 8, C): each child window reads its parent
+    cell."""
+    p_cap, _, c = g.shape
+    flat = (child_parent.long()[:, None] * CELLS + target).clamp(
+        max=p_cap * CELLS)
+    return pad_rows(g.reshape(-1, c))[flat]
+
+
+class _DownConv3(torch.autograd.Function):
+    """``down_conv2`` and its custom VJP (``_down_conv2_bwd``): gathers
+    both ways."""
+
+    @staticmethod
+    def forward(ctx, bfeats, weights, parent_occ, child_parent, target,
+                parent_src, compute_dtype):
+        ctx.save_for_backward(bfeats, weights, parent_occ, child_parent,
+                              target)
+        ctx.compute_dtype = compute_dtype
+        cin, cout = weights.shape[1], weights.shape[2]
+        x = _down_im2col(bfeats, compute_dtype)
+        w = weights.reshape(8 * cin, cout).to(compute_dtype)
+        child_out = (x @ w).float()
+        pf = pad_rows(child_out)[parent_src.long()]
+        return torch.where(parent_occ[..., None], pf, 0.0)
+
+    @staticmethod
+    def backward(ctx, g):
+        bfeats, weights, parent_occ, child_parent, target = ctx.saved_tensors
+        cd = ctx.compute_dtype
+        b_cap, _, cin = bfeats.shape
+        cout = weights.shape[-1]
+        g = torch.where(parent_occ[..., None], g, 0.0)
+        g_child = _gather_child(g, child_parent, target).to(cd).reshape(
+            b_cap * WINDOWS, cout)
+        w = weights.reshape(8 * cin, cout).to(cd)
+        dx = _down_uncol((g_child @ w.T).float(), b_cap, cin)
+        dw = (_down_im2col(bfeats, cd).T @ g_child).reshape(8, cin, cout)
+        return (dx.to(bfeats.dtype), dw.to(weights.dtype), None, None, None,
+                None, None)
+
+
+def down_conv2(bfeats: torch.Tensor, ds: BrickDown, weights: torch.Tensor,
+               compute_dtype=torch.bfloat16) -> torch.Tensor:
+    """SparseConv3d(k=2, s=2) on bricks: (B, 64, cin) -> (P, 64, cout)
+    float32, masked to the parents' cells. weights (8, cin, cout) by fine
+    offset dx*4 + dy*2 + dz."""
+    target, parent_src = down_maps(ds)
+    return _DownConv3.apply(bfeats, weights, ds.parent_occ, ds.child_parent,
+                            target, parent_src, compute_dtype)
+
+
+class _UpConv3(torch.autograd.Function):
+    """``up_conv2`` and its custom VJP (``_up_conv2_bwd``)."""
+
+    @staticmethod
+    def forward(ctx, parent_feats, weights, occ, parent_occ, child_parent,
+                target, parent_src, compute_dtype):
+        ctx.save_for_backward(parent_feats, weights, occ, parent_occ,
+                              child_parent, target, parent_src)
+        ctx.compute_dtype = compute_dtype
+        cin, cout = parent_feats.shape[-1], weights.shape[-1]
+        b_cap = child_parent.shape[0]
+        corner = _gather_child(parent_feats, child_parent, target).to(
+            compute_dtype)
+        # out[(xh xl)(yh yl)(zh zl)] = corner[xh, yh, zh] @ W[xl*4+yl*2+zl]
+        w = weights.permute(1, 0, 2).reshape(cin, 8 * cout)
+        out8 = (corner.reshape(b_cap * WINDOWS, cin) @ w.to(compute_dtype))
+        out8 = out8.float().reshape(b_cap, _H, _H, _H, 2, 2, 2, cout)
+        out = out8.permute(0, 1, 4, 2, 5, 3, 6, 7).reshape(b_cap, CELLS,
+                                                           cout)
+        return torch.where(occ[..., None], out, 0.0)
+
+    @staticmethod
+    def backward(ctx, g):
+        (parent_feats, weights, occ, parent_occ, child_parent, target,
+         parent_src) = ctx.saved_tensors
+        cd = ctx.compute_dtype
+        cin, cout = parent_feats.shape[-1], weights.shape[-1]
+        b_cap = child_parent.shape[0]
+        g = torch.where(occ[..., None], g, 0.0)
+        g8 = g.reshape(b_cap, _H, 2, _H, 2, _H, 2, cout).permute(
+            0, 1, 3, 5, 2, 4, 6, 7).reshape(b_cap * WINDOWS,
+                                            8 * cout).to(cd)
+        w = weights.permute(1, 0, 2).reshape(cin, 8 * cout).to(cd)
+        dcorner = (g8 @ w.T).float()
+        # children -> parents through the inverse map (a gather)
+        dpf = pad_rows(dcorner)[parent_src.long()]
+        dpf = torch.where(parent_occ[..., None], dpf, 0.0)
+        corner = _gather_child(parent_feats, child_parent, target).to(cd)
+        dw8 = corner.reshape(b_cap * WINDOWS, cin).T @ g8
+        dw = dw8.reshape(cin, 8, cout).permute(1, 0, 2)
+        return (dpf.to(parent_feats.dtype), dw.to(weights.dtype), None,
+                None, None, None, None, None)
+
+
+def up_conv2(parent_feats: torch.Tensor, occ: torch.Tensor, ds: BrickDown,
+             weights: torch.Tensor,
+             compute_dtype=torch.bfloat16) -> torch.Tensor:
+    """SparseInverseConv3d(k=2) on bricks, the inverse of ``down_conv2``:
+    (P, 64, cin) -> (B, 64, cout) float32; each fine cell reads its
+    covering parent cell through W[its offset]. ``occ`` is the children's
+    occupancy."""
+    target, parent_src = down_maps(ds)
+    return _UpConv3.apply(parent_feats, weights, occ, ds.parent_occ,
+                          ds.child_parent, target, parent_src,
+                          compute_dtype)

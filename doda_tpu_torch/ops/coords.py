@@ -1,14 +1,15 @@
 """Packed coordinate keys, dedup and table lookup (one scene).
 
-Port of ``doda_tpu/ops/coords.py``'s ``unique_coords`` and ``pad_rows``
-and of its packed single-key half. Brick coords are packed into one int32
-key ``(x << 20) | (y << 10) | z``; coords outside [0, 1024) per axis count
-as invalid. Voxel coords (``unique_coords``, up to ``MAX_COORD`` per axis)
-take one int64 key ``x * 2^32 + y * 2^16 + z``, which sorts as the JAX
-package's two int32 keys (x, y * 2^16 + z) do. Tables are sorted by their
-key, so table ids are ranks in the packed order, exactly as in the JAX
-package. Every miss (invalid point, absent neighbour, overflowed capacity)
-maps to the null id ``cap``.
+Port of ``doda_tpu/ops/coords.py``: ``unique_coords``, ``pack_coords``,
+``lookup`` and ``pad_rows``, and its packed single-key half. Brick coords
+are packed into one int32 key ``(x << 20) | (y << 10) | z``; coords outside
+[0, 1024) per axis count as invalid. Voxel coords (``unique_coords``, up to
+``MAX_COORD`` per axis) take one int64 key ``x * 2^32 + y * 2^16 + z``,
+which sorts as the JAX package's two int32 keys (x, y * 2^16 + z) of
+``pack_coords`` do. Tables are sorted by their key, so table ids are ranks
+in the packed order, exactly as in the JAX package, and both lookups are a
+binary search of the table's keys. Every miss (invalid point, absent
+neighbour, overflowed capacity) maps to the null id ``cap``.
 """
 
 from __future__ import annotations
@@ -104,6 +105,34 @@ def lookup_packed(table: CoordTable, query_coords: torch.Tensor,
     pos = torch.searchsorted(table.key, qk.reshape(-1)).reshape(qk.shape)
     pos = pos.clamp(max=cap - 1)
     hit = (table.key[pos] == qk) & (qk != SENTINEL)
+    return torch.where(hit, pos.to(torch.int32), cap)
+
+
+def pack_coords(coords: torch.Tensor, valid: torch.Tensor):
+    """(..., 3) int coords -> the JAX package's two int32 sort keys
+    k1 = x, k2 = y * 2^16 + z; invalid rows get SENTINEL in both."""
+    c = coords.to(torch.int32)
+    k1 = torch.where(valid, c[..., 0], SENTINEL)
+    k2 = torch.where(valid, c[..., 1] * 2 ** 16 + c[..., 2], SENTINEL)
+    return k1, k2
+
+
+def lookup(table: CoordTable, query_coords: torch.Tensor,
+           query_valid: torch.Tensor | None = None) -> torch.Tensor:
+    """Table id of each query coord in a ``unique_coords`` table, ``cap``
+    where absent. The int64 key k1 * 2^32 + k2 equals the table's key for
+    the same coords and no other table row's: a query coord of -1 or
+    MAX_COORD + 1 (an offset past the scene) would need a table coord of
+    65535 on the next axis."""
+    cap = table.cap
+    if query_valid is None:
+        query_valid = torch.ones(query_coords.shape[:-1], dtype=torch.bool,
+                                 device=query_coords.device)
+    k1, k2 = pack_coords(query_coords, query_valid)
+    qk = k1.to(torch.int64) * 2 ** 32 + k2.to(torch.int64)
+    pos = torch.searchsorted(table.key, qk.reshape(-1)).reshape(qk.shape)
+    pos = pos.clamp(max=cap - 1)
+    hit = (table.key[pos] == qk) & (k1 != SENTINEL)
     return torch.where(hit, pos.to(torch.int32), cap)
 
 

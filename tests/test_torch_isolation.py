@@ -26,7 +26,9 @@ def _modules():
 def test_import_loads_no_jax():
     mods = list(_modules())
     for name in ('ops.banded_conv', 'ops.bricks2d', 'ops.pointops',
-                 'ops.pointops_offsets', 'ops.voxelize', 'native.host_ops'):
+                 'ops.pointops_offsets', 'ops.voxelize', 'native.host_ops',
+                 'ops.slabs', 'ops.sparse', 'utils.visualize',
+                 'tools.visualize'):
         assert f'doda_tpu_torch.{name}' in mods, name
     code = ('import importlib, sys\n'
             f'for m in {mods!r}:\n'
