@@ -60,11 +60,23 @@ Phases, each printing one line:
      K1 against the oracle, the voxel-level ``sparse.subm_conv`` on scene
      0's voxels; 1e-4 of max|ref|); cuDNN ``conv3d`` alone over the
      oracle's assembled bf16 halo (the library call of K1's function)
-  8. pointops: every point op, offset wrapper and voxelization function
+  8. remat: the U-Net blocks' memory policies (``remat``) in the
+     CLI-shaped train step (cfgs/da_front3d_scannet/spconv.yaml, batch 4
+     of the bench rooms, bf16, ``sm_max_cin=0``), 'off', 'dots', 'all'
+     and 'mix2' from one seeded state: each policy's first step
+     (deterministic algorithms) against 'off''s (loss 1e-4 relative,
+     gradients 1e-3 of their scale, running statistics 1e-3), launches by
+     route of four steps against ``subm_routes`` with the replays ('dots'
+     equal to 'off': no conv runs again), step ms and peak memory over two
+     steps ('all' strictly below 'off'), device ms of a profiled step;
+     an st step (DSNorm) and a ``fuse_norm`` step (the replay runs the
+     prologue K1) under 'all' against 'off', each domain's running
+     statistics moved once
+  9. pointops: every point op, offset wrapper and voxelization function
      on the card against the CPU on one bench scene's points (FPS of 4,096
      of 150k points, kNN k = 16 of 4,096 queries among 16,384 points, a
      0.05 m voxel grid): integer outputs equal, floats to 1e-5
-  9. cli: the port's three CLIs in process (``doda_tpu_torch.tools``), at
+ 10. cli: the port's three CLIs in process (``doda_tpu_torch.tools``), at
      full width and depth and the cfgs' batch size (4), on synthetic rooms
      of ~150k points written by ``tools/make_synth_data.py``: ``train``
      (cfgs/da_front3d_scannet/spconv.yaml, one epoch on 6 3D-FRONT-format
@@ -79,21 +91,21 @@ Phases, each printing one line:
      written, with the output tree asserted; ``doda_tpu_torch.tools.
      visualize`` on one room with ``test``'s dumps (the .ply files' header,
      vertex count and colours)
- 10. import: a seeded reference ``.pth`` of the DA flagship (the
+ 11. import: a seeded reference ``.pth`` of the DA flagship (the
      reference's key names and layouts), converted into the JAX package's
      format by ``doda_tpu_torch.tools.convert_torch_ckpt``, through
      ``test --ckpt`` on the 4 ScanNet rooms: launches, its mIoU equal to
      that of the same tree loaded through ``params_from_jax`` and run
      through ``make_eval_step``, one batch's float32 logits bit-equal
      between the two loads (all under deterministic algorithms)
- 11. device_aug: ``train`` and ``st``, one step each, with
+ 12. device_aug: ``train`` and ``st``, one step each, with
      ``DATA_AUG.device`` on: step ms, data wait and its share, peak memory,
      launches, beside phase cli's host-path readings; the augmentation's
      own device time; ``device_augment`` on the card against the CPU on
      the same CPU draws (feats to 1e-5, coords equal but for floor flips
      inside 1e-4 of an integer); the brick audit of each step's augmented
      batch
- 12. ddp: two gloo ranks spawned on the one card, one bench scene each
+ 13. ddp: two gloo ranks spawned on the one card, one bench scene each
      (150k and 100k points; st targets of 120k and 150k), against one
      process on both, float32 on the kernel path
      (``tests/_torch_equivalence.py``): for a train step and an st step
@@ -101,7 +113,7 @@ Phases, each printing one line:
      and running statistics; eval predictions and histograms;
      ``all_gather_objects``; each rank's peak memory; then ``train
      --launcher pytorch`` at WORLD_SIZE=1 for one step
- 13. timing: each kernel at the level-0 shape beside its bound, its plain
+ 14. timing: each kernel at the level-0 shape beside its bound, its plain
      version and, where there is one, a PyTorch library call computing the
      same function; K1 in both versions, with the plane gather alone, and
      its prologue variant beside the unfused sequence it replaces (norm
@@ -126,9 +138,6 @@ from unittest.mock import patch
 import torch
 
 SM_MAX_CIN = 32            # the train phase's kernel choice: K2 for cin <= 32
-PEAK_BF16 = 989e12         # H100 SXM dense bf16 FLOP/s (data sheet)
-PEAK_BYTES = 3.35e12       # H100 SXM HBM3 bytes/s (data sheet)
-PEAK_F32 = 67e12           # H100 SXM float32 FLOP/s off the tensor cores
 
 
 def log(phase, **kv):
@@ -1194,6 +1203,188 @@ def phase_engines(cfg, batch, b_caps, card, levels):
     return library, launched
 
 
+REMATS = ('off', 'dots', 'all', 'mix2')
+REMAT_BATCH = 4            # the DA cfgs' batch
+
+
+def _launches():
+    """The launch counters of every kernel, by route, the prologue K1's
+    apart from the fused K1's."""
+    from doda_tpu_torch.ops.banded_conv import banded_conv_fused
+    return {**_cli_launches(), 'prologue': banded_conv_fused.pro_launches}
+
+
+def _remat_run(cfg, sd, remat, step_of, steps, fuse_norm=False):
+    """A fresh model of ``cfg`` with the state ``sd`` under ``remat``: one
+    step under deterministic algorithms from ``sd`` (its losses,
+    gradients and running statistics are the policy's readings), then
+    ``steps - 1`` more, the second and third of them timed on the host
+    clock (step ms, peak memory) and a fourth, where ``steps`` is 4,
+    through ``torch.profiler`` (device ms). ``step_of(model, opt)`` makes
+    the step, a function of no argument. Launches are counted over all
+    the steps and checked against the rule of ``subm_routes``."""
+    from doda_tpu_torch.models import model_fn
+    from doda_tpu_torch.utils import optim
+    from doda_tpu_torch.utils.device import deterministic
+    t0 = time.perf_counter()
+    model = model_fn.build_model(cfg, train=True, remat=remat,
+                                 fuse_norm=fuse_norm)
+    model.load_state_dict(sd, strict=True)
+    opt = optim.build_optimizer(cfg.OPTIMIZATION, model.parameters())
+    step, terms = step_of(model, opt)
+    fwd, bwd = model.subm_routes(), model.subm_routes(True)
+    rule = {k: terms * (fwd.get(k, 0) + bwd.get(k, 0))
+            for k in ('fused', 'prologue', 'assembled', 'sm')}
+    _cli_reset()
+    torch.cuda.reset_peak_memory_stats()
+    with deterministic():
+        out = step()
+    run = {'losses': {k: float(v) for k, v in out.items()
+                      if k.startswith('loss')},
+           'grads': {n: p.grad.float().clone()
+                     for n, p in model.named_parameters()},
+           'stats': {k: v.clone() for k, v in model.state_dict().items()
+                     if k.rsplit('.', 1)[-1] in ('mean', 'var')}}
+    if steps > 1:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t1 = time.perf_counter()
+        for _ in range(2):
+            step()
+        torch.cuda.synchronize()
+        run['step_ms'] = (time.perf_counter() - t1) / 2 * 1e3
+        run['peak_gib'] = torch.cuda.max_memory_allocated() / 2 ** 30
+        prof = _profile(step)
+        run['device_ms'] = prof['device_ms']
+        run['kernel_launches'] = prof['kernel_launches']
+    else:
+        run['peak_gib'] = torch.cuda.max_memory_allocated() / 2 ** 30
+    ran = _launches()
+    want = {k: steps * v for k, v in rule.items()}
+    assert ran == want, (remat, fuse_norm, ran, want)
+    run['launches_per_step'] = rule
+    run['launches'] = ran
+    del model, opt, step
+    torch.cuda.empty_cache()
+    run['seconds'] = time.perf_counter() - t0
+    return run
+
+
+def _remat_errors(run, ref, what):
+    """``run``'s losses, gradients and running statistics against
+    ``ref``'s, to phase train's bf16 bounds: loss 1e-4 relative, each
+    gradient 1e-3 of max(1, max|ref|), statistics 1e-3."""
+    loss = max(abs(v - ref['losses'][k]) / abs(ref['losses'][k])
+               for k, v in run['losses'].items())
+    assert loss <= 1e-4, (what, run['losses'], ref['losses'])
+    grad = 0.0
+    for n, g in ref['grads'].items():
+        err = (run['grads'][n] - g).abs().max().item() \
+            / max(1.0, g.abs().max().item())
+        assert err <= 1e-3, f'{what}: gradient {n}: {err}'
+        grad = max(grad, err)
+    stat = max((run['stats'][k] - v).abs().max().item()
+               for k, v in ref['stats'].items())
+    assert stat <= 1e-3, (what, stat)
+    return {'loss_rel': loss, 'grad': grad, 'stats': stat}
+
+
+def phase_remat(card):
+    """The blocks' memory policies in the CLI-shaped train step: the DA
+    flagship (cfgs/da_front3d_scannet/spconv.yaml: 11 classes, mid 16, 7
+    levels) at the cfgs' batch of 4 bench rooms, bf16, ``sm_max_cin=0``,
+    one seeded state, under 'off', 'dots', 'all' and 'mix2', each from
+    that state: losses, gradients and running statistics of its first
+    step (deterministic algorithms) against 'off''s, launches by route of
+    four steps against ``subm_routes``' rule with the replays (under
+    'dots' equal to 'off''s: no K1 runs again), step ms and peak memory
+    over two steps, device ms of one profiled step. Then an st step (DSNorm:
+    the source on domain 0, the target on domain 1) under 'all' against
+    'off', each domain's running statistics moved once; then a step with
+    ``fuse_norm=True`` under 'all' against 'off', whose replay runs the
+    prologue K1. Returns the launches by route of every step."""
+    from doda_tpu_torch.config import CfgNode, cfg_from_yaml_file
+    from doda_tpu_torch.models import model_fn
+    from doda_tpu_torch.models.unet import default_brick_caps
+    from doda_tpu_torch.utils import synth
+    t0 = time.perf_counter()
+    cfg = cfg_from_yaml_file(CFG_DA, CfgNode())
+    n_classes = cfg.COMMON_CLASSES.n_classes
+    b_caps = default_brick_caps(cfg.DATA_CONFIG.DATA_PROCESSOR.brick_cap, 7)
+    # the source rooms are the bench batch's (seed 0), audited in main()
+    # against caps no larger at any level
+    assert all(a >= b for a, b in zip(b_caps, default_brick_caps(
+        synth.BRICK_CAP, 7)))
+    src = synth.make_batch(seed=0, batch=REMAT_BATCH, n_classes=n_classes)
+    tar = synth.make_batch(seed=1, batch=REMAT_BATCH, n_classes=n_classes)
+    synth.capacity_audit(tar, b_caps)
+    src, tar = src.to('cuda'), tar.to('cuda')
+    sd = synth.seeded_state_dict(model_fn.build_model(cfg), seed=0)
+    lr = cfg.OPTIMIZATION.base_lr
+
+    def train(model, opt):
+        step = model_fn.make_train_step(cfg, model, opt, b_caps)
+        return (lambda: step(src, lr)), 1
+
+    runs = {r: _remat_run(cfg, sd, r, train, 4) for r in REMATS}
+    off = runs['off']
+    assert runs['dots']['launches'] == off['launches'], runs['dots']
+    assert runs['all']['peak_gib'] < off['peak_gib'], (
+        runs['all']['peak_gib'], off['peak_gib'])
+    report = {}
+    for r, run in runs.items():
+        report[r] = {k: run[k] for k in (
+            'step_ms', 'device_ms', 'peak_gib', 'kernel_launches',
+            'launches_per_step', 'seconds')}
+        if r != 'off':
+            report[r]['vs_off'] = _remat_errors(run, off, r)
+    log('remat', card=card, cfg=CFG_DA, batch=REMAT_BATCH,
+        dtype='bfloat16', sm_max_cin=0, policies=report)
+
+    # the st step: both domains' norms, replayed under 'all'
+    st_cfg = cfg_from_yaml_file(CFG_ST, CfgNode())
+    sd_st = synth.seeded_state_dict(model_fn.build_model(st_cfg), seed=0)
+    w_src = st_cfg.SELF_TRAIN.SRC.get('loss_weight', 1.0)
+    w_tar = st_cfg.SELF_TRAIN.TAR.get('loss_weight', 1.0)
+
+    def st(model, opt):
+        step = model_fn.make_st_step(st_cfg, model, opt, b_caps)
+        return (lambda: step(src, tar, lr, w_src, w_tar)), 2
+
+    st_runs = {r: _remat_run(st_cfg, sd_st, r, st, 1)
+               for r in ('off', 'all')}
+    st_err = _remat_errors(st_runs['all'], st_runs['off'], 'st all')
+    moved = {}
+    for d in (0, 1):            # each domain's statistics moved, once
+        moved[d] = min((v[d] - sd_st[k].cuda()[d]).abs().max().item()
+                       for k, v in st_runs['all']['stats'].items())
+        assert moved[d] > 10 * st_err['stats'], (d, moved[d], st_err)
+
+    # fuse_norm: the replay runs K1's prologue variant
+    fuse_runs = {r: _remat_run(cfg, sd, r, train, 1, fuse_norm=True)
+                 for r in ('off', 'all')}
+    fuse_err = _remat_errors(fuse_runs['all'], fuse_runs['off'],
+                             'fuse_norm all')
+    pro = fuse_runs['all']['launches']['prologue']
+    assert pro == 2 * fuse_runs['off']['launches']['prologue'] > 0, pro
+    log('remat_st_fuse_norm', card=card,
+        st={r: {k: run[k] for k in ('peak_gib', 'launches_per_step',
+                                   'seconds')}
+            for r, run in st_runs.items()},
+        st_all_vs_off=st_err,
+        st_least_statistic_move_by_domain=moved,
+        fuse_norm={r: {k: run[k] for k in ('peak_gib', 'launches_per_step',
+                                          'seconds')}
+                   for r, run in fuse_runs.items()},
+        fuse_norm_all_vs_off=fuse_err,
+        phase_seconds=time.perf_counter() - t0)
+    launches = {}
+    for run in [*runs.values(), *st_runs.values(), *fuse_runs.values()]:
+        for k, v in run['launches'].items():
+            launches[k] = launches.get(k, 0) + v
+    return launches
+
+
 def phase_pointops(card):
     """Every point op, offset wrapper and voxelization function of the
     port on the card against the same function on the CPU, on one bench
@@ -1906,21 +2097,14 @@ def phase_ddp(card, ctx, cfg, b_caps):
     return {'train_launcher_world_1': run['launches']}
 
 
-def _bound(moved, ops):
-    """The least time for the work, ms: bytes over the memory rate or
-    operations over the bf16 peak, whichever is larger."""
-    t_bytes, t_ops = moved / PEAK_BYTES * 1e3, ops / PEAK_BF16 * 1e3
-    return {'bound_ms': max(t_bytes, t_ops),
-            'bound_by': 'bytes' if t_bytes >= t_ops else 'operations'}
-
-
 def time_k1(nbr, halo, occ, cin, cout, g):
     """K1 in both versions on one level's real rulebook, bf16: the fused
     kernel, its plain version and bound; its prologue variant beside the
     unfused sequence it replaces (``MaskedBatchNorm`` apply + ReLU + mask
     + the fused kernel); the plane gather alone; the assembled kernel on
     those planes with its plain version, bound and the cuDNN ``conv1d``
-    that computes the same function of the planes."""
+    that computes the same function of the planes. Bytes, operations and
+    bounds are ``doda_tpu_torch/utils/roofline.py``'s."""
     from doda_tpu_torch.models.norm import MaskedBatchNorm
     from doda_tpu_torch.ops import bricks2d
     from doda_tpu_torch.ops.banded_conv import (banded_conv,
@@ -1928,6 +2112,7 @@ def time_k1(nbr, halo, occ, cin, cout, g):
                                                 banded_conv_fused_plain,
                                                 banded_conv_plain,
                                                 fused_smem_bytes, occ_words)
+    from doda_tpu_torch.utils import roofline
     bf = torch.bfloat16
     rows = nbr.shape[0]
     x2 = torch.randn(rows, 64 * cin, device='cuda', generator=g).to(bf)
@@ -1943,16 +2128,10 @@ def time_k1(nbr, halo, occ, cin, cout, g):
         lambda: banded_conv_fused_plain(x2, nbr, w, bf), 3)
     # the taps this rulebook needs: a halo cell is read by as many (cell,
     # tap) pairs as its coordinates allow, and only present cells count
-    per_axis = torch.tensor([1., 2., 3., 3., 2., 1.], device='cuda')
-    reads = (per_axis[:, None, None] * per_axis[None, :, None]
-             * per_axis[None, None, :]).reshape(216)
-    present_reads = ((halo < rows * 64).float() @ reads).sum().item()
-    needed = 2 * cin * cout * present_reads
-    executed = 2 * rows * 64 * 27 * cin * cout
-    moved = (x2.numel() + out.numel() + w.numel()) * 2 + nbr.numel() * 4
+    reads = roofline.present_reads(halo)
     fused = {'ms': fused_ms, 'plain_ms': fused_plain_ms,
-             'max_abs_err': err, **_bound(moved, needed), 'bytes': moved,
-             'flops': needed, 'executed_flops': executed,
+             'max_abs_err': err,
+             **roofline.fused_work(rows, cin, cout, reads),
              'dynamic_smem_bytes': fused_smem_bytes(cin, cout)}
 
     # the prologue variant: the same x2 read raw, the folded scale and bias
@@ -1981,17 +2160,9 @@ def time_k1(nbr, halo, occ, cin, cout, g):
         return banded_conv_fused(h, nbr, w, bf)
 
     unfused_ms = cuda_ms(unfused, 20)
-    # K1's bytes plus the occupancy words and the bf16 scale and bias; its
-    # taps on the tensor cores or 3 float32 operations (multiply, add, max)
-    # an input element on the CUDA cores, whichever takes longer: the two
-    # units run at the same time
-    moved_p = moved + rows * 8 + 2 * cin * 2
-    t_bytes = moved_p / PEAK_BYTES * 1e3
-    t_ops = max(needed / PEAK_BF16, 3 * x2.numel() / PEAK_F32) * 1e3
     prologue = {'ms': pro_ms, 'plain_ms': pro_plain_ms, 'max_abs_err': errp,
-                'bound_ms': max(t_bytes, t_ops),
-                'bound_by': 'bytes' if t_bytes >= t_ops else 'operations',
-                'bytes': moved_p, 'unfused_sequence_ms': unfused_ms,
+                **roofline.prologue_work(rows, cin, cout, reads),
+                'unfused_sequence_ms': unfused_ms,
                 'fused_kernel_alone_ms': fused_ms, 'library_ms': None,
                 'dynamic_smem_bytes': fused_smem_bytes(cin, cout, True)}
 
@@ -2013,11 +2184,9 @@ def time_k1(nbr, halo, occ, cin, cout, g):
     lib_err = (lib.transpose(1, 2).reshape(rows, -1).float()
                - old.float()).abs().max().item()
     library_ms = cuda_ms(lambda: torch.nn.functional.conv1d(x, wc), 10)
-    moved = (rows6.numel() + wb.numel() + old.numel()) * 2
-    ops = 2 * rows * 4 * int((wb != 0).sum())        # the non-zero taps
     assembled = {'ms': ms, 'plain_ms': plain_ms, 'max_abs_err': err,
-                 **_bound(moved, ops), 'bytes': moved, 'flops': ops,
-                 'executed_flops': 2 * rows * 4 * wb.numel(),
+                 **roofline.assembled_work(           # the non-zero taps
+                     rows, cin, cout, bf, int((wb != 0).sum())),
                  'library_ms': library_ms, 'library_max_abs_err': lib_err}
     return {'shape': [rows, cin, cout], 'fused': fused,
             'prologue': prologue, 'assembly_ms': assembly_ms,
@@ -2030,12 +2199,13 @@ def time_k2(b, cin, cout, g):
     out as the path lays them (x contiguous, gyz/gxm/gxp column slices of
     one gathered buffer): the second version, its plain version and bound;
     the first version on ``sm_weights``. Every cell is present, so every
-    tap is needed."""
+    tap is needed (``doda_tpu_torch/utils/roofline.py``)."""
     from doda_tpu_torch.ops import bricks2d
     from doda_tpu_torch.ops.banded_conv_sm import (banded_conv_sm,
                                                    banded_conv_sm_taps,
                                                    banded_conv_sm_taps_plain,
                                                    sm_taps_smem_bytes)
+    from doda_tpu_torch.utils import roofline
     bf = torch.bfloat16
     x = torch.randn(b, 64 * cin, device='cuda', generator=g).to(bf)
     buf = torch.randn(b, 176 * cin, device='cuda', generator=g).to(bf)
@@ -2049,23 +2219,18 @@ def time_k2(b, cin, cout, g):
     del ref
     ms = cuda_ms(lambda: banded_conv_sm_taps(*ops, w, bf), 20)
     plain_ms = cuda_ms(lambda: banded_conv_sm_taps_plain(*ops, w, bf), 3)
-    # bytes: the 216 halo cells a brick needs (x 64, gyz 80, gxm/gxp 36
-    # each; no padding cell), the output and the raster weights, once
-    moved = (b * 216 * cin + out.numel() + w.numel()) * 2
-    flops = 2 * b * 64 * 27 * cin * cout
     taps = {'ms': ms, 'plain_ms': plain_ms, 'max_abs_err': err,
-            **_bound(moved, flops), 'bytes': moved, 'flops': flops,
-            'executed_flops': flops,
+            **roofline.sm_taps_work(b, cin, cout),
             'dynamic_smem_bytes': sm_taps_smem_bytes(cin)}
     wts = bricks2d.sm_weights(w)
     sm_weights_ms = cuda_ms(lambda: bricks2d.sm_weights(w), 10)
     old = banded_conv_sm(*ops, *wts, bf)
     vs_old = _close(out, old, True, 2e-2, f'K2 second vs first at {b}x{cin}')
     old_ms = cuda_ms(lambda: banded_conv_sm(*ops, *wts, bf), 10)
-    old_moved = (sum(t.numel() for t in ops + wts) + old.numel()) * 2
+    old_work = roofline.sm_first_work(b, cin, cout)
     first = {'ms': old_ms, 'sm_weights_ms': sm_weights_ms,
-             'executed_flops': 2 * b * 4 * 120 * cin * 16 * cout,
-             'bound_ms_of_its_operands': _bound(old_moved, flops)['bound_ms'],
+             'executed_flops': old_work['executed_flops'],
+             'bound_ms_of_its_operands': old_work['bound_ms'],
              'second_vs_first_max_abs_err': vs_old}
     return {'shape': [b, cin, cout], 'taps': taps, 'first': first}
 
@@ -2220,6 +2385,7 @@ def main():
     library, engine_launches = phase_engines(cfg, batch, b_caps, card,
                                              levels)
     del batch
+    remat_launches = phase_remat(card)
     phase_pointops(card)
     tmp = Path(tempfile.mkdtemp(prefix='chip_smoke_cli_'))
     try:
@@ -2239,6 +2405,15 @@ def main():
                                             'assembled'), (rows[1], 'sm')):
         row['launches_cli'] = {run: n[route] for run, n in cli.items()}
         row['launches'] += sum(row['launches_cli'].values())
+    # phase remat's steps (the replays included) join K1's rows
+    k1 = rows[0]
+    k1['launches_remat_phase'] = (remat_launches['fused']
+                                  + remat_launches['prologue'])
+    k1['launches'] += k1['launches_remat_phase']
+    for sub, route in (('prologue', 'prologue'), ('assembled', 'assembled')):
+        k1[sub]['launches_remat_phase'] = remat_launches[route]
+        k1[sub]['launches'] += remat_launches[route]
+    assert remat_launches['sm'] == 0, remat_launches
     for r in rows:       # every kernel of the paths really ran on them
         assert r['launches'] > 0, r['name']
     assert rows[0]['assembled']['launches'] > 0

@@ -66,13 +66,14 @@ def _n_classes(cfg) -> int:
 def build_model(cfg, device="cuda", dtype=torch.bfloat16,
                 sm_max_cin: int = 0, train: bool = False,
                 fuse_norm: bool = False, conv_engine: str = '2d',
-                deep_xla_rows: int = 0) -> SparseConvNet:
+                deep_xla_rows: int = 0, remat: str = 'off') -> SparseConvNet:
     """Model factory from the cfg schema (cfg keys MODEL.BACKBONE.*,
     cfgs/scannet/spconv.yaml) on ``device``, in eval mode unless ``train``.
     ``sm_max_cin`` picks the subm-conv kernel per conv, ``fuse_norm``
-    turns on the fused norm + ReLU engine, and ``conv_engine`` ('2d',
+    turns on the fused norm + ReLU engine, ``conv_engine`` ('2d',
     'slab', 'xla', 'oracle') and ``deep_xla_rows`` pick the subm-conv
-    engine (see ``unet.py``)."""
+    engine, and ``remat`` ('off', 'dots', 'all', 'mix', 'mixN') is the
+    blocks' memory policy in training (see ``unet.py``)."""
     dev = resolve_device(device)
     bk = cfg.MODEL.BACKBONE
     in_ch = bk.in_channel + (3 if bk.get('use_xyz', False) else 0)
@@ -89,6 +90,7 @@ def build_model(cfg, device="cuda", dtype=torch.bfloat16,
         fuse_norm=fuse_norm,
         conv_engine=conv_engine,
         deep_xla_rows=deep_xla_rows,
+        remat=remat,
     )
     return model.to(dev).train(train)
 

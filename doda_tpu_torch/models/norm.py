@@ -4,13 +4,19 @@ Port of ``doda_tpu/models/norm.py``. In eval mode the running mean and
 variance normalize; in train mode (``module.train()``) the statistics of
 the masked cells of the batch do, and the running statistics move towards
 them. Under DSNorm (ref: model/dsnorm.py:12-84) the running statistics
-have one row per domain, selected by ``domain``.
+have one row per domain, selected by ``domain``. Inside
+``running_stats_held`` a train-mode norm normalizes with the batch
+statistics as always but leaves the running ones as they are: a memory
+policy's replay of a block's forward (``models/unet.py``) recomputes the
+batch statistics, and the step must move the running statistics once.
 
 Layout: x is wide-lane ``(rows, 64*C)`` with ``mask`` the ``(rows, 64)``
 cell occupancy; outputs are re-masked so inactive cells stay zero.
 """
 
 from __future__ import annotations
+
+import contextlib
 
 import torch
 from torch import nn
@@ -42,11 +48,13 @@ class MaskedBatchNorm(nn.Module):
         if affine:
             self.scale = nn.Parameter(torch.ones(features))
             self.bias = nn.Parameter(torch.zeros(features))
+        self.hold_running = False     # set by ``running_stats_held``
 
     def _batch_stats(self, x3: torch.Tensor, mask: torch.Tensor, d: int):
         """Float32 mean and biased variance over the masked cells, as
         ``var = max(E[x^2] - mean^2, 0)``; moves the running statistics of
-        domain ``d`` in place (they are no part of the autograd graph).
+        domain ``d`` in place (they are no part of the autograd graph),
+        unless ``hold_running``.
         In a process group the masked sums and the count are summed over
         the ranks, gradient included, so the statistics are those of the
         whole batch (SyncBN; the JAX package's sharded jit reduces them
@@ -59,6 +67,8 @@ class MaskedBatchNorm(nn.Module):
         count = sums[2 * c].clamp(min=1.0)
         mean = sums[:c] / count
         var = (sums[c:2 * c] / count - mean * mean).clamp(min=0.0)
+        if self.hold_running:
+            return mean, var
         with torch.no_grad():
             unbiased = var * count / (count - 1.0).clamp(min=1.0)
             mom = self.momentum
@@ -88,3 +98,18 @@ class MaskedBatchNorm(nn.Module):
         # applied in the activation dtype, scale/bias rounded once
         y = x3 * scale_eff.to(x.dtype) + bias_eff.to(x.dtype)
         return torch.where(mask[:, :, None], y, 0).reshape(x.shape)
+
+
+@contextlib.contextmanager
+def running_stats_held(module: nn.Module):
+    """Every ``MaskedBatchNorm`` of ``module`` leaves its running
+    statistics as they are inside the block (a replay of a forward that
+    already moved them); the batch statistics are computed as always."""
+    norms = [m for m in module.modules() if isinstance(m, MaskedBatchNorm)]
+    for m in norms:
+        m.hold_running = True
+    try:
+        yield
+    finally:
+        for m in norms:
+            m.hold_running = False

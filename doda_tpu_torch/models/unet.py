@@ -56,14 +56,33 @@ package's blocks rebuild their ``FlatLevel`` without its slab maps, so
 there ``DODA_CONV=slab`` reaches the input conv alone; here it reaches
 every subm conv of levels 0 and 1. The engines agree to float32
 rounding, so the logits do too.
+
+``remat`` is the memory policy of the blocks (``block{i}``, ``tail{i}``),
+the counterpart of the JAX package's ``DODA_REMAT`` (``remat_policy``):
+'off' (the default here) keeps every intermediate for the backward;
+'all' keeps a block's input alone and replays its forward in the
+backward; 'dots' (the JAX package's default) also keeps the outputs of
+its products (``PRODUCTS``: each subm conv's, on whichever route or
+engine, and the 1x1 shortcut's matmul), so the replay recomputes the
+norms, ReLUs, masks and the residual add but launches no conv; 'mixN' is
+'all' below level N and 'dots' from it. The input conv, the down and up
+convs with their norms, the skip concat and the head are never replayed.
+The replay holds the norms' running statistics (``running_stats_held``),
+so a step moves them once under every policy; results equal 'off''s.
 """
 
 from __future__ import annotations
 
+import contextlib
+import functools
+import re
 from typing import NamedTuple, Sequence
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import (checkpoint,
+                                    create_selective_checkpoint_contexts,
+                                    noop_context_fn, set_checkpoint_early_stop)
 
 from ..ops.bricks import (CELLS, BrickGrid, brickify,
                           build_brick_downsample, build_brick_rulebook,
@@ -76,9 +95,16 @@ from ..ops.bricks2d import (conv1x1_2d, down_conv2_2d, down_conv2_norm_2d,
 from ..ops.slabs import (SlabMaps, build_slab_maps, flatten_slab,
                          subm_conv3_slab)
 from ..utils.device import resolve_device
-from .norm import MaskedBatchNorm
+from .norm import MaskedBatchNorm, running_stats_held
 
 CONV_ENGINES = ('2d', 'slab', 'xla', 'oracle')
+
+# the ops whose outputs a block keeps under 'dots' (the JAX package's
+# dots_with_no_batch_dims_saveable): the subm conv's product on every
+# kernel route, the 1x1 shortcut's and the slab engine's matmuls, and the
+# other engines' convolutions
+PRODUCTS = (torch.ops.doda_torch.subm_conv3_product.default,
+            torch.ops.aten.mm.default, torch.ops.aten.convolution.default)
 
 # Levels whose subm convs run on the slab engine under conv_engine='slab':
 # the JAX package measured occupied-slice fractions of 43% at level 0, 57%
@@ -262,6 +288,48 @@ def fuse_norm_ok(conv_engine: str, has_slab: bool) -> bool:
     return conv_engine == '2d' or (conv_engine == 'slab' and not has_slab)
 
 
+def remat_policy(remat: str, level: int) -> str:
+    """What the blocks at ``level`` keep for the backward under the memory
+    policy ``remat`` (the JAX package's ``_remat_policy`` and ``UBlock``,
+    with ``DODA_REMAT`` as an argument): 'off' (everything), 'all' (the
+    block's input alone; the backward replays the forward) or 'dots' (the
+    input and the outputs of ``PRODUCTS``; the replay recomputes the
+    rest). ``remat`` is 'off', 'dots', 'all' or 'mixN', which is 'all'
+    at the levels below N and 'dots' from N on ('mix' is 'mix2');
+    anything else raises ValueError."""
+    if remat in ('off', 'dots', 'all'):
+        return remat
+    mix = re.fullmatch(r'mix(\d*)', remat) if isinstance(remat, str) \
+        else None
+    if mix is None:
+        raise ValueError(f"remat {remat!r} is none of 'off', 'dots', 'all', "
+                         "'mix', 'mixN'")
+    return 'all' if level < int(mix.group(1) or 2) else 'dots'
+
+
+def _checkpointed(block, x, lv, domain, policy: str):
+    """``block(x, lv, domain)`` under non-reentrant activation
+    checkpointing: the backward replays the whole forward (no early stop,
+    so every conv of the block runs again under 'all'), with the block's
+    running statistics held; under 'dots' the outputs of ``PRODUCTS`` are
+    kept and handed back in the replay."""
+    calls = []
+
+    def run(x):
+        replay = running_stats_held(block) if calls \
+            else contextlib.nullcontext()
+        calls.append(None)
+        with replay:
+            return block(x, lv, domain)
+
+    context_fn = functools.partial(create_selective_checkpoint_contexts,
+                                   list(PRODUCTS)) \
+        if policy == 'dots' else noop_context_fn
+    with set_checkpoint_early_stop(False):
+        return checkpoint(run, x, use_reentrant=False, context_fn=context_fn,
+                          preserve_rng_state=False)
+
+
 def _fsubm(x2, lv: FlatLevel, w, dtype, sm_max_cin: int, conv_engine: str,
            deep_xla_rows: int):
     """The subm conv of x2 (rows, 64*cin) on the engine ``subm_engine``
@@ -362,10 +430,11 @@ class UBlock(nn.Module):
                  residual: bool = True, dsnorm: bool = False,
                  dtype=torch.bfloat16, sm_max_cin: int = 0,
                  fuse_norm: bool = False, conv_engine: str = '2d',
-                 deep_xla_rows: int = 0):
+                 deep_xla_rows: int = 0, remat: str = 'off'):
         super().__init__()
         self.planes, self.block_reps, self.dtype = planes, block_reps, dtype
         self.fuse_norm, self.conv_engine = fuse_norm, conv_engine
+        self.remat = remat
         block = ResidualBlock if residual else VGGBlock
         kw = dict(dsnorm=dsnorm, dtype=dtype, sm_max_cin=sm_max_cin,
                   fuse_norm=fuse_norm, conv_engine=conv_engine,
@@ -377,17 +446,26 @@ class UBlock(nn.Module):
             return
         self.conv_norm = MaskedBatchNorm(p, dsnorm=dsnorm)
         self.down_kernel = _conv_param(8, p, planes[1])
-        self.u = UBlock(planes[1:], block_reps, residual, **kw)
+        self.u = UBlock(planes[1:], block_reps, residual, remat=remat, **kw)
         self.deconv_norm = MaskedBatchNorm(planes[1], dsnorm=dsnorm)
         self.up_kernel = _conv_param(8, planes[1], p)
         for i in range(block_reps):
             setattr(self, f'tail{i}', block(2 * p if i == 0 else p, p, **kw))
 
+    def _block(self, name, x, lv: FlatLevel, level: int, domain):
+        """Block ``name`` under the memory policy of its level; in eval
+        mode and without grad every policy runs it plainly."""
+        block = getattr(self, name)
+        policy = remat_policy(self.remat, level)
+        if policy == 'off' or not (self.training and torch.is_grad_enabled()):
+            return block(x, lv, domain)
+        return _checkpointed(block, x, lv, domain, policy)
+
     def forward(self, x, levels, downs, level: int, domain):
         p = self.planes[0]
         lv = levels[level]
         for i in range(self.block_reps):
-            x = getattr(self, f'block{i}')(x, lv, domain)
+            x = self._block(f'block{i}', x, lv, level, domain)
         if len(self.planes) == 1:
             return x
         identity = x
@@ -413,7 +491,7 @@ class UBlock(nn.Module):
                             self.dtype)
         x = _concat_channels(identity, h, p, p)   # skip-concat (2p)
         for i in range(self.block_reps):
-            x = getattr(self, f'tail{i}')(x, lv, domain)
+            x = self._block(f'tail{i}', x, lv, level, domain)
         return x
 
 
@@ -425,11 +503,14 @@ class SparseConvNet(nn.Module):
                  block_residual: bool = True, num_levels: int = 7,
                  dsnorm: bool = False, dtype=torch.bfloat16,
                  sm_max_cin: int = 0, fuse_norm: bool = False,
-                 conv_engine: str = '2d', deep_xla_rows: int = 0):
+                 conv_engine: str = '2d', deep_xla_rows: int = 0,
+                 remat: str = 'off'):
         super().__init__()
         if conv_engine not in CONV_ENGINES:
             raise ValueError(f'conv_engine {conv_engine!r} is none of '
                              f'{CONV_ENGINES}')
+        remat_policy(remat, 0)                  # raises on a bad policy
+        self.remat = remat
         self.in_channel, self.mid_channel = in_channel, mid_channel
         self.num_levels, self.dtype = num_levels, dtype
         self.sm_max_cin, self.fuse_norm = sm_max_cin, fuse_norm
@@ -445,7 +526,8 @@ class SparseConvNet(nn.Module):
                    ((p, p), (2 * p, p), (p, 2 * p),
                     (in_channel, m) if lvl == 0 else (p, p))))
         self.unet = UBlock(planes, block_reps, block_residual, dsnorm, dtype,
-                           sm_max_cin, fuse_norm, conv_engine, deep_xla_rows)
+                           sm_max_cin, fuse_norm, conv_engine, deep_xla_rows,
+                           remat)
         self.output_norm = MaskedBatchNorm(m, dsnorm=dsnorm)
         self.linear = nn.Linear(m, n_classes)
 
@@ -461,7 +543,12 @@ class SparseConvNet(nn.Module):
         engine launch no kernel; they are counted under the engine's name
         ('slab', 'xla', 'oracle'), forward and backward alike. Under
         ``deep_xla_rows`` the count needs ``level_rows``, the flat rows
-        (scenes x brick cap) of each level."""
+        (scenes x brick cap) of each level. With ``backward``, the replay of
+        ``remat`` counts too: a block conv at a level that ``remat_policy``
+        gives 'all' adds one launch of its forward route; one at a 'dots'
+        level adds none on '2d' (its product comes back from the kept
+        outputs), but a call of another engine's conv function, which
+        runs again around its kept products."""
         counts = {'sm': 0, 'fused': 0, 'assembled': 0}
         if self.fuse_norm:
             counts['prologue'] = 0
@@ -487,17 +574,22 @@ class SparseConvNet(nn.Module):
                     level_rows[lvl] if self.deep_xla_rows else 0,
                     self.deep_xla_rows)
             if engine != '2d':
-                if not backward or name != 'input_kernel':
-                    counts[engine] += 1
-            elif not backward:
-                route = subm_route(cin, cout, self.dtype, self.sm_max_cin)
-                if self.fuse_norm and route == 'fused' \
+                fwd = bwd = engine
+            else:
+                fwd = subm_route(cin, cout, self.dtype, self.sm_max_cin)
+                if self.fuse_norm and fwd == 'fused' \
                         and name != 'input_kernel':
-                    route = 'prologue'
-                counts[route] += 1
-            elif name != 'input_kernel':
-                counts[subm_route(cout, cin, self.dtype,
-                                  self.sm_max_cin)] += 1
+                    fwd = 'prologue'
+                bwd = subm_route(cout, cin, self.dtype, self.sm_max_cin)
+            if not backward:
+                counts[fwd] += 1
+                continue
+            if name == 'input_kernel':   # no dx, and outside every block
+                continue
+            counts[bwd] += 1
+            policy = remat_policy(self.remat, lvl)
+            if policy == 'all' or (policy == 'dots' and engine != '2d'):
+                counts[fwd] += 1
         return counts
 
     def forward(self, point_feats: torch.Tensor, plan: LevelPlan,

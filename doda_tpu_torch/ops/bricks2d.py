@@ -59,6 +59,7 @@ summed over rows and cells; dW contracts the prologue's planes.
 from __future__ import annotations
 
 import functools
+from typing import Optional
 
 import numpy as np
 import torch
@@ -398,6 +399,37 @@ def _subm_dw(rows6: torch.Tensor, g: torch.Tensor, compute_dtype, cin: int,
     return _dwb_to_dw(dwb.reshape(3, k, OUTP * cout), cin, cout)
 
 
+@torch.library.custom_op('doda_torch::subm_conv3_product', mutates_args=())
+def subm_conv3_product(x2: torch.Tensor, weights: torch.Tensor,
+                       halo: torch.Tensor, sm: Optional[torch.Tensor],
+                       nbr: Optional[torch.Tensor],
+                       scale: Optional[torch.Tensor],
+                       bias: Optional[torch.Tensor],
+                       occ: Optional[torch.Tensor],
+                       occw: Optional[torch.Tensor],
+                       compute_dtype: torch.dtype,
+                       sm_max_cin: int) -> torch.Tensor:
+    """The forward product of a subm conv (``_subm_raw``; with ``scale``
+    the prologue's conv of ``(scale, bias, occ)``) as one dispatcher op.
+
+    The kernels are bound with ``ctypes``, which the dispatcher cannot
+    see; as an op, the product is visible to selective activation
+    checkpointing, which saves its output under the U-Net's ``'dots'``
+    memory policy and hands it back in the replay in place of a launch
+    (``models/unet.py``). The autograd Functions below call it in their
+    forward only, so it needs no autograd formula of its own."""
+    if scale is None:
+        return _subm_raw(x2, halo, sm, weights, compute_dtype, sm_max_cin,
+                         nbr)
+    return _subm_raw(x2, halo, sm, weights, compute_dtype, sm_max_cin, nbr,
+                     (scale, bias, occ), occw)
+
+
+@subm_conv3_product.register_fake
+def _(x2, weights, *_):
+    return x2.new_empty(x2.shape[0], CELLS * weights.shape[2])
+
+
 class _SubmConv(torch.autograd.Function):
     """Port of ``subm_conv3_2d``'s custom VJP (``_subm2d_bwd``)."""
 
@@ -406,8 +438,8 @@ class _SubmConv(torch.autograd.Function):
                 nbr):
         ctx.save_for_backward(x2, weights, occ, halo, sm, nbr)
         ctx.compute_dtype, ctx.sm_max_cin = compute_dtype, sm_max_cin
-        out = _subm_raw(x2, halo, sm, weights, compute_dtype, sm_max_cin,
-                        nbr)
+        out = subm_conv3_product(x2, weights, halo, sm, nbr, None, None,
+                                 None, None, compute_dtype, sm_max_cin)
         return _mask(out, occ, weights.shape[2])
 
     @staticmethod
@@ -457,8 +489,8 @@ class _SubmConvNorm(torch.autograd.Function):
                 sm_max_cin, nbr, occw):
         ctx.save_for_backward(x2, weights, scale, bias, occ, halo, sm, nbr)
         ctx.compute_dtype, ctx.sm_max_cin = compute_dtype, sm_max_cin
-        out = _subm_raw(x2, halo, sm, weights, compute_dtype, sm_max_cin,
-                        nbr, (scale, bias, occ), occw)
+        out = subm_conv3_product(x2, weights, halo, sm, nbr, scale, bias,
+                                 occ, occw, compute_dtype, sm_max_cin)
         return _mask(out, occ, weights.shape[2])
 
     @staticmethod

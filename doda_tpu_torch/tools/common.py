@@ -11,6 +11,7 @@ from pathlib import Path
 import torch
 
 from .. import config
+from ..models.unet import remat_policy
 from ..parallel import collectives
 from ..utils.device import resolve_device
 
@@ -28,6 +29,20 @@ def add_port_args(parser):
     parser.add_argument('--local_rank', type=int, default=0)
     parser.add_argument('--set', dest='set_cfgs', default=None,
                         nargs=argparse.REMAINDER)
+
+
+def _remat(value: str) -> str:
+    remat_policy(value, 0)          # ValueError: argparse reports it
+    return value
+
+
+def add_remat_arg(parser):
+    """``--remat``, the blocks' memory policy in the train and st steps
+    (``build_model``'s ``remat``): the JAX CLIs read it from
+    ``DODA_REMAT``, whose default is 'dots'; the port's is 'off'."""
+    parser.add_argument('--remat', type=_remat, default='off',
+                        help="off (default), dots, all, mix or mixN: what "
+                             "the U-Net blocks keep for the backward")
 
 
 def load_cfg(args):

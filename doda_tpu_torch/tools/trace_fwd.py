@@ -2,7 +2,8 @@
 device time.
 
     python -m doda_tpu_torch.tools.trace_fwd [--train] [--sm-max-cin N]
-                                             [--fuse-norm] [--trace PATH]
+                                             [--fuse-norm] [--remat P]
+                                             [--trace PATH]
 
 from the repo root. Builds the flagship (cfgs/scannet/spconv.yaml) with
 seeded weights in bf16, runs ``make_eval_step`` on 4 bench scenes (with
@@ -10,7 +11,9 @@ seeded weights in bf16, runs ``make_eval_step`` on 4 bench scenes (with
 ``--sm-max-cin`` picks the subm-conv kernels, by default 0, K1 everywhere,
 for the forward and 32, K2 at levels 0 and 1, for the train step;
 ``--fuse-norm`` turns on the fused norm + ReLU engine, whose block convs
-run K1's prologue variant, a bucket of its own) twice to warm up, times three calls on the host clock, then profiles one with
+run K1's prologue variant, a bucket of its own; ``--remat`` is the train
+step's memory policy, ``build_model``'s ``remat``) twice to warm up, times
+three calls on the host clock, then profiles one with
 ``torch.profiler``. Prints one JSON line: the call's wall
 time, the device's busy share of it, device time per bucket of kernels, and
 the top kernels. ``--trace`` also writes a Chrome trace.
@@ -63,6 +66,9 @@ def main(argv=None):
                          '(default: 0, or 32 with --train)')
     ap.add_argument('--fuse-norm', action='store_true',
                     help='the fused norm + ReLU engine (fuse_norm=True)')
+    ap.add_argument('--remat', default='off',
+                    help="the train step's memory policy: off (default), "
+                         'dots, all, mix or mixN')
     ap.add_argument('--trace', help='write a Chrome trace to this path')
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -79,7 +85,8 @@ def main(argv=None):
     sm_max_cin = args.sm_max_cin if args.sm_max_cin is not None else (
         32 if args.train else 0)
     model = model_fn.build_model(cfg, sm_max_cin=sm_max_cin,
-                                 train=args.train, fuse_norm=args.fuse_norm)
+                                 train=args.train, fuse_norm=args.fuse_norm,
+                                 remat=args.remat)
     model.load_state_dict(synth.seeded_state_dict(model, seed=0))
     if args.train:
         opt = optim.build_optimizer(cfg.OPTIMIZATION, model.parameters())
@@ -120,6 +127,7 @@ def main(argv=None):
     print(json.dumps({
         'card': smi, 'mode': 'train step' if args.train else 'eval forward',
         'sm_max_cin': sm_max_cin, 'fuse_norm': args.fuse_norm,
+        'remat': args.remat,
         'scenes': int(batch.coords.shape[0]),
         'wall_ms': wall_ms,
         'profiled_device_ms': device_ms,

@@ -10,7 +10,9 @@ the same log lines and per-class IoU tables. The loop drives the port's
 ``make_train_step`` (plan, U-Net, loss, backward and optimizer update on
 the device) one padded batch at a time; validation runs ``make_eval_step``.
 ``--profile N`` captures a ``torch.profiler`` trace of the first N train
-steps into <output_dir>/profile.
+steps into <output_dir>/profile. ``--remat off|dots|all|mix|mixN``
+(default off) is the U-Net blocks' memory policy (``build_model``'s
+``remat``, the JAX CLIs' ``DODA_REMAT``).
 
 ``--launcher pytorch`` (torchrun) or ``slurm`` runs one process per card
 (``parallel/collectives.py``): each rank loads its shard of every batch,
@@ -40,8 +42,8 @@ from ..parallel import collectives
 from ..utils.logging import get_logger, make_writer
 from ..utils.metrics import AverageMeter, calc_metrics
 from ..utils.optim import build_optimizer, make_lr_fn
-from .common import (add_port_args, host, launch, load_cfg, output_dir_of,
-                     rank_share, reduce_meters)
+from .common import (add_port_args, add_remat_arg, host, launch, load_cfg,
+                     output_dir_of, rank_share, reduce_meters)
 
 METRICS = ('loss', 'intersection', 'union', 'target', 'count')
 
@@ -70,6 +72,7 @@ def parse_config(argv=None):
     parser.add_argument('--profile', type=int, default=0,
                         help='capture a torch.profiler trace of the first '
                              'N train steps into <output_dir>/profile')
+    add_remat_arg(parser)
     add_port_args(parser)
     args = parser.parse_args(argv)
     return args, load_cfg(args)
@@ -350,7 +353,7 @@ def main(argv=None):
     dev, world, output_dir, ckpt_dir, logger, writer = start(args, cfg,
                                                              'train')
 
-    model = mf.build_model(cfg, device=dev, train=True)
+    model = mf.build_model(cfg, device=dev, train=True, remat=args.remat)
     optimizer = build_optimizer(cfg.OPTIMIZATION, model.parameters())
     b_caps = default_brick_caps(
         cfg.DATA_CONFIG.DATA_PROCESSOR.get('brick_cap', 32768),

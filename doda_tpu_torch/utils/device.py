@@ -3,6 +3,7 @@
 from __future__ import annotations
 
 import contextlib
+import subprocess
 
 import torch
 
@@ -16,6 +17,22 @@ def resolve_device(device="cuda") -> torch.device:
             "no CUDA device is available; pass device='cpu' to run the "
             "port on the CPU")
     return dev
+
+
+def card_label(dev: torch.device) -> str:
+    """What a reading taken on ``dev`` ran on: for a card, its name and
+    power limit as ``nvidia-smi --query-gpu=name,power.limit
+    --format=csv,noheader`` prints them (a card set below its maximum
+    runs slower under load); 'cpu' for the CPU, whose times are the
+    host's and no device metric."""
+    if dev.type != 'cuda':
+        return 'cpu'
+    index = torch.cuda.current_device() if dev.index is None else dev.index
+    out = subprocess.run(
+        ['nvidia-smi', f'--id={index}', '--query-gpu=name,power.limit',
+         '--format=csv,noheader'], capture_output=True, text=True,
+        check=True, timeout=60)
+    return out.stdout.strip()
 
 
 @contextlib.contextmanager

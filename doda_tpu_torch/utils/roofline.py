@@ -1,0 +1,136 @@
+"""The card's peak rates and the least time a subm conv's work could take.
+
+One model of bytes and operations for ``chip_smoke.py`` and the probes
+(``tools/roofline.py``, ``tools/bench_conv.py``), so that their bounds
+cannot drift apart. The peaks are the NVIDIA H100 SXM data sheet's (dense
+rates, no sparsity, at its full 700 W power limit); a card set below that
+limit runs slower under load, so a bound is stated with the card's power
+limit beside it.
+
+A bound is the larger of two times: the bytes the function must move
+(each input read once, each output written once) over the memory rate,
+and the operations it does on these inputs over the peak rate of their
+type. Where the work depends on the data (a halo cell of an absent
+neighbour brick is read by no tap), the count is what the given rulebook
+needs.
+"""
+
+from __future__ import annotations
+
+import torch
+
+PEAK_BF16 = 989e12         # H100 SXM dense bf16 FLOP/s (data sheet)
+PEAK_BYTES = 3.35e12       # H100 SXM HBM3 bytes/s (data sheet)
+PEAK_F32 = 67e12           # H100 SXM float32 FLOP/s off the tensor cores
+
+CELLS, TAPS, HALO = 64, 27, 216
+# the banded weights of the first-version K1: 3 planes x 36 halo cells x
+# 16 output cells, of which 3 x 9 x 16 taps are not zero by placement
+BANDED_TAPS = 3 * 9 * 16
+
+
+def bound(moved: float, ops: float, peak: float = PEAK_BF16) -> dict:
+    """The least time for the work, ms: ``moved`` bytes over the memory
+    rate or ``ops`` operations over ``peak``, whichever is larger."""
+    t_bytes, t_ops = moved / PEAK_BYTES * 1e3, ops / peak * 1e3
+    return {'bound_ms': max(t_bytes, t_ops),
+            'bound_by': 'bytes' if t_bytes >= t_ops else 'operations'}
+
+
+def halo_reads(device=None) -> torch.Tensor:
+    """(216,) float32: how many (output cell, tap) pairs of a brick read
+    each of its 6 x 6 x 6 halo cells, in ``bricks2d.halo_index`` order."""
+    per_axis = torch.tensor([1., 2., 3., 3., 2., 1.], device=device)
+    return (per_axis[:, None, None] * per_axis[None, :, None]
+            * per_axis[None, None, :]).reshape(HALO)
+
+
+def present_reads(halo: torch.Tensor) -> float:
+    """The (output cell, tap) reads of present halo cells over a level's
+    ``halo_index`` table (rows, 216): a cell of an absent neighbour brick
+    points at the zero row rows*64 and needs no operation."""
+    rows = halo.shape[0]
+    present = (halo < rows * CELLS).float()
+    return (present @ halo_reads(halo.device)).sum().item()
+
+
+def fused_work(rows: int, cin: int, cout: int, reads: float) -> dict:
+    """K1's fused version, bf16, over ``rows`` bricks whose rulebook needs
+    ``reads`` present halo reads (``present_reads``): it reads x2 (rows,
+    64*cin), the raster weights and the rulebook (int32) once and writes
+    the output once; its operations are the taps those reads need.
+    ``executed_flops`` are every tap of every row."""
+    moved = (rows * CELLS * (cin + cout) + TAPS * cin * cout) * 2 \
+        + rows * TAPS * 4
+    needed = 2 * cin * cout * reads
+    return {'bytes': moved, 'flops': needed,
+            'executed_flops': 2 * rows * CELLS * TAPS * cin * cout,
+            **bound(moved, needed)}
+
+
+def prologue_work(rows: int, cin: int, cout: int, reads: float) -> dict:
+    """K1's prologue variant: the fused version's bytes plus the occupancy
+    words (int64) and the bf16 scale and bias; its taps on the tensor
+    cores or 3 float32 operations (multiply, add, max) an input element on
+    the CUDA cores, whichever takes longer (the two units run at once)."""
+    fused = fused_work(rows, cin, cout, reads)
+    moved = fused['bytes'] + rows * 8 + 2 * cin * 2
+    t_bytes = moved / PEAK_BYTES * 1e3
+    t_ops = max(fused['flops'] / PEAK_BF16,
+                3 * rows * CELLS * cin / PEAK_F32) * 1e3
+    return {'bytes': moved, 'flops': fused['flops'],
+            'bound_ms': max(t_bytes, t_ops),
+            'bound_by': 'bytes' if t_bytes >= t_ops else 'operations'}
+
+
+def assembled_work(rows: int, cin: int, cout: int, dtype=torch.bfloat16,
+                   taps: int | None = None) -> dict:
+    """K1's first version over ``_assemble_p6``'s planes: it reads the
+    planes (rows, 6, 36*cin) and the banded weights (3, 36*cin, 16*cout)
+    and writes (rows, 64*cout), all in ``dtype``; its operations are the
+    non-zero weights' (``taps``, by default those that placement makes
+    non-zero) times the 4 output slices of each row. bf16 runs on the
+    tensor cores, float32 on the CUDA cores."""
+    size = torch.finfo(dtype).bits // 8
+    taps = BANDED_TAPS * cin * cout if taps is None else taps
+    moved = (rows * 6 * 36 * cin + 3 * 36 * cin * 16 * cout
+             + rows * CELLS * cout) * size
+    ops = 2 * rows * 4 * taps
+    peak = PEAK_BF16 if dtype == torch.bfloat16 else PEAK_F32
+    return {'bytes': moved, 'flops': ops,
+            'executed_flops': 2 * rows * 4 * 3 * 36 * cin * 16 * cout,
+            **bound(moved, ops, peak)}
+
+
+def sm_taps_work(rows: int, cin: int, cout: int) -> dict:
+    """K2's second version, bf16: the 216 halo cells a brick needs (x 64,
+    gyz 80, gxm and gxp 36 each; no padding cell), the output and the
+    raster weights, once; every tap of every row."""
+    moved = (rows * HALO * cin + rows * CELLS * cout
+             + TAPS * cin * cout) * 2
+    flops = 2 * rows * CELLS * TAPS * cin * cout
+    return {'bytes': moved, 'flops': flops, 'executed_flops': flops,
+            **bound(moved, flops)}
+
+
+def sm_first_work(rows: int, cin: int, cout: int) -> dict:
+    """K2's first version, bf16, over its own operands as laid out: x
+    (64), gyz (96), gxm and gxp (40 each) cells a row, the ``sm_weights``
+    (wc, wh, wx: 3200·cin·cout) and the output; the operations of every
+    tap."""
+    moved = (rows * 240 * cin + 3200 * cin * cout
+             + rows * CELLS * cout) * 2
+    flops = 2 * rows * CELLS * TAPS * cin * cout
+    return {'bytes': moved, 'flops': flops,
+            'executed_flops': 2 * rows * 4 * 120 * cin * 16 * cout,
+            **bound(moved, flops)}
+
+
+def ideal_work(cells: int, cin: int, cout: int) -> dict:
+    """An idealized occupied-cell conv (spconv-like): each active cell's
+    input read once and output written once, bf16, and every tap of every
+    active cell on the tensor cores; a floor for any engine of that
+    family on this card."""
+    moved = cells * (cin + cout) * 2
+    flops = 2 * TAPS * cells * cin * cout
+    return {'bytes': moved, 'flops': flops, **bound(moved, flops)}

@@ -53,6 +53,17 @@ def make_batch(seed: int = 0, batch: int = BATCH, n_cap: int = N_CAP,
                         for a in (coords, feats, labels, valid)))
 
 
+def bench_batch(batch: int, n_real: int, b_caps, seed: int = 0
+                ) -> PointBatch:
+    """``make_batch`` of ``batch`` scenes of ``n_real`` points (padded to
+    N_CAP for the bench's 150k, else not at all), audited against the
+    brick caps ``b_caps``: the probes' batch."""
+    out = make_batch(seed=seed, batch=batch, n_real=n_real,
+                     n_cap=N_CAP if n_real == N_REAL else n_real)
+    capacity_audit(out, b_caps)
+    return out
+
+
 def capacity_audit(batch: PointBatch, b_caps) -> None:
     """Raise if any level of any scene holds more bricks than its cap
     (the plan would drop them silently)."""

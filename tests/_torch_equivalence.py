@@ -78,12 +78,13 @@ def _update(model):
                       for k, v in model.state_dict().items()}}
 
 
-def _steps(cfg, state_dict, src, tar, tar_soft, b_caps, device, dtype, lr):
+def _steps(cfg, state_dict, src, tar, tar_soft, b_caps, device, dtype, lr,
+           remat='off'):
     """One eval step, one train step (both on ``src``, the eval first, so
     that both sides evaluate the same weights) and one st step from
-    ``state_dict`` (a fresh model), with deterministic algorithms (a
-    scene's sums then do not depend on the run); the outputs, gradients
-    and state on the host."""
+    ``state_dict`` (a fresh model under the memory policy ``remat``), with
+    deterministic algorithms (a scene's sums then do not depend on the
+    run); the outputs, gradients and state on the host."""
     dev = torch.device(device)
     if dev.type == 'cuda':
         torch.cuda.reset_peak_memory_stats(dev)
@@ -91,7 +92,7 @@ def _steps(cfg, state_dict, src, tar, tar_soft, b_caps, device, dtype, lr):
 
     def fresh():
         model = model_fn.build_model(cfg, device=dev, dtype=dtype,
-                                     train=True)
+                                     train=True, remat=remat)
         model.load_state_dict(state_dict, strict=True)
         return model, build_optimizer(cfg.OPTIMIZATION, model.parameters())
 
@@ -115,7 +116,7 @@ def _steps(cfg, state_dict, src, tar, tar_soft, b_caps, device, dtype, lr):
 
 
 def _rank_main(rank, world, port, out_dir, cfg, state_dict, src, tar,
-               tar_soft, b_caps, device, dtype, lr, loops, loops_dir):
+               tar_soft, b_caps, device, dtype, lr, loops, loops_dir, remat):
     """One rank: join the group through the launcher's environment, take
     the steps on its shards, gather a queue, run ``loops``, and save what
     it saw."""
@@ -125,7 +126,7 @@ def _rank_main(rank, world, port, out_dir, cfg, state_dict, src, tar,
     try:
         res = _steps(cfg, state_dict, shard(src, rank, world),
                      shard(tar, rank, world), shard(tar_soft, rank, world),
-                     b_caps, device, dtype, lr)
+                     b_caps, device, dtype, lr, remat)
         res['gathered'] = collectives.all_gather_objects(
             {'rank': rank, 'queue': [rank] * (rank + 1)})
         if loops is not None:
@@ -170,7 +171,7 @@ def _update_diff(one, ranks, losses):
 
 def compare(cfg, state_dict, src, tar, b_caps, device='cpu',
             dtype=torch.float32, lr=0.05, world=2, loops=None,
-            loops_dir=None) -> dict:
+            loops_dir=None, remat='off') -> dict:
     """One process on the batches ``src`` (eval, train and the st source)
     and ``tar`` (the st target, with ``soft_targets``) against ``world``
     gloo ranks on their shards. Returns, for the train and the st step
@@ -179,10 +180,13 @@ def compare(cfg, state_dict, src, tar, b_caps, device='cpu',
     are equal; each rank's point counts and peak memory. ``loops``, a
     picklable callable of a directory, runs in this process on
     ``loops_dir``/one and in every rank on ``loops_dir``/ranks; its
-    results are ``loops_one`` and ``loops_ranks``."""
+    results are ``loops_one`` and ``loops_ranks``. Every model, in the
+    process and in the ranks, trains under the memory policy ``remat``:
+    under a replaying one the ranks run the norms' all-reduce again
+    inside the backward, in the order of the blocks' replays."""
     tar_soft = soft_targets(tar.valid, cfg.COMMON_CLASSES.n_classes)
     one = _steps(cfg, state_dict, src, tar, tar_soft, b_caps, device, dtype,
-                 lr)
+                 lr, remat)
     if loops is not None:
         one['loops'] = loops(Path(loops_dir) / 'one')
     if torch.device(device).type == 'cuda':
@@ -191,7 +195,7 @@ def compare(cfg, state_dict, src, tar, b_caps, device='cpu',
         mp.spawn(_rank_main, nprocs=world, join=True, args=(
             world, _free_port(), tmp, cfg, state_dict, src, tar, tar_soft,
             b_caps, device, dtype, lr, loops,
-            loops_dir and Path(loops_dir) / 'ranks'))
+            loops_dir and Path(loops_dir) / 'ranks', remat))
         ranks = [torch.load(Path(tmp) / f'rank{r}.pt', weights_only=False)
                  for r in range(world)]
     want_gather = [{'rank': r, 'queue': [r] * (r + 1)} for r in range(world)]

@@ -14,6 +14,10 @@ statistics). Then the CLIs' loops in every rank against one process
 rooms of 600 points at batch 1, so that the second rank scores a padded
 scene in each, and ``update_split_sampler`` on the ranks' shares of a
 mixed batch's tail cuboids. Prints the differences as one JSON line.
+
+``--remat P`` runs the steps alone (no loops) with every model under the
+memory policy P, whose replays run SyncBN's all-reduce again inside the
+backward.
 """
 
 import functools
@@ -158,7 +162,7 @@ def loop_diffs(got, one_dir, ranks_dir):
                                  .max() / np.abs(want).max())}
 
 
-def main():
+def main(argv):
     from doda_tpu_torch.models import model_fn
     from doda_tpu_torch.tools.make_synth_data import make_scannet
     import _torch_equivalence as equivalence
@@ -166,6 +170,12 @@ def main():
     cfg = make_cfg()
     sd = model_fn.build_model(cfg, device='cpu', dtype=torch.float32,
                               train=True).state_dict()
+    if argv[:1] == ['--remat']:
+        out = equivalence.compare(cfg, sd, make_batch(),
+                                  make_batch(99, (90, 170)), (128, 64, 32),
+                                  remat=argv[1])
+        print(json.dumps(out), flush=True)
+        return
     with tempfile.TemporaryDirectory(prefix='doda_ranks_') as tmp:
         tmp = Path(tmp)
         make_scannet(str(tmp / 'rooms'), n_train=3, n_val=3, n_points=600,
@@ -179,4 +189,4 @@ def main():
 
 
 if __name__ == '__main__':
-    main()
+    main(sys.argv[1:])

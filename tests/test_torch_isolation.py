@@ -28,7 +28,8 @@ def test_import_loads_no_jax():
     for name in ('ops.banded_conv', 'ops.bricks2d', 'ops.pointops',
                  'ops.pointops_offsets', 'ops.voxelize', 'native.host_ops',
                  'ops.slabs', 'ops.sparse', 'utils.visualize',
-                 'tools.visualize'):
+                 'tools.visualize', 'utils.roofline', 'tools.roofline',
+                 'tools.bench_conv', 'tools.probe_train_mem'):
         assert f'doda_tpu_torch.{name}' in mods, name
     code = ('import importlib, sys\n'
             f'for m in {mods!r}:\n'

@@ -68,19 +68,17 @@ def test_init_from_launcher_reads_the_environment(launcher, monkeypatch):
         collectives.init_from_launcher('mpi', 999)
 
 
-def test_two_ranks_equal_one_process():
-    """Two gloo ranks on the CPU, each taking one scene of a 2-scene batch
-    (200 and 120 points, features 10x apart; st targets of 90 and 170),
-    against one process on the batch, 3-level net, float32: the train,
-    eval and st steps; then ``test_one_epoch``, ``set_pseudo_labels``
-    and ``update_split_sampler`` in every rank against one process
-    (tests/_torch_parallel_child.py)."""
+def _child(*argv):
+    """tests/_torch_parallel_child.py's JSON line, in a fresh process."""
     env = dict(os.environ, OMP_NUM_THREADS='2')
     out = subprocess.run([sys.executable, os.path.join(
-        HERE, '_torch_parallel_child.py')], capture_output=True, text=True,
-        timeout=150, env=env, cwd=os.path.dirname(HERE))
+        HERE, '_torch_parallel_child.py'), *argv], capture_output=True,
+        text=True, timeout=150, env=env, cwd=os.path.dirname(HERE))
     assert out.returncode == 0, out.stderr[-3000:]
-    got = json.loads(out.stdout.strip().splitlines()[-1])
+    return json.loads(out.stdout.strip().splitlines()[-1])
+
+
+def _assert_steps_equal(got):
     assert got['points_per_rank'] == [200, 120]
     assert got['tar_points_per_rank'] == [90, 170]
     for step in ('train', 'st'):
@@ -90,13 +88,33 @@ def test_two_ranks_equal_one_process():
         assert got[f'{step}_stats'] <= 1e-5, got
         assert got[f'{step}_hist_equal'] is True, (step, got)
         assert got[f'{step}_ranks_equal'] is True, (step, got)
-    for key in ('eval_preds_equal', 'eval_hist_equal', 'gathered_equal',
-                'loops_miou_equal', 'loops_queue_equal',
+    for key in ('eval_preds_equal', 'eval_hist_equal', 'gathered_equal'):
+        assert got[key] is True, (key, got)
+
+
+def test_two_ranks_equal_one_process():
+    """Two gloo ranks on the CPU, each taking one scene of a 2-scene batch
+    (200 and 120 points, features 10x apart; st targets of 90 and 170),
+    against one process on the batch, 3-level net, float32: the train,
+    eval and st steps; then ``test_one_epoch``, ``set_pseudo_labels``
+    and ``update_split_sampler`` in every rank against one process
+    (tests/_torch_parallel_child.py)."""
+    got = _child()
+    _assert_steps_equal(got)
+    for key in ('loops_miou_equal', 'loops_queue_equal',
                 'loops_files_equal'):
         assert got[key] is True, (key, got)
     # 3 test dumps; 3 scenes' labels, npy and txt; class_ratio, done
     assert got['loops_files'] == 11, got
     assert got['class_ratio_rel'] <= 1e-12, got
+
+
+def test_two_ranks_equal_one_process_under_remat():
+    """The same steps with every model under ``remat='all'``: each block's
+    replay in the backward runs SyncBN's all-reduce again, in the same
+    order in both ranks, and holds the running statistics, so the ranks
+    still equal one process (which also replays)."""
+    _assert_steps_equal(_child('--remat', 'all'))
 
 
 def test_update_split_sampler_merges_across_ranks(monkeypatch):
