@@ -9,8 +9,9 @@ Phases, each printing one line:
      and the host library of the data path (native/src/host_ops.cc, g++)
   3. plan: the bench batch's level plan on the card equals the CPU's
      kernels: each kernel's wrapper (K1 banded_conv, its fused version
-     banded_conv_fused, K2 banded_conv_sm and its second version
-     banded_conv_sm_taps) on the card vs its plain version, at the main
+     banded_conv_fused, its narrow-input version banded_conv_narrow, K2
+     banded_conv_sm and its second version banded_conv_sm_taps) on the
+     card vs its plain version, at the main
      paths' widths (K2's second version also on row-strided operands, a
      ragged tile and no rows); the fused K1 on the real plan's
      rulebooks (levels 0, 1, 5, 6) and on a synthetic one (ragged rows,
@@ -18,12 +19,16 @@ Phases, each printing one line:
      assembled K1; the fused K1's prologue variant on the real rulebooks
      and occupancy (levels 0 and 1), a synthetic cin = 24 and no rows, with
      bias > 0 on half the channels, float32 output to 1e-4 of max|ref|;
+     the narrow K1 at the bench input conv (the level-0 rulebook, 3 -> 16)
+     and on synthetic rulebooks (cin 1 to 7, couts in several blocks,
+     ragged rows, no rows), float32 output to 1e-4 of max|ref|, bf16 to
+     the fused K1's bound, and against the assembled K1;
      one full subm conv on a real plan under either engine, forward, and
      its weight gradient in bf16 against float32 accumulation
   4. forward: the flagship net (cfgs/scannet/spconv.yaml: mid 16, 7
      levels, 2 blocks per level, 20 classes) with seeded random weights
      serves bench-shaped batches (4 scenes, ~150k points each) through
-     ``make_eval_step``: launch counts (52 fused K1 + 1 assembled K1, from
+     ``make_eval_step``: launch counts (52 fused K1 + 1 narrow K1, from
      the parameter shapes), scenes/sec, peak memory, float32
      logits kernel vs plain path, bf16 predictions kernel vs plain path
   5. train: the same net in train mode with ``sm_max_cin=32`` (K2's
@@ -118,8 +123,12 @@ Phases, each printing one line:
      same function; K1 in both versions, with the plane gather alone, and
      its prologue variant beside the unfused sequence it replaces (norm
      apply + ReLU + mask + K1), at the level-0 and level-1 shapes on the
-     real rulebooks; K2 in both versions at the level-0 and level-1 shapes;
-     K1's and K2's library time is phase engines' conv3d
+     real rulebooks; K1's narrow-input version at the input conv beside
+     the first version over its planes (alone and with the plane gather),
+     the fused K1 on x2 zero-padded to cin = 8 (padding pass included) and
+     cuDNN conv3d over the oracle's halo; K2 in both versions at the
+     level-0 and level-1 shapes; K1's and K2's library time is phase
+     engines' conv3d
 Then a JSON line of the kernels and, last, {"ok": true, "device": ...}.
 Any failure raises, and the script exits non-zero without that last line.
 """
@@ -249,30 +258,36 @@ def plain_path():
     stack = ExitStack()
     for name, fn in (('banded_conv', banded_conv_plain),
                      ('banded_conv_fused', banded_conv_fused_plain),
+                     ('banded_conv_narrow', banded_conv_fused_plain),
                      ('banded_conv_sm', banded_conv_sm_plain),
                      ('banded_conv_sm_taps', banded_conv_sm_taps_plain)):
         stack.enter_context(patch.object(bricks2d, name, fn))
     return stack
 
 
-def check_fused(worst, key, x2, nbr, w):
-    """The fused K1 against its plain version (both output types) and
-    against the assembled K1 on the same inputs."""
+def check_fused(worst, key, x2, nbr, w, narrow=False):
+    """The fused K1 (with ``narrow``, its narrow-input version) against its
+    plain version (both output types) and against the assembled K1 on the
+    same inputs."""
     from doda_tpu_torch.ops import bricks2d
     from doda_tpu_torch.ops.banded_conv import (banded_conv,
                                                 banded_conv_fused,
-                                                banded_conv_fused_plain)
+                                                banded_conv_fused_plain,
+                                                banded_conv_narrow)
+    fn, tag = ((banded_conv_narrow, 'K1n') if narrow
+               else (banded_conv_fused, 'K1f'))
     for dt, bound in FUSED_CHECKS:
-        got = banded_conv_fused(x2, nbr, w, dt)
+        got = fn(x2, nbr, w, dt)
         torch.cuda.synchronize()
         ref = banded_conv_fused_plain(x2, nbr, w, dt)
-        worst[f'K1f/{key}/{str(dt)[6:]}'] = _close(
-            got, ref, True, bound, f'banded_conv_fused {key} {dt}')
+        worst[f'{tag}/{key}/{str(dt)[6:]}'] = _close(
+            got, ref, True, bound, f'{fn.__name__} {key} {dt}')
     old = banded_conv(bricks2d._assemble_p6(x2, bricks2d.halo_index(nbr),
                                             x2.dtype),
                       bricks2d.banded_weights(w), torch.bfloat16)
-    worst[f'K1f-vs-K1/{key}'] = _close(got, old, True, 2e-2,
-                                       f'fused vs assembled K1 {key}')
+    worst[f'{tag}-vs-K1/{key}'] = _close(got, old, True, 2e-2,
+                                         f'{fn.__name__} vs assembled K1 '
+                                         f'{key}')
 
 
 def check_fused_pro(worst, key, x2, nbr, w, occ, g):
@@ -365,6 +380,25 @@ def phase_kernels(levels):
     empty = banded_conv_fused(x2[:0], nbr[:0], w, torch.float32, pro)
     assert empty.shape == (0, 64 * 16)
     assert banded_conv_fused.pro_launches == before  # nothing to launch
+
+    # the narrow K1 at the bench input conv (the level-0 rulebook, 3 ->
+    # 16) and on synthetic rulebooks: every padded channel count (cin 1 to
+    # 7), couts in one, two and three blocks, ragged rows and no rows
+    from doda_tpu_torch.ops.banded_conv import banded_conv_narrow
+    x2, w = operands(level0.nbr.shape[0], 3, 16)
+    check_fused(worst, f'input/level0/{level0.nbr.shape[0]}x3x16', x2,
+                level0.nbr, w, narrow=True)
+    for rows, grid, cin, cout in ((4099, 20, 1, 8), (4099, 20, 4, 16),
+                                  (1001, 12, 5, 24), (4099, 20, 6, 32),
+                                  (1001, 12, 7, 40), (3, 4, 2, 16)):
+        nbr = synth.synth_rulebook(rows, grid, seed=rows)
+        x2, w = operands(rows, cin, cout)
+        check_fused(worst, f'synthetic/{rows}x{cin}x{cout}', x2, nbr, w,
+                    narrow=True)
+    before = banded_conv_narrow.launches
+    empty = banded_conv_narrow(x2[:0], nbr[:0], w, bf)
+    assert empty.shape == (0, 64 * 16)
+    assert banded_conv_narrow.launches == before    # nothing to launch
 
     for b, cin, cout in ((1000, 3, 16), (4096, 16, 16), (4099, 32, 16),
                          (2048, 112, 112), (512, 192, 96)):
@@ -467,9 +501,7 @@ def phase_kernels(levels):
 
 def phase_forward(cfg, batch, b_caps, card):
     from doda_tpu_torch.models import model_fn
-    from doda_tpu_torch.ops.banded_conv import banded_conv, banded_conv_fused
-    from doda_tpu_torch.ops.banded_conv_sm import (banded_conv_sm,
-                                                   banded_conv_sm_taps)
+    from doda_tpu_torch.ops.banded_conv_sm import banded_conv_sm
     from doda_tpu_torch.utils import synth
     n_valid = int(batch.valid.sum())
     batch = batch.to('cuda')
@@ -481,23 +513,17 @@ def phase_forward(cfg, batch, b_caps, card):
 
     sd = synth.seeded_state_dict(model_fn.build_model(cfg), seed=0)
     model, step = run(torch.bfloat16, sd)
-    # the rule on the parameter shapes: all but the cin = 3 input conv
+    # the rule on the parameter shapes: the cin = 3 input conv on the
+    # narrow K1, all others on the fused K1
     want = model.subm_routes()
-    assert want == {'sm': 0, 'fused': 52, 'assembled': 1}, want
+    assert want == {'sm': 0, 'fused': 52, 'narrow': 1, 'assembled': 0}, want
     step(batch)                                     # warm-up (set-up)
     torch.cuda.synchronize()
 
-    def reset():
-        banded_conv.launches = banded_conv_fused.launches = 0
-        banded_conv_sm.launches = banded_conv_sm_taps.launches = 0
-        banded_conv_fused.pro_launches = 0
-
-    reset()                                         # the counted path
+    _cli_reset()                                    # the counted path
     out = step(batch)
     torch.cuda.synchronize()
-    launches = {'fused': banded_conv_fused.launches,
-                'assembled': banded_conv.launches,
-                'sm': banded_conv_sm_taps.launches}
+    launches = _cli_launches()
     assert banded_conv_sm.launches == 0
     assert launches == want, launches
     logits = out['output']
@@ -513,8 +539,7 @@ def phase_forward(cfg, batch, b_caps, card):
         step(batch)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    assert banded_conv_fused.launches == 4 * want['fused']
-    assert banded_conv.launches == 4 * want['assembled']
+    assert _cli_launches() == {k: 4 * v for k, v in want.items()}
     peak = torch.cuda.max_memory_allocated()
 
     # float32: kernel path vs plain path, same weights and batch
@@ -540,7 +565,7 @@ def phase_train(cfg, b_caps, card):
     """Three bf16 train steps of the flagship on 2 bench scenes, then one
     float32 step on the kernel path against the plain path."""
     from doda_tpu_torch.models import model_fn
-    from doda_tpu_torch.ops.banded_conv import banded_conv, banded_conv_fused
+    from doda_tpu_torch.ops.banded_conv import banded_conv_fused
     from doda_tpu_torch.ops.banded_conv_sm import (banded_conv_sm,
                                                    banded_conv_sm_taps)
     from doda_tpu_torch.utils import optim, synth
@@ -563,23 +588,19 @@ def phase_train(cfg, b_caps, card):
     # kernel runs one forward conv and one dx conv on the flipped shape,
     # except the input conv, whose input needs no gradient
     fwd_want, bwd_want = model.subm_routes(), model.subm_routes(True)
-    assert fwd_want == {'sm': 15, 'fused': 37, 'assembled': 1}, fwd_want
-    assert bwd_want == {'sm': 16, 'fused': 36, 'assembled': 0}, bwd_want
+    assert fwd_want == {'sm': 15, 'fused': 37, 'narrow': 1,
+                        'assembled': 0}, fwd_want
+    assert bwd_want == {'sm': 16, 'fused': 36, 'narrow': 0,
+                        'assembled': 0}, bwd_want
     want = {k: fwd_want[k] + bwd_want[k] for k in fwd_want}
-
-    def reset():
-        banded_conv.launches = banded_conv_fused.launches = 0
-        banded_conv_sm.launches = banded_conv_sm_taps.launches = 0
-        banded_conv_fused.pro_launches = 0
+    reset = _cli_reset
 
     def counts():
         # bf16 'sm' convs run K2's second version; its first version runs
         # only on float32 operands and must not appear here
         assert banded_conv_sm.launches == 0, banded_conv_sm.launches
         assert banded_conv_fused.pro_launches == 0
-        return {'sm': banded_conv_sm_taps.launches,
-                'fused': banded_conv_fused.launches,
-                'assembled': banded_conv.launches}
+        return _cli_launches()
 
     step(batch, lr)                                 # warm-up (set-up)
     torch.cuda.synchronize()
@@ -623,8 +644,8 @@ def phase_train(cfg, b_caps, card):
     torch.cuda.synchronize()
     dt0 = time.perf_counter() - t0
     peak0 = torch.cuda.max_memory_allocated()
-    assert counts() == {'sm': 0, 'fused': steps * 104,
-                        'assembled': steps}, counts()
+    assert counts() == {'sm': 0, 'fused': steps * 104, 'narrow': steps,
+                        'assembled': 0}, counts()
     assert all(math.isfinite(float(v)) for v in losses0)
     log('train_k2_or_fused', card=card, batch=synth.TRAIN_BATCH,
         steps_per_sec_sm_max_cin_32=steps / dt,
@@ -709,7 +730,6 @@ def phase_fuse_norm(cfg, batch, b_caps, card):
     steps both ways, the bf16 steps' gradient error against the float32
     unfused step). Returns the launches of each route in the counted runs."""
     from doda_tpu_torch.models import model_fn
-    from doda_tpu_torch.ops.banded_conv import banded_conv, banded_conv_fused
     from doda_tpu_torch.ops.banded_conv_sm import (banded_conv_sm,
                                                    banded_conv_sm_taps)
     from doda_tpu_torch.utils import optim, synth
@@ -721,9 +741,7 @@ def phase_fuse_norm(cfg, batch, b_caps, card):
 
     def counts():
         assert banded_conv_sm.launches == banded_conv_sm_taps.launches == 0
-        return {'sm': 0, 'fused': banded_conv_fused.launches,
-                'assembled': banded_conv.launches,
-                'prologue': banded_conv_fused.pro_launches}
+        return _launches()
 
     def evaluator(dtype, fuse):
         model = model_fn.build_model(cfg, dtype=dtype, fuse_norm=fuse)
@@ -733,8 +751,8 @@ def phase_fuse_norm(cfg, batch, b_caps, card):
     model_f, step_f = evaluator(bf, True)
     model_u, step_u = evaluator(bf, False)
     want = model_f.subm_routes()
-    assert want == {'sm': 0, 'fused': 0, 'assembled': 1, 'prologue': 52}, \
-        want
+    assert want == {'sm': 0, 'fused': 0, 'narrow': 1, 'assembled': 0,
+                    'prologue': 52}, want
     step_f(batch)                                   # warm-up (set-up)
     step_u(batch)
     torch.cuda.synchronize()
@@ -749,7 +767,8 @@ def phase_fuse_norm(cfg, batch, b_caps, card):
     torch.cuda.synchronize()
     launched['eval_forward_unfused'] = counts()
     assert launched['eval_forward_unfused'] == {
-        'sm': 0, 'fused': 52, 'assembled': 1, 'prologue': 0}, launched
+        'sm': 0, 'fused': 52, 'narrow': 1, 'assembled': 0,
+        'prologue': 0}, launched
     logits = out_f['output']
     assert logits.shape == (synth.BATCH, synth.N_CAP, 20)
     assert torch.isfinite(logits).all() and int(out_f['count']) == n_valid
@@ -813,7 +832,8 @@ def phase_fuse_norm(cfg, batch, b_caps, card):
     _, _, loss_f32, grads_f32 = first_step(f32, True)
     launched['train_f32_fused'] = counts()   # float32: the pro_full routes
     assert launched['train_f32_fused'] == {
-        'sm': 0, 'fused': 0, 'assembled': 105, 'prologue': 0}, launched
+        'sm': 0, 'fused': 0, 'narrow': 0, 'assembled': 105,
+        'prologue': 0}, launched
     assert abs(loss_f32 - loss_u32) <= 1e-4 * abs(loss_u32), (loss_f32,
                                                              loss_u32)
     _, f32_worst = _grad_error(grads_f32, grads_u32)
@@ -828,7 +848,7 @@ def phase_fuse_norm(cfg, batch, b_caps, card):
         rule = model.subm_routes()
         rule_bwd = model.subm_routes(backward=True)
         rule = {k: steps * (rule.get(k, 0) + rule_bwd.get(k, 0))
-                for k in ('sm', 'fused', 'assembled', 'prologue')}
+                for k in ('sm', 'fused', 'narrow', 'assembled', 'prologue')}
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         _cli_reset()
@@ -1234,7 +1254,7 @@ def _remat_run(cfg, sd, remat, step_of, steps, fuse_norm=False):
     step, terms = step_of(model, opt)
     fwd, bwd = model.subm_routes(), model.subm_routes(True)
     rule = {k: terms * (fwd.get(k, 0) + bwd.get(k, 0))
-            for k in ('fused', 'prologue', 'assembled', 'sm')}
+            for k in ('fused', 'prologue', 'narrow', 'assembled', 'sm')}
     _cli_reset()
     torch.cuda.reset_peak_memory_stats()
     with deterministic():
@@ -1503,19 +1523,26 @@ DEVICE_AUG = ['DATA_CONFIG.DATA_AUG.device', 'True',
 
 def _cli_launches():
     """The launch counters of every kernel, by route."""
-    from doda_tpu_torch.ops.banded_conv import banded_conv, banded_conv_fused
+    from doda_tpu_torch.ops.banded_conv import (banded_conv,
+                                                banded_conv_fused,
+                                                banded_conv_narrow)
     from doda_tpu_torch.ops.banded_conv_sm import (banded_conv_sm,
                                                    banded_conv_sm_taps)
-    return {'fused': banded_conv_fused.launches,
-            'assembled': banded_conv.launches,
-            'sm': banded_conv_sm_taps.launches + banded_conv_sm.launches}
+    return {'sm': banded_conv_sm_taps.launches + banded_conv_sm.launches,
+            'fused': banded_conv_fused.launches,
+            'narrow': banded_conv_narrow.launches,
+            'assembled': banded_conv.launches}
 
 
 def _cli_reset():
-    from doda_tpu_torch.ops.banded_conv import banded_conv, banded_conv_fused
+    """Every kernel's launch counters to 0."""
+    from doda_tpu_torch.ops.banded_conv import (banded_conv,
+                                                banded_conv_fused,
+                                                banded_conv_narrow)
     from doda_tpu_torch.ops.banded_conv_sm import (banded_conv_sm,
                                                    banded_conv_sm_taps)
     banded_conv.launches = banded_conv_fused.launches = 0
+    banded_conv_narrow.launches = 0
     banded_conv_sm.launches = banded_conv_sm_taps.launches = 0
     banded_conv_fused.pro_launches = 0
 
@@ -1553,7 +1580,7 @@ def cli_rooms(tmp):
     flagship = model_fn.build_model(
         cfg_from_yaml_file(CFG_DA, CfgNode()), device='cpu')
     fwd, bwd = flagship.subm_routes(), flagship.subm_routes(True)
-    assert fwd == {'sm': 0, 'fused': 52, 'assembled': 1}, fwd
+    assert fwd == {'sm': 0, 'fused': 52, 'narrow': 1, 'assembled': 0}, fwd
     return {
         'tmp': tmp,
         'roots': ['DATA_CONFIG.DATA_ROOT', str(tmp / '3dfront/density1250'),
@@ -2194,6 +2221,77 @@ def time_k1(nbr, halo, occ, cin, cout, g):
             'assembled': assembled, 'fused_vs_assembled_max_abs_err': vs_old}
 
 
+def time_narrow(nbr, halo, occ, g):
+    """K1's narrow-input version at the bench input conv (3 -> 16, bf16)
+    on the level-0 rulebook, on seeded activations masked to the active
+    cells: the kernel, its plain version and bound; beside it the first
+    version over ``_assemble_p6``'s planes, alone and with the plane
+    gather it needs; the fused K1 on x2 and w zero-padded to cin = 8 with
+    the padding pass (the cheapest route otherwise at hand, on no path);
+    and cuDNN ``conv3d`` over the oracle's assembled halo, the library
+    call of the same function. Bounds are ``utils/roofline.py``'s."""
+    import torch.nn.functional as F
+    from doda_tpu_torch.ops import bricks, bricks2d
+    from doda_tpu_torch.ops.banded_conv import (banded_conv,
+                                                banded_conv_fused,
+                                                banded_conv_fused_plain,
+                                                banded_conv_narrow)
+    from doda_tpu_torch.utils import roofline
+    bf = torch.bfloat16
+    rows, cin, cout = nbr.shape[0], 3, 16
+    x3 = torch.randn(rows, 64, cin, device='cuda', generator=g)
+    x2 = (x3 * occ[..., None]).reshape(rows, -1).to(bf)
+    w = (torch.randn(27, cin, cout, device='cuda', generator=g)
+         / (27 * cin) ** 0.5).to(bf)
+    out = banded_conv_narrow(x2, nbr, w, bf)
+    ref = banded_conv_fused_plain(x2, nbr, w, bf)
+    err = _close(out, ref, True, 2e-2, 'banded_conv_narrow at the input conv')
+    del ref
+    ms = cuda_ms(lambda: banded_conv_narrow(x2, nbr, w, bf), 20)
+    plain_ms = cuda_ms(lambda: banded_conv_fused_plain(x2, nbr, w, bf), 3)
+    wb = bricks2d.banded_weights(w)
+    rows6 = bricks2d._assemble_p6(x2, halo, bf)
+    vs_first = _close(out, banded_conv(rows6, wb, bf), True, 2e-2,
+                      'narrow vs first-version K1 at the input conv')
+    first_ms = cuda_ms(lambda: banded_conv(rows6, wb, bf), 20)
+    gather_ms = cuda_ms(lambda: bricks2d._assemble_p6(x2, halo, bf), 10)
+    del rows6
+    first_gather_ms = cuda_ms(lambda: banded_conv(
+        bricks2d._assemble_p6(x2, halo, bf), wb, bf), 20)
+    w8 = F.pad(w, (0, 0, 0, 8 - cin)).contiguous()
+
+    def padded():
+        x8 = F.pad(x2.reshape(rows, 64, cin), (0, 8 - cin))
+        return banded_conv_fused(x8.reshape(rows, -1), nbr, w8, bf)
+
+    vs_padded = _close(padded(), out, True, 2e-2,
+                       'padded fused K1 vs narrow at the input conv')
+    padded_ms = cuda_ms(padded, 20)
+    hin = bricks.shell_halo(x2.reshape(rows, 64, cin), nbr, bf).permute(
+        0, 4, 1, 2, 3)
+    wc = w.reshape(3, 3, 3, cin, cout).permute(4, 3, 0, 1, 2).contiguous(
+        memory_format=torch.channels_last_3d)
+    lib = F.conv3d(hin, wc).permute(0, 2, 3, 4, 1).reshape(rows, -1)
+    lib_err = _close(bricks2d._mask(lib, occ, cout),
+                     bricks2d._mask(out, occ, cout), True, 2e-2,
+                     'conv3d vs narrow at the input conv')
+    library_ms = cuda_ms(lambda: F.conv3d(hin, wc), 10)
+    f32_ms = cuda_ms(lambda: banded_conv_narrow(x2, nbr, w, torch.float32),
+                     20)
+    return {'shape': [rows, cin, cout], 'ms': ms, 'plain_ms': plain_ms,
+            'max_abs_err': err,
+            **roofline.narrow_work(rows, cin, cout,
+                                   roofline.present_reads(halo)),
+            'library_ms': library_ms, 'library_max_abs_err': lib_err,
+            'f32_out_ms': f32_ms,
+            'first_version_ms': first_ms,
+            'first_version_with_gather_ms': first_gather_ms,
+            'plane_gather_ms': gather_ms,
+            'narrow_vs_first_version_max_abs_err': vs_first,
+            'padded_fused_ms': padded_ms,
+            'padded_fused_vs_narrow_max_abs_err': vs_padded}
+
+
 def time_k2(b, cin, cout, g):
     """K2 in both versions at (B, cin, cout), bf16, on random operands laid
     out as the path lays them (x contiguous, gyz/gxm/gxp column slices of
@@ -2354,6 +2452,32 @@ def phase_timing(levels, launches, fuse_launches, library, engine_launches):
                    'bound_by': k1['taps']['bound_by'],
                    'plain_ms': k1['taps']['plain_ms'],
                    'first_version_ms': k1['first']['ms']}})
+
+    # K1's narrow-input version: a row of its own (its own source), and
+    # its readings beside the fused version's in K1's row
+    n0 = time_narrow(levels[0].nbr, levels[0].halo, levels[0].occ, g)
+    log('timing', kernel='banded_conv_narrow', at='input conv',
+        dtype='bfloat16', **n0)
+    fwd, train = launches['narrow']
+    n_fuse = sum(n['narrow'] for n in fuse_launches.values())
+    n_eng = sum(n['narrow'] for n in engine_launches.values())
+    rows.append({
+        'name': 'banded_conv_narrow', 'route': 'cuda',
+        'source': 'doda_tpu_torch/csrc/subm_conv_narrow.cu',
+        'replaces': 'doda_tpu/ops/pallas_banded.py:71 on the input conv '
+                    '(doda_tpu/ops/bricks2d.py:572, planes of :330)',
+        'launches': fwd + train + n_fuse + n_eng,
+        'launches_eval_forward': fwd, 'launches_train_steps': train,
+        'launches_fuse_norm_phase': n_fuse,
+        'launches_engines_phase': n_eng,
+        **n0,
+        'library': "torch.nn.functional.conv3d over the shell-gather "
+                   "oracle's assembled (rows, 6, 6, 6, 3) bf16 halo, "
+                   'channels-last (assembly not timed)',
+        **_build.resources('subm_conv_narrow')})
+    rows[0]['narrow'] = {k: n0[k] for k in (
+        'shape', 'ms', 'bound_ms', 'bound_by', 'plain_ms', 'padded_fused_ms',
+        'library_ms', 'first_version_ms', 'first_version_with_gather_ms')}
     return rows
 
 
@@ -2402,7 +2526,8 @@ def main():
     # each CLI run's launches, counted in the cli phases, join each
     # kernel's
     for row, route in ((rows[0], 'fused'), (rows[0]['assembled'],
-                                            'assembled'), (rows[1], 'sm')):
+                                            'assembled'), (rows[1], 'sm'),
+                       (rows[2], 'narrow')):
         row['launches_cli'] = {run: n[route] for run, n in cli.items()}
         row['launches'] += sum(row['launches_cli'].values())
     # phase remat's steps (the replays included) join K1's rows
@@ -2413,6 +2538,8 @@ def main():
     for sub, route in (('prologue', 'prologue'), ('assembled', 'assembled')):
         k1[sub]['launches_remat_phase'] = remat_launches[route]
         k1[sub]['launches'] += remat_launches[route]
+    rows[2]['launches_remat_phase'] = remat_launches['narrow']
+    rows[2]['launches'] += remat_launches['narrow']
     assert remat_launches['sm'] == 0, remat_launches
     for r in rows:       # every kernel of the paths really ran on them
         assert r['launches'] > 0, r['name']

@@ -59,17 +59,29 @@
 // the conv reads where(occ, relu(x*scale + bias), 0) in place of x, and
 // that activation never reaches device memory. Each brick's occupancy is
 // one 64-bit word (bit c = cell c active, occ_words in ops/banded_conv.py).
-// When a tile's first halo chunk is issued, the words of its bricks' 27
-// neighbours are copied beside the rulebook (an absent neighbour's
-// zero-fill gives word 0). Once a stage has landed, every thread rewrites
-// the 16-byte cells it copied: relu(x*scale + bias) in float32 on the bf16
-// value and the bf16 scale and bias (multiply, then add, each rounded, as
-// the plain version does), rounded once to bf16, and zero where the cell's
-// bit is clear: a bias > 0 would otherwise light inactive cells through
-// the ReLU. A barrier then hands the stage to ldmatrix. The extra bytes
-// are the occupancy words (8 per brick, read up to 27 times from L2), so
-// the bound is K1's; the pass costs one shared-memory read and write of
-// each staged cell.
+// Its bound is K1's plus the occupancy words (8 bytes a brick, read up to
+// 27 times from L2) and 3 float32 operations an input element. What it
+// must not add is a pass over shared memory between two barriers, with
+// every warp idle at the second. So the prologue is applied inside the
+// copy pipeline, one barrier a step:
+//  * The next (tile, chunk)'s cells are copied into the other stage with
+//    cp.async before the current stage's MMAs, as in the plain variant.
+//  * After its MMAs each thread waits for its own copies and rewrites the
+//    16-byte cells it copied in place: relu(x*scale + bias) in float32 on
+//    the bf16 value and the bf16 scale and bias (multiply, then add, each
+//    rounded, as the plain version does), rounded once to bf16, and zero
+//    where the cell's bit is clear (a bias > 0 would otherwise light
+//    inactive cells through the ReLU). No other thread reads those cells
+//    before the step's one barrier, which then hands the stage to
+//    ldmatrix; the other warps' MMAs overlap the pass.
+//  * The occupancy words ride a tile ahead of the copies: at a tile's last
+//    step the words of tile i+2's neighbours are copied beside the
+//    rulebook with cp.async (an absent neighbour's zero-fill gives word
+//    0), so the rulebook rows ride three tiles ahead, in three buffers.
+// Staging the cells through registers (loaded before the MMAs, the
+// prologue applied on the way to st.shared) was tried: at 32 couts the 14
+// uint4 a thread hold beside the accumulators spill past 255 registers,
+// and it ran slower there, as did spreading the prologue between the MMAs.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -180,35 +192,41 @@ __device__ __forceinline__ void store2(bf16* p, float a, float b) {
   *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
 }
 
-// relu(v*s + b) of 8 bf16 channels in float32, rounded once to bf16
+// relu(v*s + b) of 8 bf16 channels in float32, rounded once to bf16. A
+// product of two bf16 values is exact in float32 (above the subnormals),
+// so one fma gives the plain version's rounded multiply, then rounded add,
+// bit for bit; the ReLU rides the bf16 pack (cvt.rn.relu).
 __device__ __forceinline__ uint4 prologue8(uint4 v, uint4 s, uint4 b) {
   const __nv_bfloat162* v2 = reinterpret_cast<const __nv_bfloat162*>(&v);
   const __nv_bfloat162* s2 = reinterpret_cast<const __nv_bfloat162*>(&s);
   const __nv_bfloat162* b2 = reinterpret_cast<const __nv_bfloat162*>(&b);
   uint4 out;
-  __nv_bfloat162* o2 = reinterpret_cast<__nv_bfloat162*>(&out);
+  uint32_t* o = reinterpret_cast<uint32_t*>(&out);
 #pragma unroll
   for (int j = 0; j < 4; ++j) {
     const float2 fv = __bfloat1622float2(v2[j]);
     const float2 fs = __bfloat1622float2(s2[j]);
     const float2 fb = __bfloat1622float2(b2[j]);
-    o2[j] = __floats2bfloat162_rn(
-        fmaxf(__fadd_rn(__fmul_rn(fv.x, fs.x), fb.x), 0.0f),
-        fmaxf(__fadd_rn(__fmul_rn(fv.y, fs.y), fb.y), 0.0f));
+    asm("cvt.rn.relu.bf16x2.f32 %0, %1, %2;\n"
+        : "=r"(o[j])
+        : "f"(__fmaf_rn(fv.y, fs.y, fb.y)), "f"(__fmaf_rn(fv.x, fs.x, fb.x)));
   }
   return out;
 }
 
-template <typename OutT, int TB, bool PRO>
+// NTA: n8 tiles of the accumulators; the prologue variant sizes them by
+// the block's cout chunk (2 at 16 couts, which ran faster at level 0)
+template <typename OutT, int TB, bool PRO, int NTA = NT_MAX>
 __global__ void __launch_bounds__(Tile<TB>::THREADS) fused_tc(const Params p) {
   using T = Tile<TB>;
+  constexpr int NBUF = PRO ? 3 : 2;                     // rulebook buffers
   extern __shared__ __align__(128) unsigned char smem[];
-  int* nbr_s = reinterpret_cast<int*>(smem);            // [2][NBR_INTS]
+  int* nbr_s = reinterpret_cast<int*>(smem);            // [NBUF][NBR_INTS]
   // [2][NBR_INTS] occupancy words of the rulebook's bricks (PRO only)
   unsigned long long* occ_s =
-      reinterpret_cast<unsigned long long*>(smem + 2 * T::NBR_INTS * 4);
+      reinterpret_cast<unsigned long long*>(smem + NBUF * T::NBR_INTS * 4);
   unsigned char* w_s =
-      smem + 2 * T::NBR_INTS * 4 + (PRO ? 2 * T::OCC_B : 0);  // weights
+      smem + NBUF * T::NBR_INTS * 4 + (PRO ? 2 * T::OCC_B : 0);  // weights
   const int wbuf_b = TAPS * CK * p.wpitch;              // one chunk
   unsigned char* h_s = w_s + (p.w_resident ? p.nk : 2) * wbuf_b;  // [2] stages
 
@@ -258,13 +276,6 @@ __global__ void __launch_bounds__(Tile<TB>::THREADS) fused_tc(const Params p) {
   auto issue_halo = [&](int kc, int stage, int nbuf) {
     const int* nb = nbr_s + nbuf * T::NBR_INTS;
     unsigned char* st = h_s + stage * T::STAGE_B;
-    if (PRO && kc == 0)   // a tile's first chunk: its neighbours' words
-      for (int e = tid; e < TB * TAPS; e += T::THREADS) {
-        const int src = nb[e];
-        const bool ok = src >= 0 && src < p.rows;
-        cp_async8(occ_s + nbuf * T::NBR_INTS + e, ok ? p.occw + src : p.occw,
-                  ok ? 8 : 0);
-      }
 #pragma unroll
     for (int k = 0; k < T::COPIES; ++k) {
       const uint32_t d = copy[k];
@@ -294,6 +305,49 @@ __global__ void __launch_bounds__(Tile<TB>::THREADS) fused_tc(const Params p) {
     }
   };
 
+  // PRO: the occupancy words of tile i's neighbours -> occ_s[i % 2]
+  auto issue_occ = [&](long long i) {
+    const int* nb = nbr_s + (int)(i % 3) * T::NBR_INTS;
+    unsigned long long* ow = occ_s + (int)(i & 1) * T::NBR_INTS;
+    for (int e = tid; e < TB * TAPS; e += T::THREADS) {
+      const int src = nb[e];
+      const bool ok = src >= 0 && src < p.rows;
+      cp_async8(ow + e, ok ? p.occw + src : p.occw, ok ? 8 : 0);
+    }
+  };
+  // PRO: this thread's own cells of (tile i, chunk kc), landed in a stage
+  // by its cp.async, -> relu(x*scale + bias) in place, zero where the cell
+  // is inactive. No other thread touches them before the next barrier.
+  auto prologue_cells = [&](int kc, long long i, int stage) {
+    cp_async_wait_all();
+    const unsigned long long* ow = occ_s + (int)(i & 1) * T::NBR_INTS;
+    unsigned char* st = h_s + stage * T::STAGE_B;
+    // the chunk's scale and bias, per 8-channel half (cin % 8 == 0, so
+    // a half lies wholly inside cin or wholly past it)
+    const int c0 = kc * CK, c1 = c0 + 8;
+    const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
+    const uint4 s0 = __ldg(reinterpret_cast<const uint4*>(p.scale + c0));
+    const uint4 b0 = __ldg(reinterpret_cast<const uint4*>(p.bias + c0));
+    const uint4 s1 = c1 < p.cin
+        ? __ldg(reinterpret_cast<const uint4*>(p.scale + c1)) : zero;
+    const uint4 b1 = c1 < p.cin
+        ? __ldg(reinterpret_cast<const uint4*>(p.bias + c1)) : zero;
+#pragma unroll
+    for (int k = 0; k < T::COPIES; ++k) {
+      const uint32_t d = copy[k];
+      if (d >> 27) {
+        const bool hi = (d >> 26) & 1;
+        const bool on = (!hi || c1 < p.cin) &&
+                        ((ow[(d >> 12) & 0xff] >> ((d >> 20) & 63)) & 1);
+        uint4* cell = reinterpret_cast<uint4*>(st + ((d & 0xfff) << 4));
+        if (on)   // a branch, not a select: inactive cells skip the math
+          *cell = prologue8(*cell, hi ? s1 : s0, hi ? b1 : b0);
+        else
+          *cell = zero;
+      }
+    }
+  };
+
   // this lane's row of an A tile: cell (y, z) of an x-slice, and which
   // 8-channel half of the chunk its ldmatrix address points at
   const int r = (lane & 7) + ((lane >> 3) & 1) * 8;
@@ -303,18 +357,28 @@ __global__ void __launch_bounds__(Tile<TB>::THREADS) fused_tc(const Params p) {
   // and of a B tile pair: weight row k = lane % 16, n8 tile lane / 16
   const uint32_t b_off = (lane & 15) * p.wpitch + (lane >> 4) * 16;
 
-  float acc[4][NT_MAX][4];
+  float acc[4][NTA][4];
 
   load_nbr(0, 0);
   load_nbr(1, 1);
+  if constexpr (PRO) load_nbr(2, 2);
   if (p.w_resident)
     for (int kc = 0; kc < p.nk; ++kc) issue_w(kc, kc);
   cp_async_commit();
   cp_async_wait_all();
   __syncthreads();
+  if constexpr (PRO) {   // tiles 0 and 1's occupancy words
+    issue_occ(0);
+    issue_occ(1);
+  }
   issue_halo(0, 0, 0);
   if (!p.w_resident) issue_w(0, 0);
   cp_async_commit();
+  if constexpr (PRO) {   // the first stage's prologue, before the loop
+    cp_async_wait_all();
+    __syncthreads();     // tile 0's occupancy words, copied by all threads
+    prologue_cells(0, 0, 0);
+  }
 
   const long long steps = nti * p.nk;
   long long i = 0;
@@ -327,46 +391,27 @@ __global__ void __launch_bounds__(Tile<TB>::THREADS) fused_tc(const Params p) {
     const int kc1 = last ? 0 : kc + 1;
     const long long i1 = last ? i + 1 : i;
     if (s + 1 < steps) {
-      issue_halo(kc1, stage ^ 1, (int)(i1 & 1));
+      if constexpr (PRO)   // the rulebook rows of tile i in buffer i % 3
+        issue_halo(kc1, stage ^ 1, (int)(i1 % 3));
+      else
+        issue_halo(kc1, stage ^ 1, (int)(i1 & 1));
       if (!p.w_resident) issue_w(kc1, stage ^ 1);
     }
-    if (last) load_nbr(i + 2, (int)(i & 1));
-    cp_async_commit();
-
-    if (PRO) {
-      // the landed stage's cells this thread copied -> the prologue of
-      // them, zero where the cell is inactive; then hand it to ldmatrix
-      const unsigned long long* ow = occ_s + (int)(i & 1) * T::NBR_INTS;
-      unsigned char* st = h_s + stage * T::STAGE_B;
-      // the chunk's scale and bias, per 8-channel half (cin % 8 == 0, so
-      // a half lies wholly inside cin or wholly past it)
-      const int c0 = kc * CK, c1 = c0 + 8;
-      const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
-      const uint4 s0 = __ldg(reinterpret_cast<const uint4*>(p.scale + c0));
-      const uint4 b0 = __ldg(reinterpret_cast<const uint4*>(p.bias + c0));
-      const uint4 s1 = c1 < p.cin
-          ? __ldg(reinterpret_cast<const uint4*>(p.scale + c1)) : zero;
-      const uint4 b1 = c1 < p.cin
-          ? __ldg(reinterpret_cast<const uint4*>(p.bias + c1)) : zero;
-#pragma unroll
-      for (int k = 0; k < T::COPIES; ++k) {
-        const uint32_t d = copy[k];
-        if (d >> 27) {
-          const bool hi = (d >> 26) & 1;
-          const bool on = (!hi || c1 < p.cin) &&
-                          ((ow[(d >> 12) & 0xff] >> ((d >> 20) & 63)) & 1);
-          uint4* cell = reinterpret_cast<uint4*>(st + ((d & 0xfff) << 4));
-          *cell = on ? prologue8(*cell, hi ? s1 : s0, hi ? b1 : b0) : zero;
-        }
+    if (last) {
+      if constexpr (PRO) {
+        issue_occ(i + 2);
+        load_nbr(i + 3, (int)(i % 3));
+      } else {
+        load_nbr(i + 2, (int)(i & 1));
       }
-      __syncthreads();
     }
+    cp_async_commit();
 
     if (kc == 0) {
 #pragma unroll
       for (int m = 0; m < 4; ++m)
 #pragma unroll
-        for (int j = 0; j < NT_MAX; ++j)
+        for (int j = 0; j < NTA; ++j)
 #pragma unroll
           for (int e = 0; e < 4; ++e) acc[m][j][e] = 0.0f;
     }
@@ -387,7 +432,7 @@ __global__ void __launch_bounds__(Tile<TB>::THREADS) fused_tc(const Params p) {
 #pragma unroll
         for (int pl = 0; pl < 6; ++pl) ldsm_x4(a[pl], aaddr + pl * 36 * CELL_B);
 #pragma unroll
-        for (int jp = 0; jp < NT_MAX / 2; ++jp) {
+        for (int jp = 0; jp < NTA / 2; ++jp) {
           if (2 * jp < nt) {
             uint32_t b[3][4];
 #pragma unroll
@@ -412,6 +457,10 @@ __global__ void __launch_bounds__(Tile<TB>::THREADS) fused_tc(const Params p) {
       }
     }
 
+    // PRO: the next stage's prologue, on this thread's own landed cells
+    if constexpr (PRO)
+      if (s + 1 < steps) prologue_cells(kc1, i1, stage ^ 1);
+
     if (last) {
       const long long brick = tile_of(i) * TB + warp;
       if (brick < p.rows) {
@@ -420,7 +469,7 @@ __global__ void __launch_bounds__(Tile<TB>::THREADS) fused_tc(const Params p) {
 #pragma unroll
         for (int m = 0; m < 4; ++m)
 #pragma unroll
-          for (int j = 0; j < NT_MAX; ++j)
+          for (int j = 0; j < NTA; ++j)
             if (j < nt) {
               OutT* q = o + (long long)(m * 16) * p.cout + j * 8;
               store2(q, acc[m][j][0], acc[m][j][1]);
@@ -443,24 +492,28 @@ int plan(int cin, int cout, bool pro, Params* p, int* smem_bytes) {
   const int wbuf_b = TAPS * CK * p->wpitch;
   p->w_resident = (long long)p->nk * wbuf_b <= W_RESIDENT_B;
   const int w_b = (p->w_resident ? p->nk : 2) * wbuf_b;
-  const int smem4 = 2 * Tile<4>::NBR_INTS * 4 + (pro ? 2 * Tile<4>::OCC_B : 0) +
-                    w_b + 2 * Tile<4>::STAGE_B;
+  // the prologue variant keeps a third tile of rulebook rows and two of
+  // occupancy words
+  const int smem4 = (pro ? 3 : 2) * Tile<4>::NBR_INTS * 4 +
+                    (pro ? 2 * Tile<4>::OCC_B : 0) + w_b +
+                    2 * Tile<4>::STAGE_B;
   if (smem4 <= TWO_BLOCKS_B) {
     *smem_bytes = smem4;
     return 4;
   }
-  *smem_bytes = 2 * Tile<8>::NBR_INTS * 4 + (pro ? 2 * Tile<8>::OCC_B : 0) +
-                w_b + 2 * Tile<8>::STAGE_B;
+  *smem_bytes = (pro ? 3 : 2) * Tile<8>::NBR_INTS * 4 +
+                (pro ? 2 * Tile<8>::OCC_B : 0) + w_b + 2 * Tile<8>::STAGE_B;
   return 8;
 }
 
-template <typename OutT, int TB, bool PRO>
+template <typename OutT, int TB, bool PRO, int NTA = NT_MAX>
 int launch(Params p, int smem_bytes, cudaStream_t s) {
   using T = Tile<TB>;
   p.ntiles = (p.rows + TB - 1) / TB;
   cudaError_t e = cudaFuncSetAttribute(
-      fused_tc<OutT, TB, PRO>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      T::MAX_SMEM);
+      fused_tc<OutT, TB, PRO, NTA>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize,
+      T::MAX_SMEM + (PRO ? T::NBR_INTS * 4 : 0));
   if (e != cudaSuccess) return (int)e;
   int dev = 0, sms = 0, per_sm = 0;
   if ((e = cudaGetDevice(&dev)) != cudaSuccess) return (int)e;
@@ -468,7 +521,7 @@ int launch(Params p, int smem_bytes, cudaStream_t s) {
                                   dev)) != cudaSuccess)
     return (int)e;
   if ((e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-           &per_sm, fused_tc<OutT, TB, PRO>, T::THREADS, smem_bytes)) !=
+           &per_sm, fused_tc<OutT, TB, PRO, NTA>, T::THREADS, smem_bytes)) !=
       cudaSuccess)
     return (int)e;
   if (per_sm < 1) return (int)cudaErrorLaunchOutOfResources;
@@ -476,8 +529,8 @@ int launch(Params p, int smem_bytes, cudaStream_t s) {
   long long gx = (long long)per_sm * sms / ny;   // one resident wave
   if (gx < 1) gx = 1;
   if (gx > p.ntiles) gx = p.ntiles;
-  fused_tc<OutT, TB, PRO><<<dim3((unsigned)gx, (unsigned)ny), T::THREADS,
-                            smem_bytes, s>>>(p);
+  fused_tc<OutT, TB, PRO, NTA><<<dim3((unsigned)gx, (unsigned)ny),
+                                 T::THREADS, smem_bytes, s>>>(p);
   return (int)cudaGetLastError();
 }
 
@@ -493,14 +546,14 @@ extern "C" int doda_banded_conv_fused_smem(int cin, int cout, int pro) {
   return smem_bytes;
 }
 
-template <bool PRO>
+template <bool PRO, int NTA = NT_MAX>
 int dispatch(const Params& p, int tb, int smem_bytes, int out_dtype,
              cudaStream_t s) {
   if (tb == 4)
-    return out_dtype == 1 ? launch<bf16, 4, PRO>(p, smem_bytes, s)
-                          : launch<float, 4, PRO>(p, smem_bytes, s);
-  return out_dtype == 1 ? launch<bf16, 8, PRO>(p, smem_bytes, s)
-                        : launch<float, 8, PRO>(p, smem_bytes, s);
+    return out_dtype == 1 ? launch<bf16, 4, PRO, NTA>(p, smem_bytes, s)
+                          : launch<float, 4, PRO, NTA>(p, smem_bytes, s);
+  return out_dtype == 1 ? launch<bf16, 8, PRO, NTA>(p, smem_bytes, s)
+                        : launch<float, 8, PRO, NTA>(p, smem_bytes, s);
 }
 
 // out_dtype: 0 = float32, 1 = bfloat16; operands are bfloat16. scale, bias
@@ -532,6 +585,7 @@ extern "C" int doda_banded_conv_fused(const void* x2, const void* nbr,
   int smem_bytes = 0;
   const int tb = plan(cin, cout, pro, &p, &smem_bytes);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return pro ? dispatch<true>(p, tb, smem_bytes, out_dtype, s)
-             : dispatch<false>(p, tb, smem_bytes, out_dtype, s);
+  if (!pro) return dispatch<false>(p, tb, smem_bytes, out_dtype, s);
+  return p.nc <= 16 ? dispatch<true, 2>(p, tb, smem_bytes, out_dtype, s)
+                    : dispatch<true>(p, tb, smem_bytes, out_dtype, s);
 }

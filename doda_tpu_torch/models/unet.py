@@ -22,10 +22,11 @@ parameter tree so that ``utils/convert.py`` is a tree walk.
 ``DODA_SM=shallow``, sends the convs with cin <= 32 (levels 0 and 1 of the
 mid-16 flagship) to K2 ``banded_conv_sm``. The convs left to K1 run its
 fused version (``banded_conv_fused``, from the activation and the level's
-rulebook) in bf16 wherever cin and cout are multiples of 8, and the
-assembled version otherwise (``bricks2d.subm_route``). In train mode
-(``model.train()``) the norms use batch statistics and every conv carries
-its own backward (``ops/bricks2d.py``).
+rulebook) in bf16 wherever cin and cout are multiples of 8, its
+narrow-input version (``banded_conv_narrow``) on the bf16 cin = 3 input
+conv, and the assembled version otherwise (``bricks2d.subm_route``). In
+train mode (``model.train()``) the norms use batch statistics and every
+conv carries its own backward (``ops/bricks2d.py``).
 
 ``fuse_norm`` is the counterpart of the JAX package's ``DODA_FUSE_NORM=1``
 (off by default, as there): every norm in front of a conv returns its
@@ -549,7 +550,7 @@ class SparseConvNet(nn.Module):
         level adds none on '2d' (its product comes back from the kept
         outputs), but a call of another engine's conv function, which
         runs again around its kept products."""
-        counts = {'sm': 0, 'fused': 0, 'assembled': 0}
+        counts = {'sm': 0, 'fused': 0, 'narrow': 0, 'assembled': 0}
         if self.fuse_norm:
             counts['prologue'] = 0
         if self.conv_engine != '2d':

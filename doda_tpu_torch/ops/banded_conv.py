@@ -18,6 +18,12 @@ multiplies only the taps, so neither the planes nor the banded weights are
 built. Its plain version is the first route on plain PyTorch:
 ``banded_conv_plain(_assemble_p6(x2, halo_index(nbr)), banded_weights(w))``.
 
+``banded_conv_narrow`` (``csrc/subm_conv_narrow.cu``) is the same conv
+from the activation and the rulebook for an input of 1 to 7 channels (the
+cin = 3 input conv), whose cells are not whole 16-byte units: it stages
+each brick's halo through registers and multiplies the taps of an implicit
+im2col tile. Its plain version is the fused version's.
+
 With ``pro=(scale, bias, occw)`` the fused version is the prologue variant
 of the fused norm + ReLU engine: the conv reads
 ``where(occ, relu(x2*scale + bias), 0)`` in place of x2, applied to each
@@ -151,31 +157,38 @@ def fused_smem_bytes(cin: int, cout: int, pro: bool = False) -> int:
     return _fused_lib().doda_banded_conv_fused_smem(cin, cout, int(pro))
 
 
-def _check_fused(x2, nbr, w, out_dtype) -> None:
+def _check_cuda(name, x2, nbr, w, out_dtype) -> None:
+    """What a kernel from the activation and the rulebook takes: bf16
+    operands and the rulebook on one CUDA device, contiguous."""
     if x2.device.type != 'cuda' or nbr.device != x2.device \
             or w.device != x2.device:
-        raise ValueError(f'banded_conv_fused: x2 on {x2.device}, nbr on '
-                         f'{nbr.device}, w on {w.device}; all must be on '
-                         'one CUDA device')
+        raise ValueError(f'{name}: x2 on {x2.device}, nbr on {nbr.device}, '
+                         f'w on {w.device}; all must be on one CUDA device')
     if x2.dtype != torch.bfloat16 or w.dtype != torch.bfloat16:
-        raise ValueError(f'banded_conv_fused: operands {x2.dtype}/{w.dtype};'
-                         ' both must be bfloat16')
+        raise ValueError(f'{name}: operands {x2.dtype}/{w.dtype}; both '
+                         'must be bfloat16')
     if out_dtype not in _DTYPE_CODES:
-        raise ValueError(f'banded_conv_fused: out_dtype {out_dtype} '
-                         'unsupported')
+        raise ValueError(f'{name}: out_dtype {out_dtype} unsupported')
+    if not (x2.is_contiguous() and nbr.is_contiguous()
+            and w.is_contiguous()):
+        raise ValueError(f'{name}: operands must be contiguous')
+
+
+def _check_nbr(name, x2, nbr) -> None:
     if nbr.dtype != torch.int32 or nbr.dim() != 2 or nbr.shape[1] != 27 \
             or x2.dim() != 2 or nbr.shape[0] != x2.shape[0]:
-        raise ValueError(f'banded_conv_fused: nbr {nbr.dtype} '
-                         f'{tuple(nbr.shape)} for x2 {tuple(x2.shape)}; need '
-                         'int32 (rows, 27)')
+        raise ValueError(f'{name}: nbr {nbr.dtype} {tuple(nbr.shape)} for '
+                         f'x2 {tuple(x2.shape)}; need int32 (rows, 27)')
+
+
+def _check_fused(x2, nbr, w, out_dtype) -> None:
+    _check_cuda('banded_conv_fused', x2, nbr, w, out_dtype)
+    _check_nbr('banded_conv_fused', x2, nbr)
     if w.dim() != 3 or w.shape[0] != 27 or w.shape[1] % 8 or w.shape[2] % 8 \
             or x2.shape[1] != 64 * w.shape[1]:
         raise ValueError(f'banded_conv_fused: x2 {tuple(x2.shape)} and w '
                          f'{tuple(w.shape)}; need (rows, 64*cin) and '
                          '(27, cin, cout) with cin and cout multiples of 8')
-    if not (x2.is_contiguous() and nbr.is_contiguous()
-            and w.is_contiguous()):
-        raise ValueError('banded_conv_fused: operands must be contiguous')
     if x2.data_ptr() % 16 or w.data_ptr() % 16 or nbr.data_ptr() % 4:
         raise ValueError('banded_conv_fused: x2 and w must be 16-byte '
                          'aligned')
@@ -233,3 +246,61 @@ def banded_conv_fused(x2: torch.Tensor, nbr: torch.Tensor, w: torch.Tensor,
 
 banded_conv_fused.launches = 0
 banded_conv_fused.pro_launches = 0
+
+
+# ---------------------------------------------------------------------------
+# the narrow-input version: cin < 8, activation + rulebook in, conv out
+# ---------------------------------------------------------------------------
+
+NARROW_MAX_CIN = 7          # MAX_CIN of csrc/subm_conv_narrow.cu
+
+
+@functools.lru_cache(maxsize=None)
+def _narrow_lib():
+    lib = _build.load('subm_conv_narrow')
+    lib.doda_subm_conv_narrow.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_void_p]
+    lib.doda_subm_conv_narrow.restype = ctypes.c_int
+    return lib
+
+
+def _check_narrow_shapes(x2, nbr, w) -> None:
+    _check_nbr('banded_conv_narrow', x2, nbr)
+    if w.dim() != 3 or w.shape[0] != 27 \
+            or not 1 <= w.shape[1] <= NARROW_MAX_CIN or w.shape[2] % 8 \
+            or x2.shape[1] != 64 * w.shape[1]:
+        raise ValueError(f'banded_conv_narrow: x2 {tuple(x2.shape)} and w '
+                         f'{tuple(w.shape)}; need (rows, 64*cin) and '
+                         f'(27, cin, cout) with 1 <= cin <= {NARROW_MAX_CIN} '
+                         'and cout a multiple of 8')
+
+
+def banded_conv_narrow(x2: torch.Tensor, nbr: torch.Tensor, w: torch.Tensor,
+                       out_dtype) -> torch.Tensor:
+    """x2 (rows, 64*cin) with 1 <= cin <= ``NARROW_MAX_CIN``, nbr (rows,
+    27) int32 with null id == rows, w (27, cin, cout) with cout % 8 == 0
+    -> (rows, 64*cout), unmasked: the fused version's function for inputs
+    too narrow for its 16-byte cells. The shapes are checked on every
+    device; the plain version runs only for CPU tensors."""
+    _check_narrow_shapes(x2, nbr, w)
+    if all(t.device.type == 'cpu' for t in (x2, nbr, w)):
+        return banded_conv_fused_plain(x2, nbr, w, out_dtype)
+    _check_cuda('banded_conv_narrow', x2, nbr, w, out_dtype)
+    rows, cin, cout = x2.shape[0], w.shape[1], w.shape[2]
+    out = torch.empty((rows, 64 * cout), dtype=out_dtype, device=x2.device)
+    if rows == 0:
+        return out
+    err = _narrow_lib().doda_subm_conv_narrow(
+        x2.data_ptr(), nbr.data_ptr(), w.data_ptr(), out.data_ptr(), rows,
+        cin, cout, _DTYPE_CODES[out_dtype],
+        torch.cuda.current_stream(x2.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError('banded_conv_narrow: kernel launch failed with '
+                           f'CUDA error {err}')
+    banded_conv_narrow.launches += 1
+    return out
+
+
+banded_conv_narrow.launches = 0

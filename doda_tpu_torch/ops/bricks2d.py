@@ -20,8 +20,11 @@ the raster weights and multiplies only the taps (no ``sm_weights``).
 Every other bf16 conv with channel counts in multiples of 8
 (``uses_fused``) runs K1's second version, ``banded_conv_fused``, which
 takes the activation and the rulebook and assembles the halo inside the
-kernel: no planes, no banded weights. The assembled route below remains
-for the cin = 3 input conv, float32 operands and the dW product.
+kernel: no planes, no banded weights. A bf16 conv of 1 to 7 input
+channels (``uses_narrow``: the cin = 3 input conv) runs its narrow-input
+version, ``banded_conv_narrow``, from the activation and the rulebook
+too. The assembled route below remains for float32 operands, the shapes
+neither kernel takes and the dW product.
 
 Assembly differs from the JAX package by design. There, TPU gathers want
 wide rows, so the planes are stitched from lane slices of boundary-cell
@@ -64,7 +67,8 @@ from typing import Optional
 import numpy as np
 import torch
 
-from .banded_conv import banded_conv, banded_conv_fused, occ_words
+from .banded_conv import (NARROW_MAX_CIN, banded_conv, banded_conv_fused,
+                          banded_conv_narrow, occ_words)
 from .banded_conv_sm import banded_conv_sm, banded_conv_sm_taps
 from .bricks import BRICK, CELLS, _H, WINDOWS
 
@@ -300,12 +304,24 @@ def uses_fused(cin: int, cout: int, dtype) -> bool:
     return dtype == torch.bfloat16 and cin % 8 == 0 and cout % 8 == 0
 
 
+def uses_narrow(cin: int, cout: int, dtype) -> bool:
+    """Whether a (cin -> cout) subm conv that the fused K1 does not take
+    runs K1's narrow-input version: bf16 operands of 1 to
+    ``NARROW_MAX_CIN`` channels, whole n8 output tiles (cout % 8 == 0).
+    That is the flagship's cin = 3 input conv."""
+    return dtype == torch.bfloat16 and 1 <= cin <= NARROW_MAX_CIN \
+        and cout % 8 == 0
+
+
 def subm_route(cin: int, cout: int, dtype, sm_max_cin: int) -> str:
     """The kernel a (cin -> cout) subm conv runs: 'sm' (K2), 'fused' (K1
-    from activation and rulebook) or 'assembled' (K1 on halo planes)."""
+    from activation and rulebook), 'narrow' (the same for cin < 8) or
+    'assembled' (K1 on halo planes)."""
     if uses_sm(cin, cout, sm_max_cin):
         return 'sm'
-    return 'fused' if uses_fused(cin, cout, dtype) else 'assembled'
+    if uses_fused(cin, cout, dtype):
+        return 'fused'
+    return 'narrow' if uses_narrow(cin, cout, dtype) else 'assembled'
 
 
 # ---------------------------------------------------------------------------
@@ -343,11 +359,14 @@ def _subm_raw(x2, halo, sm, weights, compute_dtype, sm_max_cin, nbr=None,
             # K2's second version: raster weights, the taps only
             return banded_conv_sm_taps(*ops, w.contiguous(), x2.dtype)
         return banded_conv_sm(*ops, *sm_weights(w), x2.dtype)
+    if route in ('fused', 'narrow') and nbr is None:
+        raise ValueError(f'subm conv {cin}->{cout} in {compute_dtype} '
+                         f'selects the {route} K1 but was given no '
+                         'rulebook (nbr)')
+    if route == 'narrow':
+        return banded_conv_narrow(x2.to(compute_dtype), nbr, w.contiguous(),
+                                  out_dtype)
     if route == 'fused':
-        if nbr is None:
-            raise ValueError(f'subm conv {cin}->{cout} in {compute_dtype} '
-                             'selects the fused K1 but was given no '
-                             'rulebook (nbr)')
         if pro is not None:
             pro = (pro[0], pro[1],
                    occ_words(pro[2]) if occw is None else occw)
@@ -474,7 +493,8 @@ def subm_conv3_2d(x2: torch.Tensor, occ: torch.Tensor, halo: torch.Tensor,
     sm      (rows, 176) from ``sm_index``, needed where ``uses_sm`` picks
             K2 for this conv or for its backward's flipped shape
     nbr     (rows, 27) int32 rulebook, null id == rows, needed where
-            ``uses_fused`` picks the fused K1 (forward or flipped shape)
+            ``uses_fused`` or ``uses_narrow`` picks a K1 that takes it
+            (forward or flipped shape)
     returns (rows, 64*cout) in x2.dtype, masked to active cells
     """
     return _SubmConv.apply(x2, weights, occ, halo, sm, compute_dtype,

@@ -15,8 +15,17 @@ shape (3 -> 16) is timed too, in float32 and in bf16.
 
 Routes, each where it applies (bf16 unless said):
   fused      K1's fused version, ``banded_conv_fused`` (cin, cout % 8 == 0)
+  prologue   its prologue variant (``pro=``): seeded scale and bias (bias
+             > 0 on half the channels), the level's occupancy words
+  unfused    the sequence the prologue replaces: ``bricks2d.pro_full``
+             (scale, bias, ReLU, mask), then the fused K1
+  narrow     K1's narrow-input version, ``banded_conv_narrow`` (cin < 8)
+  padded     the fused K1 on x2 and w zero-padded to cin = 8, the padding
+             pass timed with it: a yardstick for ``narrow``, on no path
   assembled  K1's first version, ``banded_conv``, over ``_assemble_p6``'s
              planes and ``banded_weights`` (built once, not timed)
+  assembled+gather  the same with ``_assemble_p6``'s plane gather timed
+             (where ``narrow`` applies: the route it replaces)
   sm         K2's second version, ``banded_conv_sm_taps``, over
              ``_assemble_sm``'s operands (built once; cin % 16 == 0)
   plain      the plain version of the route the model takes at the shape
@@ -44,7 +53,8 @@ import torch.nn.functional as F
 from ..models.unet import build_level_plan, default_brick_caps, flatten_plan
 from ..ops import bricks, bricks2d
 from ..ops.banded_conv import (banded_conv, banded_conv_fused,
-                               banded_conv_fused_plain, banded_conv_plain)
+                               banded_conv_fused_plain, banded_conv_narrow,
+                               banded_conv_plain, occ_words)
 from ..ops.banded_conv_sm import banded_conv_sm_taps
 from ..utils import roofline, synth
 from ..utils.device import card_label, resolve_device
@@ -105,10 +115,34 @@ def readings(lv, cin: int, cout: int, dtype, reps: int, gen) -> list:
         add('fused', lambda: banded_conv_fused(x2, lv.nbr, w, dtype), fused)
         add('plain', lambda: banded_conv_fused_plain(x2, lv.nbr, w, dtype),
             fused)
+        scale = 1 + 0.2 * torch.randn(cin, device=dev, generator=gen)
+        bias = 0.2 * torch.randn(cin, device=dev, generator=gen)
+        bias[::2] = bias[::2].abs() + 0.1
+        pro = (scale, bias, occ_words(lv.occ))
+        work = roofline.prologue_work(rows, cin, cout, reads)
+        add('prologue', lambda: banded_conv_fused(x2, lv.nbr, w, dtype, pro),
+            work)
+        add('unfused', lambda: banded_conv_fused(bricks2d.pro_full(
+            x2, (scale, bias, lv.occ), cin, dtype), lv.nbr, w, dtype), work)
+    if route == 'narrow':
+        narrow = roofline.narrow_work(rows, cin, cout, reads)
+        add('narrow', lambda: banded_conv_narrow(x2, lv.nbr, w, dtype),
+            narrow)
+        add('plain', lambda: banded_conv_fused_plain(x2, lv.nbr, w, dtype),
+            narrow)
+        w8 = F.pad(w, (0, 0, 0, 8 - cin)).contiguous()
+
+        def padded():
+            x8 = F.pad(x2.reshape(rows, 64, cin), (0, 8 - cin))
+            return banded_conv_fused(x8.reshape(rows, -1), lv.nbr, w8, dtype)
+        add('padded', padded, narrow)
     rows6 = bricks2d._assemble_p6(x2, lv.halo, dtype)
     wb = bricks2d.banded_weights(w)
     assembled = roofline.assembled_work(rows, cin, cout, dtype)
     add('assembled', lambda: banded_conv(rows6, wb, dtype), assembled)
+    if route == 'narrow':
+        add('assembled+gather', lambda: banded_conv(
+            bricks2d._assemble_p6(x2, lv.halo, dtype), wb, dtype), assembled)
     if route == 'assembled':
         add('plain', lambda: banded_conv_plain(rows6, wb, dtype), assembled)
     del rows6, wb

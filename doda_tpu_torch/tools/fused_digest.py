@@ -1,0 +1,94 @@
+"""Digests of the fused K1's outputs, to hold two builds of it bit for bit.
+
+    python -m doda_tpu_torch.tools.fused_digest [--csrc DIR]
+
+from the repo root, on the card. Builds ``banded_conv_fused.cu`` from
+``DIR`` (by default this checkout's ``doda_tpu_torch/csrc``; another
+commit's, unpacked with ``git archive``, to compare) and runs it without
+the prologue on seeded bf16 operands at ``chip_smoke.py``'s shapes: the
+bench batch's real rulebooks at levels 0, 1, 5 and 6 and three synthetic
+ones, each to float32 and to bf16. Prints one JSON line a shape with the
+sha256 of each output's bytes and the card's name and power limit; two
+builds that print the same digests computed the same bits.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import hashlib
+import json
+from pathlib import Path
+
+import torch
+
+from ..models.unet import build_level_plan, default_brick_caps, flatten_plan
+from ..ops import _build
+from ..utils import synth
+from ..utils.device import card_label
+
+# (level, cin, cout) on the bench rulebooks and (rows, grid, cin, cout) on
+# synthetic ones: chip_smoke.py's K1_BENCH_SHAPES and its synthetic checks
+LEVEL_SHAPES = ((0, 16, 16), (0, 32, 16), (1, 32, 32), (1, 64, 32),
+                (6, 112, 112), (5, 192, 96))
+SYNTH_SHAPES = ((4099, 20, 16, 16), (1001, 12, 24, 8), (3, 4, 16, 32))
+
+
+def fused_entry(csrc: Path):
+    src = csrc / 'banded_conv_fused.cu'
+    lib = ctypes.CDLL(str(_build._compiled(
+        src, 'banded_conv_fused', _build._nvcc, _build.NVCC_FLAGS,
+        report='.ptxas.txt')))
+    fn = lib.doda_banded_conv_fused
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_longlong] \
+        + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 4
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def main(argv=None) -> list:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument('--csrc', type=Path, default=_build.CSRC)
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit('fused_digest: needs a CUDA device')
+    fn = fused_entry(args.csrc.resolve())
+    dev = torch.device('cuda')
+    b_caps = default_brick_caps(synth.BRICK_CAP, 7)
+    batch = synth.make_batch(seed=0)
+    with torch.no_grad():
+        levels, _ = flatten_plan(build_level_plan(batch.coords, batch.valid,
+                                                  b_caps, dev))
+    cases = [(f'level{lvl}', levels[lvl].nbr, cin, cout)
+             for lvl, cin, cout in LEVEL_SHAPES]
+    cases += [(f'synthetic{rows}', synth.synth_rulebook(rows, grid, rows),
+               cin, cout) for rows, grid, cin, cout in SYNTH_SHAPES]
+    g = torch.Generator(device=dev).manual_seed(1)
+    card = card_label(dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    out = []
+    for name, nbr, cin, cout in cases:
+        rows = nbr.shape[0]
+        x2 = torch.randn(rows, 64 * cin, device=dev, generator=g).bfloat16()
+        w = (torch.randn(27, cin, cout, device=dev, generator=g)
+             / (27 * cin) ** 0.5).bfloat16()
+        digests = {}
+        for code, dt in ((0, torch.float32), (1, torch.bfloat16)):
+            y = torch.zeros(rows, 64 * cout, dtype=dt, device=dev)
+            err = fn(x2.data_ptr(), nbr.data_ptr(), w.data_ptr(),
+                     y.data_ptr(), rows, cin, cout, code, None, None, None,
+                     stream)
+            if err:
+                raise RuntimeError(f'{name}: CUDA error {err}')
+            torch.cuda.synchronize(dev)
+            digests[str(dt)[6:]] = hashlib.sha256(
+                y.view(torch.uint8).cpu().numpy().tobytes()).hexdigest()
+        line = {'card': card, 'csrc': str(args.csrc), 'case': name,
+                'shape': [rows, cin, cout], 'sha256': digests}
+        print(json.dumps(line), flush=True)
+        out.append(line)
+    return out
+
+
+if __name__ == '__main__':
+    main()

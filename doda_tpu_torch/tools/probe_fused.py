@@ -3,14 +3,19 @@
     python -m doda_tpu_torch.tools.probe_fused
 
 from the repo root. Builds ``csrc/banded_conv_fused.cu`` as it is and in
-three variants made by text substitution (into ``build/probe``): without
-the halo copies (the multiply runs on whatever shared memory holds),
-without the multiply (copies and stores only) and without the stores.
-None of the variants computes the conv; they exist to be timed. Each is
-run at the level-0, level-1 and level-2 shapes of the flagship on a
-synthetic rulebook, bf16, and one JSON line a (shape, variant) is printed:
-the time, the bytes the halo copies move (216 cells a brick) and the rate
-that makes.
+variants made by text substitution (into ``build/probe``): without the
+halo copies (the multiply runs on whatever shared memory holds), without
+the multiply (copies and stores only) and without the stores; and, for its
+prologue variant, without the prologue's arithmetic (each thread still
+waits for its copies and rewrites its cells unchanged), without the
+rewrite pass (no wait, no pass: the occupancy words and the third
+rulebook buffer alone) and with the wait alone. None of the variants
+computes the conv; they exist to be timed. Each is run at the level-0,
+level-1 and level-2 shapes of the flagship on a synthetic rulebook, bf16
+(the prologue ones with half the cells active), and one JSON line a
+(shape, variant) is printed: the time, the bytes the halo copies move (216
+cells a brick) and the rate that makes, and the card's name and power
+limit.
 """
 
 from __future__ import annotations
@@ -23,6 +28,7 @@ from concurrent.futures import ThreadPoolExecutor
 import torch
 
 from ..ops import _build
+from ..ops.banded_conv import occ_words
 from ..utils import synth
 
 # (name, [(text in the source, its replacement)])
@@ -34,6 +40,17 @@ VARIANTS = (
                       '    for (int dy = 0; dy < (p.cin < 0 ? 3 : 0); ++dy) {')]),
     ('no store', [('      if (brick < p.rows) {',
                    '      if (brick < p.rows && acc[0][0][0] == 123.456f) {')]),
+)
+# the prologue variant's, run with a scale, a bias and occupancy words
+PRO_MATH = '          *cell = prologue8(*cell, hi ? s1 : s0, hi ? b1 : b0);'
+PRO_PASS = '    cp_async_wait_all();\n    const unsigned long long* ow = occ_s'
+PRO_VARIANTS = (
+    ('prologue as built', []),
+    ('prologue without its math', [(PRO_MATH, '          *cell = *cell;')]),
+    ('prologue with the wait alone', [(PRO_PASS, PRO_PASS.replace(
+        '\n', '\n    return;\n', 1))]),
+    ('prologue without its pass', [(PRO_PASS, PRO_PASS.replace(
+        'cp_async_wait_all();', 'return;'))]),
 )
 SHAPES = ((163840, 64, 16, 16), (65536, 48, 32, 32), (13312, 28, 48, 48))
 
@@ -63,9 +80,9 @@ def _build_variant(variant):
     name = variant[0]
     fn = build_variant('banded_conv_fused', variant).doda_banded_conv_fused
     fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_longlong] \
-        + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+        + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 4
     fn.restype = ctypes.c_int
-    return name, fn
+    return name, fn, variant in PRO_VARIANTS
 
 
 def card() -> str:
@@ -89,8 +106,9 @@ def ms(fn, reps=20):
 def main():
     if not torch.cuda.is_available():
         raise SystemExit('probe_fused: needs a CUDA device')
-    with ThreadPoolExecutor(len(VARIANTS)) as ex:
-        built = list(ex.map(_build_variant, VARIANTS))
+    variants = VARIANTS + PRO_VARIANTS
+    with ThreadPoolExecutor(len(variants)) as ex:
+        built = list(ex.map(_build_variant, variants))
     name_limit = card()
     g = torch.Generator(device='cuda').manual_seed(1)
     bf = torch.bfloat16
@@ -102,10 +120,17 @@ def main():
         out = torch.empty(rows, 64 * cout, device='cuda', dtype=bf)
         stream = torch.cuda.current_stream().cuda_stream
         halo_bytes = rows * 216 * cin * 2 * -(-cout // 32)
-        for name, fn in built:
+        scale = (1 + 0.2 * torch.randn(cin, device='cuda', generator=g)).to(bf)
+        bias = (0.2 * torch.randn(cin, device='cuda', generator=g)).to(bf)
+        occw = occ_words(torch.rand(rows, 64, device='cuda', generator=g)
+                         < 0.5)
+        for name, fn, pro in built:
+            ptrs = ((scale.data_ptr(), bias.data_ptr(), occw.data_ptr())
+                    if pro else (None, None, None))
+
             def run():
                 err = fn(x2.data_ptr(), nbr.data_ptr(), w.data_ptr(),
-                         out.data_ptr(), rows, cin, cout, 1, stream)
+                         out.data_ptr(), rows, cin, cout, 1, *ptrs, stream)
                 if err:
                     raise RuntimeError(f'{name}: CUDA error {err}')
             t = ms(run)

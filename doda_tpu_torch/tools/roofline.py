@@ -65,6 +65,8 @@ def level_rows(levels, convs, scenes: int) -> list:
         for cin, cout, route in level_conv:
             if route == 'fused':
                 w = roofline.fused_work(rows, cin, cout, reads)
+            elif route == 'narrow':
+                w = roofline.narrow_work(rows, cin, cout, reads)
             elif route == 'assembled':
                 w = roofline.assembled_work(rows, cin, cout)
             else:

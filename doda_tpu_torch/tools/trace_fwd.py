@@ -40,6 +40,7 @@ from ..utils import optim, synth
 BUCKETS = (
     ('banded_conv_fused prologue (K1, fused norm)', r'fused_tc.*(true|Lb1E)'),
     ('banded_conv_fused (K1, fused)', r'fused_tc'),
+    ('banded_conv_narrow (K1, input conv)', r'narrow_tc'),
     ('banded_conv (K1, assembled)', r'banded_tc|banded_f32'),
     ('banded_conv_sm (K2, both versions)', r'sm_taps_tc|sm_tc|sm_f32'),
     ('gemm (down/up/1x1/head)', r'gemm|cutlass|xmma|cublas|sm90_|nvjet'),

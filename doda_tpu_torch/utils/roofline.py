@@ -68,6 +68,18 @@ def fused_work(rows: int, cin: int, cout: int, reads: float) -> dict:
             **bound(moved, needed)}
 
 
+def narrow_work(rows: int, cin: int, cout: int, reads: float) -> dict:
+    """K1's narrow-input version (1 <= cin <= 7), bf16: the fused
+    version's bytes and operations at that cin (x2, the raster weights and
+    the rulebook read once, the output written once; the taps the present
+    reads need). ``executed_flops`` are every row's products over its
+    padded K: 27 taps of cin rounded up to even channels, in k16 steps."""
+    work = fused_work(rows, cin, cout, reads)
+    k = -(-TAPS * (cin + cin % 2) // 16) * 16
+    work['executed_flops'] = 2 * rows * CELLS * k * cout
+    return work
+
+
 def prologue_work(rows: int, cin: int, cout: int, reads: float) -> dict:
     """K1's prologue variant: the fused version's bytes plus the occupancy
     words (int64) and the bf16 scale and bias; its taps on the tensor

@@ -198,7 +198,7 @@ def test_subm_routes_by_engine():
     """The flagship's 53 subm convs (mid 16, 7 levels, 2 blocks a level)
     by engine at the bench batch's flat rows (4 scenes)."""
     rows = [4 * c for c in (40960, 16384, 3328, 768, 256, 128, 128)]
-    base = {'sm': 0, 'assembled': 0}
+    base = {'sm': 0, 'narrow': 0, 'assembled': 0}
 
     def routes(fuse_norm=False, **kw):
         model = tunet.SparseConvNet(mid_channel=16, num_levels=7,
@@ -206,7 +206,7 @@ def test_subm_routes_by_engine():
         return (model.subm_routes(level_rows=rows),
                 model.subm_routes(True, level_rows=rows))
 
-    assert routes() == ({**base, 'fused': 52, 'assembled': 1},
+    assert routes() == ({**base, 'fused': 52, 'narrow': 1},
                         {**base, 'fused': 52})
     # levels 0 and 1 carry slab maps: 9 + 8 convs, 8 + 8 dx convs
     assert routes(conv_engine='slab') == (
@@ -217,11 +217,11 @@ def test_subm_routes_by_engine():
                                                engine: 52})
     # levels 3-6 hold 3,072 / 1,024 / 512 / 512 flat rows <= 4,096
     assert routes(deep_xla_rows=4096) == (
-        {**base, 'fused': 24, 'assembled': 1, 'xla': 28},
+        {**base, 'fused': 24, 'narrow': 1, 'xla': 28},
         {**base, 'fused': 24, 'xla': 28})
     # the fused norm engine: on '2d' every block conv, deep levels too;
     # under 'slab' the levels without slab maps
-    pro = {**base, 'fused': 0, 'assembled': 1, 'prologue': 52, 'xla': 0}
+    pro = {**base, 'fused': 0, 'narrow': 1, 'prologue': 52, 'xla': 0}
     assert routes(True, deep_xla_rows=4096)[0] == pro
     assert routes(True, conv_engine='slab')[0] == {
         **base, 'fused': 0, 'prologue': 36, 'slab': 17}

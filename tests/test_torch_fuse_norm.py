@@ -19,7 +19,10 @@ through both packages:
   outside that band, which must hold fewer than 2e-3 of the lanes;
 * a numpy mirror of the prologue kernel's occupancy staging (rulebook
   slot, neighbour word, cell bit) against the mask the JAX package's
-  ``_assemble_p6`` applies, on three grids, absent neighbours included;
+  ``_assemble_p6`` applies, on three grids, absent neighbours included,
+  and a pure-Python mirror of its one-barrier schedule (every (tile,
+  chunk) staged once, its prologue applied before the MMAs read it, no
+  buffer overwritten while read);
 * a 2-level net with ``fuse_norm=True`` and weights from
   ``params_from_jax`` against the flax net under ``DODA_FUSE_NORM=1``
   (eval logits to 1e-3; the flax parameter tree is the same with the
@@ -239,10 +242,10 @@ def test_norm_convs_bf16_match_jax_bf16(grids, down):
 def _kernel_halo_mask(nbr, occw, rows, tb):
     """(rows, 216) bool: the bit each halo cell's 16-byte copies test in
     the prologue pass of csrc/banded_conv_fused.cu. Tiles of ``tb``
-    bricks; ``load_nbr`` writes -1 past the last brick; the first chunk's
-    ``issue_halo`` copies occw[nb[e]] to slot e, zero-filled for a
-    neighbour that is absent or out of range; each copy's packed slot
-    (b*27 + col) and source cell select the bit."""
+    bricks; ``load_nbr`` writes -1 past the last brick; ``issue_occ``
+    copies occw[nb[e]] to slot e, zero-filled for a neighbour that is
+    absent or out of range; each copy's packed slot (b*27 + col) and
+    source cell select the bit."""
     out = np.zeros((rows, 216), bool)
     words = occw.view(np.uint64)
     for tile in range(-(-rows // tb)):
@@ -291,6 +294,116 @@ def test_kernel_occupancy_staging_equals_jax_mask(grids):
         for tb in (4, 8):
             np.testing.assert_array_equal(
                 _kernel_halo_mask(nbr, occw, rows, tb), want)
+
+
+# --- pure-Python mirror of the prologue kernel's schedule -------------------
+
+class _Smem:
+    """A block's shared-memory buffers under the kernel's one barrier a
+    step. Each buffer holds a tag and the epoch (barriers passed) from
+    which every thread sees it: a write, synchronous or a cp.async that the
+    next step's wait lands, is seen from the next epoch on; it may replace
+    content only if that content was last read in an earlier epoch, since
+    a thread past the barrier cannot know that the others finished reading
+    in this one. ``rewrite`` is a thread's pass over the cells it copied
+    itself: it needs only its own wait, so it may follow the copy in the
+    same epoch, and it must find the copy's content."""
+
+    def __init__(self):
+        self.tag, self.seen, self.read_at = {}, {}, {}
+
+    def write(self, buf, tag, epoch):
+        assert self.read_at.get(buf, -1) < epoch, ('overwritten', buf, tag)
+        self.tag[buf], self.seen[buf], self.read_at[buf] = tag, epoch + 1, -1
+
+    def read(self, buf, tag, epoch):
+        assert self.tag.get(buf) == tag, (buf, self.tag.get(buf), tag)
+        assert self.seen[buf] <= epoch, ('not yet seen', buf, tag)
+        self.read_at[buf] = epoch
+
+    def rewrite(self, buf, old, new, epoch):
+        assert self.tag.get(buf) == old, (buf, self.tag.get(buf), old)
+        assert self.read_at.get(buf, -1) < epoch, ('rewritten', buf, new)
+        self.tag[buf], self.seen[buf] = new, epoch + 1
+
+
+def _pro_schedule(nti, nk, w_resident, nbr_bufs=3):
+    """``fused_tc<..., PRO=true>``'s steps over a block of ``nti`` tiles of
+    ``nk`` cin chunks, in the kernel's order with its buffer indices:
+    rulebook rows in ``nbr_bufs`` = 3 buffers (tile i in i % 3),
+    occupancy words in two (i % 2), two halo stages (step s % 2), the
+    weights resident (one buffer a chunk) or streamed through two. Each
+    (tile, chunk) is copied raw into a stage (``issue_halo``) and rewritten
+    with its prologue by the threads that copied it (``prologue_cells``).
+    Returns how often each (tile, chunk) was staged and the MMAs' order."""
+    smem, staged, mma = _Smem(), {}, []
+
+    def prologue(tile, kc, stage, e):        # prologue_cells
+        smem.read(('occ', tile % 2), ('occ', tile), e)
+        smem.rewrite(('stage', stage), ('raw', tile, kc),
+                     ('prologue', (tile, kc)), e)
+        staged[tile, kc] = staged.get((tile, kc), 0) + 1
+
+    e = 0
+    for t in range(3):                             # load_nbr(0..2)
+        smem.write(('nbr', t % nbr_bufs), ('nbr', t), e)
+    if w_resident:
+        for kc in range(nk):
+            smem.write(('w', kc), ('w', kc), e)
+    e += 1                                         # wait, barrier
+    for t in range(2):                             # issue_occ(0), (1)
+        smem.read(('nbr', t % nbr_bufs), ('nbr', t), e)
+        smem.write(('occ', t), ('occ', t), e)
+    smem.read(('nbr', 0), ('nbr', 0), e)           # issue_halo(0, 0, 0)
+    smem.write(('stage', 0), ('raw', 0, 0), e)
+    if not w_resident:
+        smem.write(('w', 0), ('w', 0), e)
+    e += 1                                         # wait, barrier
+    prologue(0, 0, 0, e)
+    i = kc = 0
+    steps = nti * nk
+    for s in range(steps):
+        e += 1                                     # wait, the barrier
+        stage = s % 2
+        last = kc == nk - 1
+        kc1, i1 = (0, i + 1) if last else (kc + 1, i)
+        if s + 1 < steps:                          # issue_halo(kc1, ...)
+            smem.read(('nbr', i1 % nbr_bufs), ('nbr', i1), e)
+            smem.write(('stage', stage ^ 1), ('raw', i1, kc1), e)
+            if not w_resident:
+                smem.write(('w', stage ^ 1), ('w', kc1), e)
+        if last:                                   # issue_occ(i + 2) and
+            smem.read(('nbr', (i + 2) % nbr_bufs), ('nbr', i + 2), e)
+            smem.write(('occ', i % 2), ('occ', i + 2), e)
+            smem.write(('nbr', (i + 3) % nbr_bufs), ('nbr', i + 3), e)
+        # the MMAs read a stage the prologue was applied to
+        smem.read(('stage', stage), ('prologue', (i, kc)), e)
+        smem.read(('w', kc if w_resident else stage), ('w', kc), e)
+        mma.append((i, kc))
+        if s + 1 < steps:
+            prologue(i1, kc1, stage ^ 1, e)
+        i, kc = i1, kc1
+    return staged, mma
+
+
+def test_kernel_prologue_schedule():
+    """The prologue K1's one-barrier schedule (csrc/banded_conv_fused.cu):
+    every (tile, chunk) is staged exactly once, with its prologue applied
+    and seen by every thread before the MMAs read it, in order; no stage,
+    rulebook, occupancy or weight buffer is overwritten while a reader of
+    its content may still hold it."""
+    for nti in (1, 2, 3, 4, 7):
+        for nk in (1, 2, 3):
+            for w_resident in (True, False):
+                staged, mma = _pro_schedule(nti, nk, w_resident)
+                every = [(t, c) for t in range(nti) for c in range(nk)]
+                assert staged == {k: 1 for k in every}
+                assert mma == every
+    # the mirror catches a schedule that reuses a buffer too early: with
+    # the rulebook rows in two buffers, tile 2's rows land on tile 0's
+    # before the block has staged tile 0
+    with pytest.raises(AssertionError):
+        _pro_schedule(3, 1, True, nbr_bufs=2)
 
 
 # --- the engine in a net ----------------------------------------------------
@@ -375,8 +488,8 @@ def test_fused_net_matches_flax_fused_net(monkeypatch):
         got = port(torch.from_numpy(feats), tplan).numpy()
     err = np.abs(got - want)[valid].max()
     assert err <= 1e-3 * max(1.0, np.abs(want).max()), err
-    assert port.subm_routes() == {'sm': 0, 'fused': 0, 'assembled': 7,
-                                  'prologue': 0}
+    assert port.subm_routes() == {'sm': 0, 'fused': 0, 'narrow': 0,
+                                  'assembled': 7, 'prologue': 0}
 
 
 def test_train_fused_equals_unfused_on_the_fused_route(monkeypatch):

@@ -63,14 +63,11 @@ def _numpy_level(occ, nbr, convs):
         reads += int((nbr[:, col] < rows).sum()) * r[dx] * r[dy] * r[dz]
     moved = flops = 0
     for cin, cout in convs:
-        if cin % 8:            # the input conv: K1 over assembled planes
-            moved += 2 * (rows * 216 * cin + 3 * 36 * cin * 16 * cout
-                          + rows * 64 * cout)
-            flops += 2 * rows * 4 * 3 * 9 * 16 * cin * cout
-        else:                  # the fused K1: activation, rulebook, taps
-            moved += 2 * (rows * 64 * (cin + cout) + 27 * cin * cout) \
-                + 4 * rows * 27
-            flops += 2 * cin * cout * reads
+        # the fused K1 and, at the cin = 3 input conv, its narrow-input
+        # version: activation, rulebook, taps
+        moved += 2 * (rows * 64 * (cin + cout) + 27 * cin * cout) \
+            + 4 * rows * 27
+        flops += 2 * cin * cout * reads
     return reads, moved, flops
 
 
@@ -94,6 +91,7 @@ def test_roofline_counts_equal_a_numpy_count(capsys):
         assert lines[lvl]['card'] == 'cpu'
     assert lines[-1]['bytes'] == sum(r['bytes'] for r in table[:2])
     assert lines[-1]['subm_convs'] == 13
+    assert table[0]['routes'] == {'narrow': 1, 'fused': 8}
 
 
 def test_bench_conv_prints_a_line_a_route(capsys):
@@ -101,13 +99,15 @@ def test_bench_conv_prints_a_line_a_route(capsys):
     lines = _json_lines(capsys.readouterr().out)
     assert lines == got
     assert [(r['level'], r['cin'], r['route']) for r in lines] == [
-        (1, 32, 'fused'), (1, 32, 'plain'), (1, 32, 'assembled'),
-        (1, 32, 'sm'), (1, 32, 'conv3d')]
+        (1, 32, 'fused'), (1, 32, 'plain'), (1, 32, 'prologue'),
+        (1, 32, 'unfused'), (1, 32, 'assembled'), (1, 32, 'sm'),
+        (1, 32, 'conv3d')]
     rows = lines[0]['rows']
     for r in lines:
         assert r['card'] == 'cpu' and r['clock'] == 'host' and r['ms'] > 0
     assert lines[0]['bound_ms'] == pytest.approx(bounds.bound(
         lines[0]['bytes'], lines[0]['flops'])['bound_ms'])
-    assert lines[3]['bytes'] == 2 * (rows * 216 * 32 + rows * 64 * 32
+    assert lines[2]['bytes'] == lines[0]['bytes'] + rows * 8 + 2 * 32 * 2
+    assert lines[5]['bytes'] == 2 * (rows * 216 * 32 + rows * 64 * 32
                                      + 27 * 32 * 32)
-    assert lines[4]['bound_ms'] is None
+    assert lines[6]['bound_ms'] is None

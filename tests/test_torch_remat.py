@@ -156,6 +156,7 @@ def _counting(monkeypatch):
          lambda a: 'prologue' if len(a) > 4 and a[4] is not None
          else 'fused')
     wrap('banded_conv', lambda a: 'assembled')
+    wrap('banded_conv_narrow', lambda a: 'narrow')
     wrap('banded_conv_sm_taps', lambda a: 'sm')
     wrap('banded_conv_sm', lambda a: 'sm')
     return calls
