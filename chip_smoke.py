@@ -65,7 +65,21 @@ Phases, each printing one line:
      K1 against the oracle, the voxel-level ``sparse.subm_conv`` on scene
      0's voxels; 1e-4 of max|ref|); cuDNN ``conv3d`` alone over the
      oracle's assembled bf16 halo (the library call of K1's function)
-  8. remat: the U-Net blocks' memory policies (``remat``) in the
+  8. brick: the brick side (``build_model(..., brick=2)``, the JAX
+     package's ``DODA_BRICK=2``) against side 4 on the same weights: the
+     bench batch's side-2 plan under ``synth.BRICK_CAPS_SIDE2`` (audited;
+     each level's active voxels equal side 4's, integer for integer); every
+     K1 kernel built for side 2 against its plain version on the side-2
+     rulebooks (the fused K1 at every level, the prologue variant at
+     levels 0-1, the narrow K1 at the input conv, the first version at
+     float32), timed beside its side-2 bound, its plain version, cuDNN
+     ``conv3d`` over the oracle's side-2 halo and the same kernel at side
+     4; the eval forward at both sides (bf16 predictions >= 99%, float32
+     logits to 1e-3, launches against ``subm_routes``, scenes/sec in
+     turns, device time by bucket, launches and peak), the ``fuse_norm``
+     forward at side 2, one float32 train step (loss 1e-4 relative,
+     gradients 1e-3) and three bf16 train steps at both sides
+  9. remat: the U-Net blocks' memory policies (``remat``) in the
      CLI-shaped train step (cfgs/da_front3d_scannet/spconv.yaml, batch 4
      of the bench rooms, bf16, ``sm_max_cin=0``), 'off', 'dots', 'all'
      and 'mix2' from one seeded state: each policy's first step
@@ -77,11 +91,11 @@ Phases, each printing one line:
      an st step (DSNorm) and a ``fuse_norm`` step (the replay runs the
      prologue K1) under 'all' against 'off', each domain's running
      statistics moved once
-  9. pointops: every point op, offset wrapper and voxelization function
+ 10. pointops: every point op, offset wrapper and voxelization function
      on the card against the CPU on one bench scene's points (FPS of 4,096
      of 150k points, kNN k = 16 of 4,096 queries among 16,384 points, a
      0.05 m voxel grid): integer outputs equal, floats to 1e-5
- 10. cli: the port's three CLIs in process (``doda_tpu_torch.tools``), at
+ 11. cli: the port's three CLIs in process (``doda_tpu_torch.tools``), at
      full width and depth and the cfgs' batch size (4), on synthetic rooms
      of ~150k points written by ``tools/make_synth_data.py``: ``train``
      (cfgs/da_front3d_scannet/spconv.yaml, one epoch on 6 3D-FRONT-format
@@ -96,21 +110,21 @@ Phases, each printing one line:
      written, with the output tree asserted; ``doda_tpu_torch.tools.
      visualize`` on one room with ``test``'s dumps (the .ply files' header,
      vertex count and colours)
- 11. import: a seeded reference ``.pth`` of the DA flagship (the
+ 12. import: a seeded reference ``.pth`` of the DA flagship (the
      reference's key names and layouts), converted into the JAX package's
      format by ``doda_tpu_torch.tools.convert_torch_ckpt``, through
      ``test --ckpt`` on the 4 ScanNet rooms: launches, its mIoU equal to
      that of the same tree loaded through ``params_from_jax`` and run
      through ``make_eval_step``, one batch's float32 logits bit-equal
      between the two loads (all under deterministic algorithms)
- 12. device_aug: ``train`` and ``st``, one step each, with
+ 13. device_aug: ``train`` and ``st``, one step each, with
      ``DATA_AUG.device`` on: step ms, data wait and its share, peak memory,
      launches, beside phase cli's host-path readings; the augmentation's
      own device time; ``device_augment`` on the card against the CPU on
      the same CPU draws (feats to 1e-5, coords equal but for floor flips
      inside 1e-4 of an integer); the brick audit of each step's augmented
      batch
- 13. ddp: two gloo ranks spawned on the one card, one bench scene each
+ 14. ddp: two gloo ranks spawned on the one card, one bench scene each
      (150k and 100k points; st targets of 120k and 150k), against one
      process on both, float32 on the kernel path
      (``tests/_torch_equivalence.py``): for a train step and an st step
@@ -118,7 +132,7 @@ Phases, each printing one line:
      and running statistics; eval predictions and histograms;
      ``all_gather_objects``; each rank's peak memory; then ``train
      --launcher pytorch`` at WORLD_SIZE=1 for one step
- 14. timing: each kernel at the level-0 shape beside its bound, its plain
+ 15. timing: each kernel at the level-0 shape beside its bound, its plain
      version and, where there is one, a PyTorch library call computing the
      same function; K1 in both versions, with the plane gather alone, and
      its prologue variant beside the unfused sequence it replaces (norm
@@ -268,8 +282,8 @@ def plain_path():
 def check_fused(worst, key, x2, nbr, w, narrow=False):
     """The fused K1 (with ``narrow``, its narrow-input version) against its
     plain version (both output types) and against the assembled K1 on the
-    same inputs."""
-    from doda_tpu_torch.ops import bricks2d
+    same inputs, at the brick side of x2's width."""
+    from doda_tpu_torch.ops import bricks, bricks2d
     from doda_tpu_torch.ops.banded_conv import (banded_conv,
                                                 banded_conv_fused,
                                                 banded_conv_fused_plain,
@@ -282,9 +296,10 @@ def check_fused(worst, key, x2, nbr, w, narrow=False):
         ref = banded_conv_fused_plain(x2, nbr, w, dt)
         worst[f'{tag}/{key}/{str(dt)[6:]}'] = _close(
             got, ref, True, bound, f'{fn.__name__} {key} {dt}')
-    old = banded_conv(bricks2d._assemble_p6(x2, bricks2d.halo_index(nbr),
-                                            x2.dtype),
-                      bricks2d.banded_weights(w), torch.bfloat16)
+    side = bricks.side_of(x2.shape[1] // w.shape[1])
+    old = banded_conv(bricks2d._assemble_p6(
+        x2, bricks2d.halo_index(nbr, side), x2.dtype),
+        bricks2d.banded_weights(w, side), torch.bfloat16)
     worst[f'{tag}-vs-K1/{key}'] = _close(got, old, True, 2e-2,
                                          f'{fn.__name__} vs assembled K1 '
                                          f'{key}')
@@ -1221,6 +1236,385 @@ def phase_engines(cfg, batch, b_caps, card, levels):
         phase_seconds=time.perf_counter() - t_phase)
     _cli_reset()
     return library, launched
+
+
+# (level, cin, cout) of phase brick's fused K1 checks on the side-2 bench
+# rulebooks: every level's block conv p -> p and the 2p -> p tails of
+# levels 0 and 1
+BRICK_K1_SHAPES = tuple((lvl, 16 * (lvl + 1), 16 * (lvl + 1))
+                        for lvl in range(7)) + ((0, 32, 16), (1, 64, 32))
+
+
+def _scene_table(table, s):
+    """Scene ``s`` of a stacked ``CoordTable``."""
+    return type(table)(*(f[s] for f in table))
+
+
+def _voxel_keys(table, occ, side):
+    """Sorted packed keys of one scene's active voxels at a level: brick
+    coords * side + the active cell's offset in its brick."""
+    n = int(table.n)
+    b, cell = occ[:n].nonzero(as_tuple=True)
+    off = torch.stack([cell // (side * side), cell // side % side,
+                       cell % side], 1)
+    v = table.coords[:n].long()[b] * side + off
+    return torch.sort((v[:, 0] << 42) | (v[:, 1] << 21) | v[:, 2]).values
+
+
+def _side_timings(lv, cin, cout, side, g, plain=False, library=False,
+                  pro=False):
+    """One K1 shape on one level's real rulebook at ``side``, bf16: the
+    fused (cin >= 8) or narrow kernel's ms over 20 launches, its bound
+    (``utils/roofline.py`` at that side) and, where asked, its plain
+    version's ms over 3, cuDNN ``conv3d`` over the oracle's assembled
+    halo (assembly not timed) and the prologue variant's ms and bound."""
+    import torch.nn.functional as F
+    from doda_tpu_torch.ops import bricks
+    from doda_tpu_torch.ops.banded_conv import (banded_conv_fused,
+                                                banded_conv_fused_plain,
+                                                banded_conv_narrow,
+                                                occ_words)
+    from doda_tpu_torch.utils import roofline
+    bf = torch.bfloat16
+    rows, cells = lv.occ.shape
+    x3 = torch.randn(rows, cells, cin, device='cuda', generator=g)
+    x2 = (x3 * lv.occ[..., None]).reshape(rows, -1).to(bf)
+    w = (torch.randn(27, cin, cout, device='cuda', generator=g)
+         / (27 * cin) ** 0.5).to(bf)
+    narrow = cin < 8
+    fn = banded_conv_narrow if narrow else banded_conv_fused
+    reads = roofline.present_reads(lv.halo)
+    work = (roofline.narrow_work if narrow else roofline.fused_work)(
+        rows, cin, cout, reads, side)
+    out = {'side': side, 'shape': [rows, cin, cout],
+           'ms': cuda_ms(lambda: fn(x2, lv.nbr, w, bf), 20),
+           'bound_ms': work['bound_ms'], 'bound_by': work['bound_by']}
+    out['x_bound'] = out['ms'] / out['bound_ms']
+    if plain:
+        out['plain_ms'] = cuda_ms(
+            lambda: banded_conv_fused_plain(x2, lv.nbr, w, bf), 3)
+    if library:
+        hin = bricks.shell_halo(x2.reshape(rows, cells, cin), lv.nbr,
+                                bf).permute(0, 4, 1, 2, 3)
+        wc = w.reshape(3, 3, 3, cin, cout).permute(4, 3, 0, 1, 2).contiguous(
+            memory_format=torch.channels_last_3d)
+        out['library_ms'] = cuda_ms(lambda: F.conv3d(hin, wc), 10)
+        del hin
+    if pro:
+        scale = 1 + 0.2 * torch.randn(cin, device='cuda', generator=g)
+        bias = 0.2 * torch.randn(cin, device='cuda', generator=g)
+        bias[::2] = bias[::2].abs() + 0.1
+        p = (scale, bias, occ_words(lv.occ))
+        pw = roofline.prologue_work(rows, cin, cout, reads, side)
+        out['prologue'] = {
+            'ms': cuda_ms(lambda: banded_conv_fused(x2, lv.nbr, w, bf, p),
+                          20),
+            'bound_ms': pw['bound_ms'], 'bound_by': pw['bound_by']}
+        if plain:
+            out['prologue']['plain_ms'] = cuda_ms(
+                lambda: banded_conv_fused_plain(x2, lv.nbr, w, bf, p), 3)
+    return out
+
+
+def _first_timings(lv, side, g, plain=False, library=False):
+    """K1's first version at float32 (its main-path dtype), 16 -> 16 on
+    one level's rulebook at ``side``: ms over 20 launches on
+    ``_assemble_p6``'s planes, bound (float32 on the CUDA cores), and
+    where asked its plain version's ms and float32 ``conv3d`` over the
+    oracle's halo."""
+    import torch.nn.functional as F
+    from doda_tpu_torch.ops import bricks, bricks2d
+    from doda_tpu_torch.ops.banded_conv import banded_conv, banded_conv_plain
+    from doda_tpu_torch.utils import roofline
+    f32 = torch.float32
+    rows, cells = lv.occ.shape
+    x2 = (torch.randn(rows, cells, 16, device='cuda', generator=g)
+          * lv.occ[..., None]).reshape(rows, -1)
+    w = torch.randn(27, 16, 16, device='cuda', generator=g) / 432 ** 0.5
+    rows6 = bricks2d._assemble_p6(x2, lv.halo, f32)
+    wb = bricks2d.banded_weights(w, side)
+    work = roofline.assembled_work(rows, 16, 16, f32, int((wb != 0).sum()),
+                                   side)
+    out = {'side': side, 'shape': [rows, 16, 16], 'dtype': 'float32',
+           'ms': cuda_ms(lambda: banded_conv(rows6, wb, f32), 20),
+           'bound_ms': work['bound_ms'], 'bound_by': work['bound_by']}
+    out['x_bound'] = out['ms'] / out['bound_ms']
+    if plain:
+        out['plain_ms'] = cuda_ms(lambda: banded_conv_plain(rows6, wb, f32),
+                                  3)
+    del rows6
+    if library:
+        hin = bricks.shell_halo(x2.reshape(rows, cells, 16), lv.nbr,
+                                f32).permute(0, 4, 1, 2, 3)
+        wc = w.reshape(3, 3, 3, 16, 16).permute(4, 3, 0, 1, 2).contiguous(
+            memory_format=torch.channels_last_3d)
+        out['library_ms'] = cuda_ms(lambda: F.conv3d(hin, wc), 10)
+        del hin
+    return out
+
+
+def phase_brick(cfg, batch, b_caps, card):
+    """The brick side (``build_model(..., brick=2)``, the JAX package's
+    ``DODA_BRICK=2``) on the flagship against side 4 (``b_caps``), on the
+    bench scenes and the same seeded weights: the side-2 plan under
+    ``synth.BRICK_CAPS_SIDE2`` (audited; every level's active voxels equal
+    side 4's, integer for integer); each K1 kernel at side 2 against its
+    plain version on the side-2 bench rulebooks (the fused K1 at every
+    level, its prologue variant at levels 0-1, the narrow K1 at the input
+    conv, the first version at float32, level 0), and timed beside its
+    side-2 bound, its plain version, cuDNN ``conv3d`` over the oracle's
+    side-2 halo and the same kernel at side 4; then the model at both
+    sides: the bf16 eval forward (predictions >= 99%, launches by route
+    against ``subm_routes``, scenes/sec in turns, device time by bucket,
+    launches and peak from a profiled forward), the ``fuse_norm`` forward
+    at side 2 (the prologue K1), the float32 forward (logits 1e-3 of
+    max(1, max|logit|)), one float32 train step (loss 1e-4 relative,
+    gradients 1e-3 of their scale) and three bf16 train steps (step ms,
+    peak). Returns the phase's launches by run and route, and the kernel
+    readings for the kernels line."""
+    from doda_tpu_torch.models import model_fn
+    from doda_tpu_torch.models.unet import build_level_plan, flatten_plan
+    from doda_tpu_torch.ops import bricks2d
+    from doda_tpu_torch.ops.banded_conv import (banded_conv,
+                                                banded_conv_fused,
+                                                banded_conv_fused_plain,
+                                                banded_conv_plain)
+    from doda_tpu_torch.utils import optim, synth
+    t_phase = time.perf_counter()
+    bf, f32 = torch.bfloat16, torch.float32
+    caps = {4: tuple(b_caps), 2: synth.BRICK_CAPS_SIDE2}
+    synth.capacity_audit(batch, caps[2], 2)
+    n_valid = int(batch.valid.sum())
+    batch = batch.to('cuda')
+    valid = batch.valid
+
+    # the plan: the same active voxels at every level, both sides
+    plans = {s: build_level_plan(batch.coords, valid, caps[s], brick=s)
+             for s in (4, 2)}
+    voxels = []
+    for lvl in range(len(b_caps)):
+        count = 0
+        for sc in range(valid.shape[0]):
+            keys = {}
+            for s, p in plans.items():
+                table = p.grid0.table if lvl == 0 else p.downs[lvl - 1].parent
+                keys[s] = _voxel_keys(_scene_table(table, sc),
+                                      p.occs[lvl][sc], s)
+            assert torch.equal(keys[2], keys[4]), (
+                f'level {lvl} scene {sc}: active voxels differ by side')
+            count += keys[2].numel()
+        voxels.append(count)
+    bricks_by_side = {s: [int(t.n.sum()) for t in [p.grid0.table]
+                          + [d.parent for d in p.downs]]
+                      for s, p in plans.items()}
+    levels = {s: flatten_plan(p)[0] for s, p in plans.items()}
+    del plans
+    lv2, lv4 = levels[2], levels[4]
+    plan = {'caps_side2': list(caps[2]), 'caps_side4': list(caps[4]),
+            'active_voxels_per_level': voxels,
+            'bricks_per_level': {f'side{s}': b
+                                 for s, b in bricks_by_side.items()},
+            'padded_cells_per_level': {
+                f'side{s}': [lv.occ.numel() for lv in levels[s]]
+                for s in (4, 2)}}
+
+    # each K1 kernel at side 2 against its plain version
+    g = torch.Generator(device='cuda').manual_seed(5)
+    worst = {}
+    for lvl, cin, cout in BRICK_K1_SHAPES:
+        lv = lv2[lvl]
+        rows = lv.nbr.shape[0]
+        x2 = (torch.randn(rows, 8, cin, device='cuda', generator=g)
+              * lv.occ[..., None]).reshape(rows, -1).to(bf)
+        w = (torch.randn(27, cin, cout, device='cuda', generator=g)
+             / (27 * cin) ** 0.5).to(bf)
+        for dt, bound in FUSED_CHECKS:
+            got = banded_conv_fused(x2, lv.nbr, w, dt)
+            torch.cuda.synchronize()
+            ref = banded_conv_fused_plain(x2, lv.nbr, w, dt)
+            worst[f'K1f/L{lvl}/{cin}x{cout}/{str(dt)[6:]}'] = _close(
+                got, ref, True, bound, f'side-2 fused K1 L{lvl} {dt}')
+        if lvl <= 1 and cin == cout:
+            check_fused_pro(worst, f'L{lvl}/{cin}x{cout}', x2, lv.nbr, w,
+                            lv.occ, g)
+    x2 = (torch.randn(lv2[0].nbr.shape[0], 8, 3, device='cuda', generator=g)
+          * lv2[0].occ[..., None]).reshape(-1, 24).to(bf)
+    w = (torch.randn(27, 3, 16, device='cuda', generator=g) / 9).to(bf)
+    check_fused(worst, 'L0/3x16', x2, lv2[0].nbr, w, narrow=True)
+    x2 = (torch.randn(lv2[0].nbr.shape[0], 8, 16, device='cuda', generator=g)
+          * lv2[0].occ[..., None]).reshape(-1, 128)
+    w = torch.randn(27, 16, 16, device='cuda', generator=g) / 432 ** 0.5
+    rows6 = bricks2d._assemble_p6(x2, lv2[0].halo, f32)
+    wb = bricks2d.banded_weights(w, 2)
+    got = banded_conv(rows6, wb, f32)
+    torch.cuda.synchronize()
+    _, rel, bound = CHECKS[0]
+    worst['K1a/L0/16x16/float32'] = _close(
+        got, banded_conv_plain(rows6, wb, f32), rel, bound,
+        'side-2 first-version K1 float32')
+    del x2, w, rows6, wb, got
+    torch.cuda.empty_cache()
+
+    # the kernels timed at side 2 beside side 4, in this call
+    timing = {'fused': [], 'narrow': [], 'first': []}
+    for lvl in range(7):
+        p = 16 * (lvl + 1)
+        for s, lv in ((4, lv4), (2, lv2)):
+            timing['fused'].append(dict(level=lvl, **_side_timings(
+                lv[lvl], p, p, s, g, plain=lvl == 0, library=lvl <= 1,
+                pro=lvl <= 1)))
+        torch.cuda.empty_cache()
+    for s, lv in ((4, lv4), (2, lv2)):
+        timing['narrow'].append(_side_timings(lv[0], 3, 16, s, g,
+                                              plain=True, library=True))
+        timing['first'].append(_first_timings(lv[0], s, g, plain=s == 2,
+                                              library=True))
+        torch.cuda.empty_cache()
+    del levels, lv2, lv4
+    torch.cuda.empty_cache()
+
+    # the model at both sides, one seeded state
+    sd = synth.seeded_state_dict(model_fn.build_model(cfg), seed=0)
+    launched, model_r = {}, {}
+
+    def evaluator(dtype, side, fuse=False):
+        model = model_fn.build_model(cfg, dtype=dtype, brick=side,
+                                     fuse_norm=fuse)
+        model.load_state_dict(sd, strict=True)
+        return model, model_fn.make_eval_step(cfg, model, caps[side])
+
+    def counted(name, model, fn, rule=None):
+        """``fn()`` between a reset of the launch counters and their
+        reading, held to ``subm_routes``' rule (or ``rule``)."""
+        _cli_reset()
+        out = fn()
+        torch.cuda.synchronize()
+        ran = _launches()
+        want = rule or {'prologue': 0, **model.subm_routes()}
+        assert ran == want, (name, ran, want)
+        launched[name] = ran
+        return out
+
+    steps, preds = {}, {}
+    for s in (4, 2):
+        model, step = evaluator(bf, s)
+        step(batch)                                 # warm-up (set-up)
+        out = counted(f'eval_bf16_side{s}', model, lambda: step(batch))
+        assert out['output'].shape == (synth.BATCH, synth.N_CAP, 20)
+        assert torch.isfinite(out['output']).all()
+        assert int(out['count']) == n_valid
+        preds[s] = out['preds']
+        steps[s] = step
+    assert launched['eval_bf16_side2'] == {
+        'sm': 0, 'fused': 52, 'narrow': 1, 'assembled': 0, 'prologue': 0}
+    agree = (preds[2] == preds[4])[valid].float().mean().item()
+    assert agree >= 0.99, f'bf16 preds side 2 vs 4 agree on {agree}'
+    seconds = {4: [], 2: []}                        # in turns: 4, 2, 2, 4
+    for s in (4, 2, 2, 4):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(3):
+            steps[s](batch)
+        torch.cuda.synchronize()
+        seconds[s].append((time.perf_counter() - t0) / 3)
+    for s in (4, 2):
+        torch.cuda.reset_peak_memory_stats()
+        prof = _profile(lambda: steps[s](batch))
+        model_r[f'eval_forward_side{s}'] = {
+            'seconds_per_forward': seconds[s],
+            'scenes_per_sec': synth.BATCH / min(seconds[s]),
+            'peak_memory_gib': torch.cuda.max_memory_allocated() / 2 ** 30,
+            'profiled': prof}
+    del steps, model, step, out
+    torch.cuda.empty_cache()
+    model, step = evaluator(bf, 2, fuse=True)
+    step(batch)
+    out = counted('eval_bf16_fuse_norm_side2', model, lambda: step(batch))
+    assert launched['eval_bf16_fuse_norm_side2'] == {
+        'sm': 0, 'fused': 0, 'narrow': 1, 'assembled': 0, 'prologue': 52}
+    agree_fuse = (out['preds'] == preds[2])[valid].float().mean().item()
+    assert agree_fuse >= 0.99, f'side-2 fuse_norm preds agree {agree_fuse}'
+    del model, step, out, preds
+    torch.cuda.empty_cache()
+    logits = {}
+    for s in (4, 2):
+        model, step = evaluator(f32, s)
+        logits[s] = counted(f'eval_f32_side{s}', model,
+                            lambda: step(batch))['output']
+        del model, step
+    lim32 = 1e-3 * max(1.0, logits[4].abs().max().item())
+    err32 = (logits[2] - logits[4]).abs().max().item()
+    assert err32 <= lim32, f'float32 logits side 2 vs 4: {err32} > {lim32}'
+    del logits
+    torch.cuda.empty_cache()
+    model_r['eval_forward'] = {
+        'bf16_pred_agreement': agree,
+        'bf16_fuse_norm_side2_pred_agreement': agree_fuse,
+        'f32_logit_max_abs_err': err32, 'f32_logit_bound': lim32}
+
+    tbatch = synth.make_batch(seed=0, batch=synth.TRAIN_BATCH)
+    for s in (4, 2):
+        synth.capacity_audit(tbatch, caps[s], s)
+    tbatch = tbatch.to('cuda')
+    lr = optim.make_lr_fn(cfg.OPTIMIZATION, cfg.OPTIMIZATION.NUM_EPOCHS,
+                          100)(1, 0)
+
+    def trainer(dtype, s):
+        model = model_fn.build_model(cfg, dtype=dtype, brick=s, train=True)
+        model.load_state_dict(sd, strict=True)
+        opt = optim.build_optimizer(cfg.OPTIMIZATION, model.parameters())
+        return model, model_fn.make_train_step(cfg, model, opt, caps[s])
+
+    def rule(model, n):
+        fwd, bwd = model.subm_routes(), model.subm_routes(backward=True)
+        return {k: n * (fwd.get(k, 0) + bwd.get(k, 0))
+                for k in ('sm', 'fused', 'narrow', 'assembled', 'prologue')}
+
+    first = {}
+    for s in (4, 2):
+        model, step = trainer(f32, s)
+        loss = float(counted(f'train_f32_side{s}', model,
+                             lambda: step(tbatch, lr),
+                             rule(model, 1))['loss'])
+        first[s] = (loss, {n: p.grad.float().clone()
+                           for n, p in model.named_parameters()})
+        del model, step
+        torch.cuda.empty_cache()
+    assert launched['train_f32_side2']['assembled'] == 105
+    (l4, g4), (l2, g2) = first[4], first[2]
+    assert abs(l2 - l4) <= 1e-4 * abs(l4), (l2, l4)
+    l2_err, f32_worst = _grad_error(g2, g4)
+    assert f32_worst <= 1e-3, f'float32 gradients side 2 vs 4: {f32_worst}'
+    del first, g4, g2
+    torch.cuda.empty_cache()
+    train = {'f32_loss_side4': l4, 'f32_loss_side2': l2,
+             'f32_grad_rel_l2_err': l2_err,
+             'f32_worst_gradient_err': f32_worst}
+    n_steps = 3
+    for s in (4, 2):
+        model, step = trainer(bf, s)
+        step(tbatch, lr)                            # warm-up (set-up)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        losses = counted(f'train_bf16_side{s}', model, lambda: [
+            float(step(tbatch, lr)['loss']) for _ in range(n_steps)],
+            rule(model, n_steps))
+        dt = time.perf_counter() - t0
+        assert all(math.isfinite(v) for v in losses), losses
+        train[f'bf16_side{s}'] = {
+            'seconds_per_step': dt / n_steps,
+            'trained_scenes_per_sec': n_steps * synth.TRAIN_BATCH / dt,
+            'peak_memory_gib': torch.cuda.max_memory_allocated() / 2 ** 30,
+            'losses': losses}
+        del model, step
+        torch.cuda.empty_cache()
+    model_r['train'] = {'batch': synth.TRAIN_BATCH, 'lr': lr, **train}
+    log('brick', card=card, plan=plan, kernel_max_abs_err=worst,
+        kernel_timing=timing, **model_r, launches=launched,
+        phase_seconds=time.perf_counter() - t_phase)
+    _cli_reset()
+    return launched, timing
 
 
 REMATS = ('off', 'dots', 'all', 'mix2')
@@ -2481,6 +2875,46 @@ def phase_timing(levels, launches, fuse_launches, library, engine_launches):
     return rows
 
 
+def add_brick_phase(rows, launched, timing):
+    """Phase brick's launches (``launches_brick_phase``, by run) into the
+    kernel rows, and its readings at side 2 beside side 4's: the fused K1
+    (every level; level 0 with its plain version and ``conv3d``), its
+    prologue variant, the first version (float32) and the narrow K1."""
+    def total(route):
+        return sum(n[route] for n in launched.values())
+
+    def pair(readings, level=None):
+        got = {r['side']: r for r in readings
+               if level is None or r['level'] == level}
+        two, four = dict(got[2]), got[4]
+        two['side4_ms'] = four['ms']
+        two['side4_bound_ms'] = four['bound_ms']
+        two['side2_over_side4'] = two['ms'] / four['ms']
+        return two
+
+    k1, k2, narrow = rows
+    fused_l0 = pair(timing['fused'], 0)
+    pro = fused_l0.pop('prologue')
+    pro4 = next(r for r in timing['fused']
+                if r['side'] == 4 and r['level'] == 0)['prologue']
+    for row, n, reading in (
+            (k1, total('fused') + total('prologue'), fused_l0),
+            (k1['prologue'], total('prologue'),
+             {**pro, 'side4_ms': pro4['ms'],
+              'side2_over_side4': pro['ms'] / pro4['ms']}),
+            (k1['assembled'], total('assembled'), pair(timing['first'])),
+            (k2, 0, None),
+            (narrow, total('narrow'), pair(timing['narrow']))):
+        row['launches_brick_phase'] = n
+        row['launches'] += n
+        if reading is not None:
+            row['brick2'] = reading
+    k1['launches_brick_phase_by_run'] = launched
+    k1['brick2']['levels'] = [
+        {k: v for k, v in pair(timing['fused'], lvl).items()
+         if k != 'prologue'} for lvl in range(7)]
+
+
 def main():
     if not torch.cuda.is_available():
         print('chip_smoke: torch.cuda.is_available() is false',
@@ -2508,6 +2942,7 @@ def main():
     fuse_launches = phase_fuse_norm(cfg, batch, b_caps, card)
     library, engine_launches = phase_engines(cfg, batch, b_caps, card,
                                              levels)
+    brick_launches, brick_timing = phase_brick(cfg, batch, b_caps, card)
     del batch
     remat_launches = phase_remat(card)
     phase_pointops(card)
@@ -2540,6 +2975,9 @@ def main():
         k1[sub]['launches'] += remat_launches[route]
     rows[2]['launches_remat_phase'] = remat_launches['narrow']
     rows[2]['launches'] += remat_launches['narrow']
+    # phase brick's runs at sides 4 and 2 join each kernel's row, with the
+    # side-2 readings beside the side-4 ones of the same call
+    add_brick_phase(rows, brick_launches, brick_timing)
     assert remat_launches['sm'] == 0, remat_launches
     for r in rows:       # every kernel of the paths really ran on them
         assert r['launches'] > 0, r['name']

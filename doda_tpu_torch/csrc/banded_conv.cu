@@ -33,6 +33,12 @@
 // halo inside the kernel from the activation and the rulebook and
 // multiplies the taps only, so neither the planes nor the placed zeros of
 // wb exist there.
+//
+// The brick side S (the JAX package's DODA_BRICK) is a template parameter
+// of the row map, instantiated for 4 (above) and 2: rows (B, S+2, K) with
+// K = (S+2)^2*cin, wb (3, K, N) with N = S^2*cout, output rows r = S*b + x
+// for x = 0..S-1 reading the run rows + ((S+2)b + x)*K. K and N come from
+// the shapes, so the tiles are the same at every side.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -51,9 +57,13 @@ template <> __device__ __forceinline__ bf16 from_float<bf16>(float v) {
   return __float2bfloat16(v);
 }
 
-// offset of output row r = 4b + x's operand run
+// offset of output row r = S*b + x's operand run (S a power of two: a
+// signed division would cost the side-4 kernel registers, and occupancy)
+template <int S>
 __device__ __forceinline__ int64_t row_base(int64_t r, int K) {
-  return ((r >> 2) * 6 + (r & 3)) * (int64_t)K;
+  constexpr int SHIFT = S == 4 ? 2 : 1;
+  static_assert(S == 1 << SHIFT, "sides 2 and 4");
+  return ((r >> SHIFT) * (S + 2) + (r & (S - 1))) * (int64_t)K;
 }
 
 // ---------------------------------------------------------------- bf16 ----
@@ -68,7 +78,7 @@ struct TcSmem {                   // bf16 tiles held as raw 16-bit words
   float c[TC_THREADS / 32][16 * C_LD];
 };
 
-template <typename OutT>
+template <typename OutT, int S>
 __global__ void __launch_bounds__(TC_THREADS)
 banded_tc(const bf16* __restrict__ rows, const bf16* __restrict__ wb,
           OutT* __restrict__ out, int64_t M, int K, int N, int vec_a) {
@@ -92,7 +102,7 @@ banded_tc(const bf16* __restrict__ rows, const bf16* __restrict__ wb,
     a_k[c] = (chunk & 3) * 8;
     int64_t r = m0 + a_row[c];
     a_ok[c] = r < M;
-    a_base[c] = a_ok[c] ? row_base(r, K) : 0;
+    a_base[c] = a_ok[c] ? row_base<S>(r, K) : 0;
     b_k[c] = chunk >> 4;
     b_n[c] = (chunk & 15) * 8;
   }
@@ -195,7 +205,7 @@ banded_tc(const bf16* __restrict__ rows, const bf16* __restrict__ wb,
 // ------------------------------------------------------------- float32 ----
 constexpr int S_BM = 64, S_BN = 64, S_BK = 16, S_THREADS = 256;
 
-template <typename OutT>
+template <typename OutT, int S>
 __global__ void __launch_bounds__(S_THREADS)
 banded_f32(const float* __restrict__ rows, const float* __restrict__ wb,
            OutT* __restrict__ out, int64_t M, int K, int N) {
@@ -214,7 +224,7 @@ banded_f32(const float* __restrict__ rows, const float* __restrict__ wb,
   for (int c = 0; c < 4; ++c) {
     int64_t r = m0 + ((tid + c * S_THREADS) >> 4);
     a_ok[c] = r < M;
-    a_base[c] = a_ok[c] ? row_base(r, K) : 0;
+    a_base[c] = a_ok[c] ? row_base<S>(r, K) : 0;
   }
   float acc[4][4] = {};
   for (int k0 = 0; k0 < KT; k0 += S_BK) {
@@ -261,17 +271,10 @@ int64_t grid_size(int64_t M, int N) {
   return ((M + BM - 1) / BM) * ((N + BN - 1) / BN);
 }
 
-}  // namespace
-
-// dtype codes: 0 = float32, 1 = bfloat16. Returns cudaGetLastError().
-extern "C" int doda_banded_conv(const void* rows, const void* wb, void* out,
-                                long long B, int K, int N, int in_dtype,
-                                int out_dtype, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int64_t M = 4 * (int64_t)B;
-  if (B <= 0 || K <= 0 || N <= 0 || N % 8 || (in_dtype != 0 && in_dtype != 1)
-      || (out_dtype != 0 && out_dtype != 1))
-    return (int)cudaErrorInvalidValue;
+template <int S>
+int launch(const void* rows, const void* wb, void* out, long long B, int K,
+           int N, int in_dtype, int out_dtype, cudaStream_t s) {
+  const int64_t M = S * (int64_t)B;
   if (in_dtype == 1) {
     const int64_t grid = grid_size<TC_BM, TC_BN>(M, N);
     if (grid > 0x7fffffff) return (int)cudaErrorInvalidConfiguration;
@@ -279,10 +282,10 @@ extern "C" int doda_banded_conv(const void* rows, const void* wb, void* out,
     const bf16* r = static_cast<const bf16*>(rows);
     const bf16* w = static_cast<const bf16*>(wb);
     if (out_dtype == 1)
-      banded_tc<bf16><<<(unsigned)grid, TC_THREADS, 0, s>>>(
+      banded_tc<bf16, S><<<(unsigned)grid, TC_THREADS, 0, s>>>(
           r, w, static_cast<bf16*>(out), M, K, N, vec_a);
     else
-      banded_tc<float><<<(unsigned)grid, TC_THREADS, 0, s>>>(
+      banded_tc<float, S><<<(unsigned)grid, TC_THREADS, 0, s>>>(
           r, w, static_cast<float*>(out), M, K, N, vec_a);
   } else {
     const int64_t grid = grid_size<S_BM, S_BN>(M, N);
@@ -290,11 +293,26 @@ extern "C" int doda_banded_conv(const void* rows, const void* wb, void* out,
     const float* r = static_cast<const float*>(rows);
     const float* w = static_cast<const float*>(wb);
     if (out_dtype == 1)
-      banded_f32<bf16><<<(unsigned)grid, S_THREADS, 0, s>>>(
+      banded_f32<bf16, S><<<(unsigned)grid, S_THREADS, 0, s>>>(
           r, w, static_cast<bf16*>(out), M, K, N);
     else
-      banded_f32<float><<<(unsigned)grid, S_THREADS, 0, s>>>(
+      banded_f32<float, S><<<(unsigned)grid, S_THREADS, 0, s>>>(
           r, w, static_cast<float*>(out), M, K, N);
   }
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// dtype codes: 0 = float32, 1 = bfloat16; side: the brick side, 2 or 4.
+// Returns cudaGetLastError().
+extern "C" int doda_banded_conv(const void* rows, const void* wb, void* out,
+                                long long B, int K, int N, int side,
+                                int in_dtype, int out_dtype, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (B <= 0 || K <= 0 || N <= 0 || N % 8 || (side != 2 && side != 4) ||
+      (in_dtype != 0 && in_dtype != 1) || (out_dtype != 0 && out_dtype != 1))
+    return (int)cudaErrorInvalidValue;
+  return side == 4 ? launch<4>(rows, wb, out, B, K, N, in_dtype, out_dtype, s)
+                   : launch<2>(rows, wb, out, B, K, N, in_dtype, out_dtype, s);
 }

@@ -82,6 +82,26 @@
 // prologue applied on the way to st.shared) was tried: at 32 couts the 14
 // uint4 a thread hold beside the accumulators spill past 255 registers,
 // and it ran slower there, as did spreading the prologue between the MMAs.
+//
+// The brick side S (the JAX package's DODA_BRICK) is a template parameter,
+// instantiated for 4 (everything above) and 2. A brick has S^3 cells, an
+// (S+2)^3 halo of S+2 planes of (S+2)^2 cells, and S output x-slices of S^2
+// cells. An A tile is 16 rows: at S = 4 the 16 cells of one x-slice of one
+// brick; at S = 2 an x-slice holds 4 cells, so a warp owns BPW = 16 / S^2
+// = 4 bricks and an A tile stacks the same x-slice of all four, each row
+// addressed inside its own brick's halo (ldmatrix takes a row address a
+// thread, so rows from four halos cost nothing extra). The warp's S m-tiles
+// are its bricks' S x-slices, so the A tiles of one (dy, dz) are still
+// loaded once per plane and feed all three dx. A tile of TB bricks is then
+// 4 * warps, the block's stages and rulebook rows grow with it, and a
+// side-2 brick's occupancy word uses bits 0-7.
+// Swizzle at S = 2: a halo y-row is 4 cells of 32 bytes, one 128-byte line,
+// and a brick's halo is 2048 bytes (16 lines), so the 8 rows of an 8x8
+// ldmatrix phase (2 bricks x 2 y x 2 z) would fall on 2 of the 8 16-byte
+// bank groups. Each brick's cells are laid out with the two 16-byte halves
+// swapped on odd halo y-rows, as at S = 4, and with the cell's z position
+// XORed with 2 in odd bricks of the tile: the 8 rows then take 8 distinct
+// groups (the numpy mirror in tests/test_torch_brick_side.py checks it).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -92,24 +112,47 @@ namespace {
 using bf16 = __nv_bfloat16;
 
 constexpr int TAPS = 27;
-constexpr int HCELLS = 216;              // 6*6*6 halo cells of a brick
 constexpr int CK = 16;                   // channels per chunk (one mma K)
 constexpr int CELL_B = CK * 2;           // bytes of a cell chunk
-constexpr int HALO_B = HCELLS * CELL_B;  // 6912
 constexpr int NT_MAX = 4;                // n8 tiles per block: cout chunk <= 32
 constexpr int W_RESIDENT_B = 72 * 1024;  // keep all of cin's weights below this
 constexpr int TWO_BLOCKS_B = 113 * 1024; // two blocks fit an SM below this
 
-// One block owns tiles of TB bricks, one warp per brick. TB = 4 where two
-// blocks fit an SM's shared memory (the shallow levels), else TB = 8.
-template <int TB> struct Tile {
-  static constexpr int THREADS = TB * 32;
-  static constexpr int STAGE_B = TB * HALO_B;
+// What the brick side S fixes. A packed copy (see fused_tc) holds the
+// destination / 16 (12 bits), the rulebook slot b*27 + col (SLOT_BITS),
+// the source cell (CELL_BITS), the half (1) and a valid bit.
+template <int S> struct Geo {
+  static constexpr int HS = S + 2;                 // halo side
+  static constexpr int PLANE = HS * HS;            // cells a halo x-plane
+  static constexpr int HCELLS = HS * PLANE;        // 216 at S = 4, 64 at 2
+  static constexpr int SLICE = S * S;              // cells an x-slice
+  static constexpr int CELLS = S * SLICE;          // cells a brick
+  static constexpr int BPW = 16 / SLICE;           // bricks a warp
+  static constexpr int HALO_B = HCELLS * CELL_B;   // 6912 at S = 4
+  static constexpr int SLOT_BITS = S == 4 ? 8 : 10;
+  static constexpr int CELL_BITS = S == 4 ? 6 : 3;
+  static constexpr int CELL_SHIFT = 12 + SLOT_BITS;
+  static constexpr int HALF_SHIFT = CELL_SHIFT + CELL_BITS;
+  static constexpr int VALID_SHIFT = HALF_SHIFT + 1;
+  static_assert(S == 2 || S == 4, "fused K1 is built for sides 2 and 4");
+  static_assert(16 % SLICE == 0 && VALID_SHIFT < 32, "");
+};
+
+// One block owns tiles of TB bricks, BPW bricks a warp (one at S = 4).
+// WB = 4 warps where two blocks fit an SM's shared memory (the shallow
+// levels), else WB = 8.
+template <int S, int WB> struct Tile {
+  using G = Geo<S>;
+  static constexpr int TB = WB * G::BPW;
+  static constexpr int THREADS = WB * 32;
+  static constexpr int STAGE_B = TB * G::HALO_B;
   static constexpr int NBR_INTS = (TB * TAPS + 31) / 32 * 32;
-  static constexpr int COPIES = (TB * HCELLS * 2 + THREADS - 1) / THREADS;
+  static constexpr int COPIES = (TB * G::HCELLS * 2 + THREADS - 1) / THREADS;
   static constexpr int OCC_B = NBR_INTS * 8;   // one stage of occupancy words
   static constexpr int MAX_SMEM =
       2 * NBR_INTS * 4 + 2 * OCC_B + W_RESIDENT_B + 2 * STAGE_B;
+  static_assert(STAGE_B / 16 <= 4096 && TB * TAPS <= (1 << G::SLOT_BITS),
+                "a packed copy's fields overflow");
 };
 
 struct Params {
@@ -180,10 +223,21 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// halo coordinate h' = 0..5 (brick coordinate h' - 1): the neighbour offset
-// + 1 it comes from, and the coordinate inside that neighbour
-__device__ __forceinline__ int halo_dir(int h) { return h == 0 ? 0 : (h == 5 ? 2 : 1); }
-__device__ __forceinline__ int halo_pos(int h) { return (h + 3) & 3; }
+// halo coordinate h' = 0..S+1 (brick coordinate h' - 1): the neighbour
+// offset + 1 it comes from, and the coordinate inside that neighbour
+template <int S> __device__ __forceinline__ int halo_dir(int h) {
+  return h == 0 ? 0 : (h == S + 1 ? 2 : 1);
+}
+template <int S> __device__ __forceinline__ int halo_pos(int h) {
+  return (h + S - 1) & (S - 1);
+}
+// byte offset of 16-byte half `half` of halo cell (hy, hz) of brick b of a
+// tile (hc its raster index), swizzled (see the header)
+template <int S>
+__device__ __forceinline__ int halo_off(int hc, int hy, int half, int b) {
+  const int c = S == 4 ? hc : hc ^ ((b & 1) << 1);
+  return c * CELL_B + ((half ^ (hy & 1)) << 4);
+}
 
 __device__ __forceinline__ void store2(float* p, float a, float b) {
   *reinterpret_cast<float2*>(p) = make_float2(a, b);
@@ -216,9 +270,14 @@ __device__ __forceinline__ uint4 prologue8(uint4 v, uint4 s, uint4 b) {
 
 // NTA: n8 tiles of the accumulators; the prologue variant sizes them by
 // the block's cout chunk (2 at 16 couts, which ran faster at level 0)
-template <typename OutT, int TB, bool PRO, int NTA = NT_MAX>
-__global__ void __launch_bounds__(Tile<TB>::THREADS) fused_tc(const Params p) {
-  using T = Tile<TB>;
+template <typename OutT, int S, int WB, bool PRO, int NTA = NT_MAX>
+__global__ void __launch_bounds__(Tile<S, WB>::THREADS)
+    fused_tc(const Params p) {
+  using T = Tile<S, WB>;
+  using G = Geo<S>;
+  constexpr int TB = T::TB;
+  constexpr int HS = G::HS;
+  constexpr int HALO_B = G::HALO_B;
   constexpr int NBUF = PRO ? 3 : 2;                     // rulebook buffers
   extern __shared__ __align__(128) unsigned char smem[];
   int* nbr_s = reinterpret_cast<int*>(smem);            // [NBUF][NBR_INTS]
@@ -241,24 +300,30 @@ __global__ void __launch_bounds__(Tile<TB>::THREADS) fused_tc(const Params p) {
 
   // This thread's 16-byte copies of a step are the same (brick, halo cell,
   // half) every step; only the rulebook entry changes. Each is packed once:
-  // destination / 16 (12 bits) | rulebook slot b*27 + col (8) | source cell
-  // (6) | half (1) | valid (1).
+  // destination / 16 (12 bits) | rulebook slot b*27 + col (SLOT_BITS) |
+  // source cell (CELL_BITS) | half (1) | valid (1).
   uint32_t copy[T::COPIES];
 #pragma unroll
   for (int k = 0; k < T::COPIES; ++k) {
     const int e = tid + k * T::THREADS;
-    const int b = e / (HCELLS * 2);
-    const int rem = e - b * (HCELLS * 2);
+    const int b = e / (G::HCELLS * 2);
+    const int rem = e - b * (G::HCELLS * 2);
     const int hc = rem >> 1, half = rem & 1;
-    const int hx = hc / 36, r2 = hc - hx * 36, hy = r2 / 6, hz = r2 - hy * 6;
-    const int col = halo_dir(hx) * 9 + halo_dir(hy) * 3 + halo_dir(hz);
-    const int cell = halo_pos(hx) * 16 + halo_pos(hy) * 4 + halo_pos(hz);
-    const int dst = b * HALO_B + hc * CELL_B + ((half ^ (hy & 1)) << 4);
-    copy[k] = e < TB * HCELLS * 2
+    const int hx = hc / G::PLANE, r2 = hc - hx * G::PLANE, hy = r2 / HS,
+              hz = r2 - hy * HS;
+    const int col =
+        halo_dir<S>(hx) * 9 + halo_dir<S>(hy) * 3 + halo_dir<S>(hz);
+    const int cell = halo_pos<S>(hx) * G::SLICE + halo_pos<S>(hy) * S +
+                     halo_pos<S>(hz);
+    const int dst = b * HALO_B + halo_off<S>(hc, hy, half, b);
+    copy[k] = e < TB * G::HCELLS * 2
                   ? (uint32_t)(dst >> 4) | (uint32_t)(b * TAPS + col) << 12 |
-                        (uint32_t)cell << 20 | (uint32_t)half << 26 | 1u << 27
+                        (uint32_t)cell << G::CELL_SHIFT |
+                        (uint32_t)half << G::HALF_SHIFT | 1u << G::VALID_SHIFT
                   : 0u;
   }
+  constexpr uint32_t SLOT_MASK = (1u << G::SLOT_BITS) - 1;
+  constexpr uint32_t CELL_MASK = (1u << G::CELL_BITS) - 1;
 
   // rulebook rows of a tile -> shared memory; -1 past the end
   auto load_nbr = [&](long long i, int buf) {
@@ -272,20 +337,21 @@ __global__ void __launch_bounds__(Tile<TB>::THREADS) fused_tc(const Params p) {
         *dst = -1;
     }
   };
-  // the 216 halo cells of each brick of a tile, channels [16kc, 16kc+16)
+  // the halo cells of each brick of a tile, channels [16kc, 16kc+16)
   auto issue_halo = [&](int kc, int stage, int nbuf) {
     const int* nb = nbr_s + nbuf * T::NBR_INTS;
     unsigned char* st = h_s + stage * T::STAGE_B;
 #pragma unroll
     for (int k = 0; k < T::COPIES; ++k) {
       const uint32_t d = copy[k];
-      if (d >> 27) {
-        const int src = nb[(d >> 12) & 0xff];
-        const int ch = kc * CK + (int)((d >> 26) & 1) * 8;
+      if (d >> G::VALID_SHIFT) {
+        const int src = nb[(d >> 12) & SLOT_MASK];
+        const int ch = kc * CK + (int)((d >> G::HALF_SHIFT) & 1) * 8;
         const bool ok = src >= 0 && src < p.rows && ch < p.cin;
-        const bf16* g = ok ? p.x + ((long long)src * 64 + ((d >> 20) & 63)) *
-                                       p.cin + ch
-                           : p.x;
+        const bf16* g =
+            ok ? p.x + ((long long)src * G::CELLS +
+                        ((d >> G::CELL_SHIFT) & CELL_MASK)) * p.cin + ch
+               : p.x;
         cp_async16(st + ((d & 0xfff) << 4), g, ok ? 16 : 0);
       }
     }
@@ -335,10 +401,11 @@ __global__ void __launch_bounds__(Tile<TB>::THREADS) fused_tc(const Params p) {
 #pragma unroll
     for (int k = 0; k < T::COPIES; ++k) {
       const uint32_t d = copy[k];
-      if (d >> 27) {
-        const bool hi = (d >> 26) & 1;
+      if (d >> G::VALID_SHIFT) {
+        const bool hi = (d >> G::HALF_SHIFT) & 1;
         const bool on = (!hi || c1 < p.cin) &&
-                        ((ow[(d >> 12) & 0xff] >> ((d >> 20) & 63)) & 1);
+                        ((ow[(d >> 12) & SLOT_MASK] >>
+                          ((d >> G::CELL_SHIFT) & CELL_MASK)) & 1);
         uint4* cell = reinterpret_cast<uint4*>(st + ((d & 0xfff) << 4));
         if (on)   // a branch, not a select: inactive cells skip the math
           *cell = prologue8(*cell, hi ? s1 : s0, hi ? b1 : b0);
@@ -348,16 +415,18 @@ __global__ void __launch_bounds__(Tile<TB>::THREADS) fused_tc(const Params p) {
     }
   };
 
-  // this lane's row of an A tile: cell (y, z) of an x-slice, and which
-  // 8-channel half of the chunk its ldmatrix address points at
+  // this lane's row of an A tile: cell (y, z) of an x-slice of the warp's
+  // brick rb, and which 8-channel half of the chunk its ldmatrix address
+  // points at
   const int r = (lane & 7) + ((lane >> 3) & 1) * 8;
-  const int ay = r >> 2, az = r & 3;
-  const uint32_t a_off = (ay * 6 + az) * CELL_B;
+  const int rb = r / G::SLICE, aq = r % G::SLICE;
+  const int ay = aq / S, az = aq % S;
+  const uint32_t a_off = rb * HALO_B + (ay * HS + az) * CELL_B;
   const int a_half = (lane >> 4) ^ (ay & 1);
   // and of a B tile pair: weight row k = lane % 16, n8 tile lane / 16
   const uint32_t b_off = (lane & 15) * p.wpitch + (lane >> 4) * 16;
 
-  float acc[4][NTA][4];
+  float acc[S][NTA][4];
 
   load_nbr(0, 0);
   load_nbr(1, 1);
@@ -409,28 +478,35 @@ __global__ void __launch_bounds__(Tile<TB>::THREADS) fused_tc(const Params p) {
 
     if (kc == 0) {
 #pragma unroll
-      for (int m = 0; m < 4; ++m)
+      for (int m = 0; m < S; ++m)
 #pragma unroll
         for (int j = 0; j < NTA; ++j)
 #pragma unroll
           for (int e = 0; e < 4; ++e) acc[m][j][e] = 0.0f;
     }
 
-    // Output slice m under tap dx reads halo plane m + dx: the six planes'
+    // Output slice m under tap dx reads halo plane m + dx: the S+2 planes'
     // A tiles of one (dy, dz) are loaded once and feed all three dx.
     const uint32_t hbase =
-        smem_u32(h_s + stage * T::STAGE_B + warp * HALO_B) + a_off;
+        smem_u32(h_s + stage * T::STAGE_B + warp * G::BPW * HALO_B) + a_off;
     const uint32_t wbase =
         smem_u32(w_s + (p.w_resident ? kc : stage) * wbuf_b) + b_off;
 #pragma unroll
     for (int dy = 0; dy < 3; ++dy) {
 #pragma unroll
       for (int dz = 0; dz < 3; ++dz) {
-        const uint32_t aaddr =
-            hbase + (dy * 6 + dz) * CELL_B + ((a_half ^ (dy & 1)) << 4);
-        uint32_t a[6][4];
+        uint32_t aaddr;
+        if constexpr (S == 4) {
+          aaddr = hbase + (dy * 6 + dz) * CELL_B + ((a_half ^ (dy & 1)) << 4);
+        } else {   // the z swizzle of odd bricks acts on the shifted z
+          const int hz = az + dz;
+          aaddr = hbase + (dy * HS + (hz ^ ((rb & 1) << 1)) - az) * CELL_B +
+                  ((a_half ^ (dy & 1)) << 4);
+        }
+        uint32_t a[HS][4];
 #pragma unroll
-        for (int pl = 0; pl < 6; ++pl) ldsm_x4(a[pl], aaddr + pl * 36 * CELL_B);
+        for (int pl = 0; pl < HS; ++pl)
+          ldsm_x4(a[pl], aaddr + pl * G::PLANE * CELL_B);
 #pragma unroll
         for (int jp = 0; jp < NTA / 2; ++jp) {
           if (2 * jp < nt) {
@@ -443,13 +519,13 @@ __global__ void __launch_bounds__(Tile<TB>::THREADS) fused_tc(const Params p) {
 #pragma unroll
             for (int dx = 0; dx < 3; ++dx)
 #pragma unroll
-              for (int m = 0; m < 4; ++m)
+              for (int m = 0; m < S; ++m)
                 mma_bf16(acc[m][2 * jp], a[m + dx], b[dx][0], b[dx][1]);
             if (2 * jp + 1 < nt) {
 #pragma unroll
               for (int dx = 0; dx < 3; ++dx)
 #pragma unroll
-                for (int m = 0; m < 4; ++m)
+                for (int m = 0; m < S; ++m)
                   mma_bf16(acc[m][2 * jp + 1], a[m + dx], b[dx][2], b[dx][3]);
             }
           }
@@ -462,19 +538,40 @@ __global__ void __launch_bounds__(Tile<TB>::THREADS) fused_tc(const Params p) {
       if (s + 1 < steps) prologue_cells(kc1, i1, stage ^ 1);
 
     if (last) {
-      const long long brick = tile_of(i) * TB + warp;
-      if (brick < p.rows) {
-        OutT* o = static_cast<OutT*>(p.out) +
-                  (brick * 64 + (lane >> 2)) * p.cout + n0 + (lane & 3) * 2;
+      if constexpr (S == 4) {
+        const long long brick = tile_of(i) * TB + warp;
+        if (brick < p.rows) {
+          OutT* o = static_cast<OutT*>(p.out) +
+                    (brick * 64 + (lane >> 2)) * p.cout + n0 + (lane & 3) * 2;
 #pragma unroll
-        for (int m = 0; m < 4; ++m)
+          for (int m = 0; m < 4; ++m)
 #pragma unroll
-          for (int j = 0; j < NTA; ++j)
-            if (j < nt) {
-              OutT* q = o + (long long)(m * 16) * p.cout + j * 8;
-              store2(q, acc[m][j][0], acc[m][j][1]);
-              store2(q + 8LL * p.cout, acc[m][j][2], acc[m][j][3]);
-            }
+            for (int j = 0; j < NTA; ++j)
+              if (j < nt) {
+                OutT* q = o + (long long)(m * 16) * p.cout + j * 8;
+                store2(q, acc[m][j][0], acc[m][j][1]);
+                store2(q + 8LL * p.cout, acc[m][j][2], acc[m][j][3]);
+              }
+        }
+      } else {   // accumulator rows g and g + 8: brick g / S^2 and 2 later
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int row = (lane >> 2) + 8 * h;
+          const long long brick =
+              tile_of(i) * TB + warp * G::BPW + row / G::SLICE;
+          if (brick < p.rows) {
+            OutT* o = static_cast<OutT*>(p.out) +
+                      (brick * G::CELLS + row % G::SLICE) * p.cout + n0 +
+                      (lane & 3) * 2;
+#pragma unroll
+            for (int m = 0; m < S; ++m)
+#pragma unroll
+              for (int j = 0; j < NTA; ++j)
+                if (j < nt)
+                  store2(o + (long long)(m * G::SLICE) * p.cout + j * 8,
+                         acc[m][j][2 * h], acc[m][j][2 * h + 1]);
+          }
+        }
       }
     }
     kc = kc1;
@@ -483,7 +580,8 @@ __global__ void __launch_bounds__(Tile<TB>::THREADS) fused_tc(const Params p) {
 }
 
 // cout chunk per block, shared-memory layout and size for a shape; returns
-// the bricks per tile
+// the warps per block
+template <int S>
 int plan(int cin, int cout, bool pro, Params* p, int* smem_bytes) {
   const int nchunks = (cout + 8 * NT_MAX - 1) / (8 * NT_MAX);
   p->nc = ((cout + nchunks - 1) / nchunks + 7) / 8 * 8;
@@ -494,24 +592,25 @@ int plan(int cin, int cout, bool pro, Params* p, int* smem_bytes) {
   const int w_b = (p->w_resident ? p->nk : 2) * wbuf_b;
   // the prologue variant keeps a third tile of rulebook rows and two of
   // occupancy words
-  const int smem4 = (pro ? 3 : 2) * Tile<4>::NBR_INTS * 4 +
-                    (pro ? 2 * Tile<4>::OCC_B : 0) + w_b +
-                    2 * Tile<4>::STAGE_B;
+  using T4 = Tile<S, 4>;
+  using T8 = Tile<S, 8>;
+  const int smem4 = (pro ? 3 : 2) * T4::NBR_INTS * 4 +
+                    (pro ? 2 * T4::OCC_B : 0) + w_b + 2 * T4::STAGE_B;
   if (smem4 <= TWO_BLOCKS_B) {
     *smem_bytes = smem4;
     return 4;
   }
-  *smem_bytes = (pro ? 3 : 2) * Tile<8>::NBR_INTS * 4 +
-                (pro ? 2 * Tile<8>::OCC_B : 0) + w_b + 2 * Tile<8>::STAGE_B;
+  *smem_bytes = (pro ? 3 : 2) * T8::NBR_INTS * 4 +
+                (pro ? 2 * T8::OCC_B : 0) + w_b + 2 * T8::STAGE_B;
   return 8;
 }
 
-template <typename OutT, int TB, bool PRO, int NTA = NT_MAX>
+template <typename OutT, int S, int WB, bool PRO, int NTA = NT_MAX>
 int launch(Params p, int smem_bytes, cudaStream_t s) {
-  using T = Tile<TB>;
-  p.ntiles = (p.rows + TB - 1) / TB;
+  using T = Tile<S, WB>;
+  p.ntiles = (p.rows + T::TB - 1) / T::TB;
   cudaError_t e = cudaFuncSetAttribute(
-      fused_tc<OutT, TB, PRO, NTA>,
+      fused_tc<OutT, S, WB, PRO, NTA>,
       cudaFuncAttributeMaxDynamicSharedMemorySize,
       T::MAX_SMEM + (PRO ? T::NBR_INTS * 4 : 0));
   if (e != cudaSuccess) return (int)e;
@@ -521,54 +620,75 @@ int launch(Params p, int smem_bytes, cudaStream_t s) {
                                   dev)) != cudaSuccess)
     return (int)e;
   if ((e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-           &per_sm, fused_tc<OutT, TB, PRO, NTA>, T::THREADS, smem_bytes)) !=
-      cudaSuccess)
+           &per_sm, fused_tc<OutT, S, WB, PRO, NTA>, T::THREADS,
+           smem_bytes)) != cudaSuccess)
     return (int)e;
   if (per_sm < 1) return (int)cudaErrorLaunchOutOfResources;
   const int ny = (p.cout + p.nc - 1) / p.nc;
   long long gx = (long long)per_sm * sms / ny;   // one resident wave
   if (gx < 1) gx = 1;
   if (gx > p.ntiles) gx = p.ntiles;
-  fused_tc<OutT, TB, PRO, NTA><<<dim3((unsigned)gx, (unsigned)ny),
-                                 T::THREADS, smem_bytes, s>>>(p);
+  fused_tc<OutT, S, WB, PRO, NTA><<<dim3((unsigned)gx, (unsigned)ny),
+                                    T::THREADS, smem_bytes, s>>>(p);
   return (int)cudaGetLastError();
+}
+
+template <int S, bool PRO, int NTA = NT_MAX>
+int dispatch(const Params& p, int wb, int smem_bytes, int out_dtype,
+             cudaStream_t s) {
+  if (wb == 4)
+    return out_dtype == 1 ? launch<bf16, S, 4, PRO, NTA>(p, smem_bytes, s)
+                          : launch<float, S, 4, PRO, NTA>(p, smem_bytes, s);
+  return out_dtype == 1 ? launch<bf16, S, 8, PRO, NTA>(p, smem_bytes, s)
+                        : launch<float, S, 8, PRO, NTA>(p, smem_bytes, s);
+}
+
+template <int S>
+int run(Params p, bool pro, int out_dtype, cudaStream_t s) {
+  int smem_bytes = 0;
+  const int wb = plan<S>(p.cin, p.cout, pro, &p, &smem_bytes);
+  if (!pro) return dispatch<S, false>(p, wb, smem_bytes, out_dtype, s);
+  return p.nc <= 16 ? dispatch<S, true, 2>(p, wb, smem_bytes, out_dtype, s)
+                    : dispatch<S, true>(p, wb, smem_bytes, out_dtype, s);
 }
 
 }  // namespace
 
+// 1 if the kernel is built for bricks of `side`, else 0.
+extern "C" int doda_banded_conv_fused_has_side(int side) {
+  return side == 2 || side == 4;
+}
+
 // Dynamic shared memory of a launch at (cin, cout), with or without the
-// prologue, bytes; -1 if refused.
-extern "C" int doda_banded_conv_fused_smem(int cin, int cout, int pro) {
+// prologue, on bricks of `side`, bytes; -1 if refused.
+extern "C" int doda_banded_conv_fused_smem(int cin, int cout, int pro,
+                                           int side) {
   if (cin <= 0 || cin % 8 || cout <= 0 || cout % 8) return -1;
   Params p;
   int smem_bytes = 0;
-  plan(cin, cout, pro != 0, &p, &smem_bytes);
+  if (side == 4)
+    plan<4>(cin, cout, pro != 0, &p, &smem_bytes);
+  else if (side == 2)
+    plan<2>(cin, cout, pro != 0, &p, &smem_bytes);
+  else
+    return -1;
   return smem_bytes;
 }
 
-template <bool PRO, int NTA = NT_MAX>
-int dispatch(const Params& p, int tb, int smem_bytes, int out_dtype,
-             cudaStream_t s) {
-  if (tb == 4)
-    return out_dtype == 1 ? launch<bf16, 4, PRO, NTA>(p, smem_bytes, s)
-                          : launch<float, 4, PRO, NTA>(p, smem_bytes, s);
-  return out_dtype == 1 ? launch<bf16, 8, PRO, NTA>(p, smem_bytes, s)
-                        : launch<float, 8, PRO, NTA>(p, smem_bytes, s);
-}
-
-// out_dtype: 0 = float32, 1 = bfloat16; operands are bfloat16. scale, bias
-// (cin,) bf16 and occw (rows,) uint64 are all given (the prologue variant)
-// or all null. Returns cudaGetLastError().
+// out_dtype: 0 = float32, 1 = bfloat16; operands are bfloat16; side: the
+// brick side, 2 or 4. scale, bias (cin,) bf16 and occw (rows,) uint64 are
+// all given (the prologue variant) or all null. Returns cudaGetLastError().
 extern "C" int doda_banded_conv_fused(const void* x2, const void* nbr,
                                       const void* w, void* out,
                                       long long rows, int cin, int cout,
-                                      int out_dtype, const void* scale,
-                                      const void* bias, const void* occw,
-                                      void* stream) {
+                                      int out_dtype, int side,
+                                      const void* scale, const void* bias,
+                                      const void* occw, void* stream) {
   const bool pro = scale != nullptr;
   if (rows <= 0 || rows > 0x7fffffffLL || cin <= 0 || cin % 8 || cout <= 0 ||
       cout % 8 || (out_dtype != 0 && out_dtype != 1) ||
-      (bias != nullptr) != pro || (occw != nullptr) != pro)
+      (side != 2 && side != 4) || (bias != nullptr) != pro ||
+      (occw != nullptr) != pro)
     return (int)cudaErrorInvalidValue;
   Params p;
   p.x = static_cast<const bf16*>(x2);
@@ -582,10 +702,7 @@ extern "C" int doda_banded_conv_fused(const void* x2, const void* nbr,
   p.ntiles = 0;
   p.cin = cin;
   p.cout = cout;
-  int smem_bytes = 0;
-  const int tb = plan(cin, cout, pro, &p, &smem_bytes);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (!pro) return dispatch<false>(p, tb, smem_bytes, out_dtype, s);
-  return p.nc <= 16 ? dispatch<true, 2>(p, tb, smem_bytes, out_dtype, s)
-                    : dispatch<true>(p, tb, smem_bytes, out_dtype, s);
+  return side == 4 ? run<4>(p, pro, out_dtype, s)
+                   : run<2>(p, pro, out_dtype, s);
 }

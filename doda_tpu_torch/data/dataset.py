@@ -224,7 +224,7 @@ class Dataset:
         return len(self.data_list)
 
     def check_brick_capacity(self, batch, brick_cap, logger=None,
-                             num_levels=1):
+                             num_levels=1, brick=4):
         """One-shot overflow audit across ALL U-Net levels: count each
         scene's occupied bricks at every stride-2 level (host numpy)
         against the model's capacity schedule
@@ -235,8 +235,11 @@ class Dataset:
         truncated scene. Level 0 dominates on ScanNet-shaped data, but
         denser datasets (e.g. S3DIS) can overflow deep levels first.
         Bricks are counted as unique packed int64 keys, which gives the JAX
-        package's counts ~30x faster than its row-wise ``np.unique``."""
-        from ..ops.bricks import BRICK
+        package's counts ~30x faster than its row-wise ``np.unique``. They
+        are bricks of side ``brick``, the model's (the JAX package's
+        ``DODA_BRICK``); the schedule is the same at every side, as there,
+        so at side 2 it drops bricks on rooms whose side-4 count it
+        clears, and this audit warns."""
         from ..models.unet import default_brick_caps
         caps = default_brick_caps(brick_cap, max(num_levels, 1))
         coords = np.asarray(batch.points.coords)
@@ -246,7 +249,7 @@ class Dataset:
             c = coords[b][valid[b]]
             if len(c) == 0:
                 continue
-            bc = c.astype(np.int64) // BRICK
+            bc = c.astype(np.int64) // brick
             for lvl in range(len(caps)):
                 lc = bc >> lvl
                 lc -= lc.min(0)

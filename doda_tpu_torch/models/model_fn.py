@@ -66,14 +66,18 @@ def _n_classes(cfg) -> int:
 def build_model(cfg, device="cuda", dtype=torch.bfloat16,
                 sm_max_cin: int = 0, train: bool = False,
                 fuse_norm: bool = False, conv_engine: str = '2d',
-                deep_xla_rows: int = 0, remat: str = 'off') -> SparseConvNet:
+                deep_xla_rows: int = 0, remat: str = 'off',
+                brick: int = 4) -> SparseConvNet:
     """Model factory from the cfg schema (cfg keys MODEL.BACKBONE.*,
     cfgs/scannet/spconv.yaml) on ``device``, in eval mode unless ``train``.
     ``sm_max_cin`` picks the subm-conv kernel per conv, ``fuse_norm``
     turns on the fused norm + ReLU engine, ``conv_engine`` ('2d',
     'slab', 'xla', 'oracle') and ``deep_xla_rows`` pick the subm-conv
-    engine, and ``remat`` ('off', 'dots', 'all', 'mix', 'mixN') is the
-    blocks' memory policy in training (see ``unet.py``)."""
+    engine, ``remat`` ('off', 'dots', 'all', 'mix', 'mixN') is the
+    blocks' memory policy in training and ``brick`` the brick side (the
+    JAX package's ``DODA_BRICK``; an even side, 4 by default) that the
+    step makers build their plans at (see ``unet.py``). The parameters are
+    the same at every side."""
     dev = resolve_device(device)
     bk = cfg.MODEL.BACKBONE
     in_ch = bk.in_channel + (3 if bk.get('use_xyz', False) else 0)
@@ -91,15 +95,17 @@ def build_model(cfg, device="cuda", dtype=torch.bfloat16,
         conv_engine=conv_engine,
         deep_xla_rows=deep_xla_rows,
         remat=remat,
+        brick=brick,
     )
     return model.to(dev).train(train)
 
 
 def plan_for(model: SparseConvNet, batch: PointBatch, b_caps, device):
-    """The level plan of ``batch`` that ``model`` reads: with the slab maps
-    under ``conv_engine='slab'`` only."""
+    """The level plan of ``batch`` that ``model`` reads: at its brick side,
+    with the slab maps under ``conv_engine='slab'`` only."""
     return build_level_plan(batch.coords, batch.valid, b_caps, device,
-                            slabs=model.conv_engine == 'slab')
+                            slabs=model.conv_engine == 'slab',
+                            brick=model.brick)
 
 
 def model_input(cfg, batch: PointBatch) -> torch.Tensor:

@@ -70,6 +70,14 @@ norms, ReLUs, masks and the residual add but launches no conv; 'mixN' is
 convs with their norms, the skip concat and the head are never replayed.
 The replay holds the norms' running statistics (``running_stats_held``),
 so a step moves them once under every policy; results equal 'off''s.
+
+``brick`` is the brick side, the counterpart of the JAX package's
+``DODA_BRICK`` (4 by default, as there): ``build_level_plan(...,
+brick=s)`` builds the plan in bricks of s^3 cells and the net reads s
+from the plan's occupancy; a plan of another side than the net's raises.
+The parameters do not depend on it, so one set of weights runs at every
+side. K1's kernels run at sides 2 and 4; K2 (``sm_max_cin > 0``) at side 4
+only.
 """
 
 from __future__ import annotations
@@ -85,9 +93,9 @@ from torch.utils.checkpoint import (checkpoint,
                                     create_selective_checkpoint_contexts,
                                     noop_context_fn, set_checkpoint_early_stop)
 
-from ..ops.bricks import (CELLS, BrickGrid, brickify,
-                          build_brick_downsample, build_brick_rulebook,
-                          cell_feats_2d, subm_conv3, subm_conv3_v2)
+from ..ops.bricks import (BrickGrid, brickify, build_brick_downsample,
+                          build_brick_rulebook, cell_feats_2d, geometry,
+                          side_of, subm_conv3, subm_conv3_v2)
 from ..ops.banded_conv import occ_words
 from ..ops.bricks2d import (conv1x1_2d, down_conv2_2d, down_conv2_norm_2d,
                             halo_index, sm_index, subm_conv3_2d,
@@ -117,7 +125,7 @@ class LevelPlan(NamedTuple):
     """Per-batch index structures; every tensor has a leading scene dim.
 
     grid0 : BrickGrid at level 0 (holds the point <-> cell maps)
-    occs  : tuple of (Batch, cap_l, 64) bool
+    occs  : tuple of (Batch, cap_l, s^3) bool, s the brick side
     nbrs  : tuple of (Batch, cap_l, 27) int32
     downs : tuple of BrickDown between level l and l+1
     slabs : tuple of SlabMaps for the levels < SLAB_LEVELS, or () where
@@ -161,8 +169,8 @@ def default_slab_caps(b_caps, floor: int = 64) -> tuple:
     return tuple(caps)
 
 
-def _scene_plan(coords, valid, b_caps, slabs=False):
-    grid0 = brickify(coords, valid, b_caps[0])
+def _scene_plan(coords, valid, b_caps, slabs=False, brick: int = 4):
+    grid0 = brickify(coords, valid, b_caps[0], brick)
     occs = [grid0.occ]
     nbrs = [build_brick_rulebook(grid0.table)]
     downs = []
@@ -190,14 +198,17 @@ def _stack(items):
 
 
 def build_level_plan(coords, valid, b_caps: Sequence[int],
-                     device="cuda", slabs: bool = False) -> LevelPlan:
-    """Batched plan: coords (Batch, N, 3) voxel coords, valid (Batch, N).
+                     device="cuda", slabs: bool = False,
+                     brick: int = 4) -> LevelPlan:
+    """Batched plan: coords (Batch, N, 3) voxel coords, valid (Batch, N),
+    in bricks of side ``brick``, with ``b_caps[l]`` bricks at level l.
     ``slabs`` also builds the slab maps of the levels < SLAB_LEVELS, which
     only ``conv_engine='slab'`` reads."""
     dev = resolve_device(device)
     coords = torch.as_tensor(coords, device=dev).to(torch.int32)
     valid = torch.as_tensor(valid, device=dev).to(torch.bool)
-    return _stack([_scene_plan(coords[s], valid[s], tuple(b_caps), slabs)
+    return _stack([_scene_plan(coords[s], valid[s], tuple(b_caps), slabs,
+                               brick)
                    for s in range(coords.shape[0])])
 
 
@@ -207,9 +218,9 @@ def build_level_plan(coords, valid, b_caps: Sequence[int],
 # ---------------------------------------------------------------------------
 
 class FlatLevel(NamedTuple):
-    occ: torch.Tensor     # (Batch*cap, 64) bool
+    occ: torch.Tensor     # (Batch*cap, s^3) bool
     nbr: torch.Tensor     # (Batch*cap, 27) int32, null == Batch*cap
-    halo: torch.Tensor    # (Batch*cap, 216) int32 from halo_index(nbr)
+    halo: torch.Tensor    # (Batch*cap, (s+2)^3) int32 from halo_index(nbr)
     sm: torch.Tensor | None = None   # (Batch*cap, 176) from sm_index(nbr),
     #                                  only where the level has a K2 conv
     occw: torch.Tensor | None = None  # (Batch*cap,) int64 occ_words(occ),
@@ -237,16 +248,17 @@ def flatten_plan(plan: LevelPlan, sm_levels=(), words: bool = False):
     levels listed in ``sm_levels`` also get their source-major index, and
     with ``words`` every level its occupancy words (the prologue K1's)."""
     levels, downs = [], []
+    side = side_of(plan.occs[0].shape[-1])
     for lvl, (occ, nbr) in enumerate(zip(plan.occs, plan.nbrs)):
         flat_nbr = _flat_ids(nbr, occ.shape[1])
-        flat_occ = occ.reshape(-1, CELLS)
+        flat_occ = occ.reshape(-1, occ.shape[-1])
         slab = None
         if lvl < len(plan.slabs):
             sm_ = plan.slabs[lvl]
             slab = flatten_slab(sm_, sm_.row2slice.shape[1], occ.shape[1])
         levels.append(FlatLevel(
-            occ=flat_occ, nbr=flat_nbr, halo=halo_index(flat_nbr),
-            sm=sm_index(flat_nbr) if lvl in sm_levels else None,
+            occ=flat_occ, nbr=flat_nbr, halo=halo_index(flat_nbr, side),
+            sm=sm_index(flat_nbr, side) if lvl in sm_levels else None,
             occw=occ_words(flat_occ) if words else None, slab=slab))
     for lvl, ds in enumerate(plan.downs):
         cap_c = plan.occs[lvl].shape[1]
@@ -333,8 +345,8 @@ def _checkpointed(block, x, lv, domain, policy: str):
 
 def _fsubm(x2, lv: FlatLevel, w, dtype, sm_max_cin: int, conv_engine: str,
            deep_xla_rows: int):
-    """The subm conv of x2 (rows, 64*cin) on the engine ``subm_engine``
-    picks; (rows, 64*cout) in x2.dtype, masked."""
+    """The subm conv of x2 (rows, s^3*cin) on the engine ``subm_engine``
+    picks; (rows, s^3*cout) in x2.dtype, masked."""
     engine = subm_engine(conv_engine, lv.slab is not None, x2.shape[0],
                          deep_xla_rows)
     if engine == '2d':
@@ -344,7 +356,8 @@ def _fsubm(x2, lv: FlatLevel, w, dtype, sm_max_cin: int, conv_engine: str,
         return subm_conv3_slab(x2, lv.slab, w, dtype)
     rows = x2.shape[0]
     conv = subm_conv3_v2 if engine == 'xla' else subm_conv3
-    out = conv(x2.reshape(rows, CELLS, -1), lv.occ, lv.nbr, w, dtype)
+    out = conv(x2.reshape(rows, lv.occ.shape[1], -1), lv.occ, lv.nbr, w,
+               dtype)
     return out.reshape(rows, -1).to(x2.dtype)
 
 
@@ -418,10 +431,10 @@ class VGGBlock(_NormSubm):
 
 def _concat_channels(a: torch.Tensor, b: torch.Tensor, ca: int,
                      cb: int) -> torch.Tensor:
-    """Per-cell channel concat of two (rows, 64*C) tensors."""
-    rows = a.shape[0]
-    return torch.cat([a.reshape(rows, CELLS, ca), b.reshape(rows, CELLS, cb)],
-                     dim=2).reshape(rows, CELLS * (ca + cb))
+    """Per-cell channel concat of two (rows, cells*C) tensors."""
+    rows, cells = a.shape[0], a.shape[1] // ca
+    return torch.cat([a.reshape(rows, cells, ca), b.reshape(rows, cells, cb)],
+                     dim=2).reshape(rows, cells * (ca + cb))
 
 
 class UBlock(nn.Module):
@@ -505,12 +518,13 @@ class SparseConvNet(nn.Module):
                  dsnorm: bool = False, dtype=torch.bfloat16,
                  sm_max_cin: int = 0, fuse_norm: bool = False,
                  conv_engine: str = '2d', deep_xla_rows: int = 0,
-                 remat: str = 'off'):
+                 remat: str = 'off', brick: int = 4):
         super().__init__()
         if conv_engine not in CONV_ENGINES:
             raise ValueError(f'conv_engine {conv_engine!r} is none of '
                              f'{CONV_ENGINES}')
         remat_policy(remat, 0)                  # raises on a bad policy
+        self.brick = geometry(brick).side       # raises on an odd side
         self.remat = remat
         self.in_channel, self.mid_channel = in_channel, mid_channel
         self.num_levels, self.dtype = num_levels, dtype
@@ -523,7 +537,7 @@ class SparseConvNet(nn.Module):
         # level 0); their backwards run the flipped shapes p -> p, p -> 2p
         self.sm_levels = tuple(
             lvl for lvl, p in enumerate(planes)
-            if any(uses_sm(a, b, sm_max_cin) for a, b in
+            if any(uses_sm(a, b, sm_max_cin, brick) for a, b in
                    ((p, p), (2 * p, p), (p, 2 * p),
                     (in_channel, m) if lvl == 0 else (p, p))))
         self.unet = UBlock(planes, block_reps, block_residual, dsnorm, dtype,
@@ -577,11 +591,13 @@ class SparseConvNet(nn.Module):
             if engine != '2d':
                 fwd = bwd = engine
             else:
-                fwd = subm_route(cin, cout, self.dtype, self.sm_max_cin)
+                fwd = subm_route(cin, cout, self.dtype, self.sm_max_cin,
+                                 self.brick)
                 if self.fuse_norm and fwd == 'fused' \
                         and name != 'input_kernel':
                     fwd = 'prologue'
-                bwd = subm_route(cout, cin, self.dtype, self.sm_max_cin)
+                bwd = subm_route(cout, cin, self.dtype, self.sm_max_cin,
+                                 self.brick)
             if not backward:
                 counts[fwd] += 1
                 continue
@@ -604,18 +620,24 @@ class SparseConvNet(nn.Module):
         if self.conv_engine == 'slab' and not plan.slabs:
             raise ValueError("conv_engine='slab' needs a plan built with "
                              'slabs=True')
+        cells = plan.grid0.occ.shape[-1]
+        if cells != self.brick ** 3:
+            raise ValueError(f'a plan of bricks of {cells} cells for a net '
+                             f'of brick side {self.brick}: build it with '
+                             f'build_level_plan(..., brick={self.brick})')
         m = self.mid_channel
         bt, n = point_feats.shape[:2]
         cap0 = plan.grid0.occ.shape[1]
         levels, downs = flatten_plan(plan, self.sm_levels, self.fuse_norm)
 
-        # flat cell id of every point across the batch, null = rows*64
+        # flat cell id of every point across the batch, null = rows*cells
         gidx = plan.grid0.flat_index()
-        miss = gidx >= cap0 * CELLS
-        offs = torch.arange(bt, device=gidx.device)[:, None] * (cap0 * CELLS)
-        flat = torch.where(miss, bt * cap0 * CELLS, gidx + offs).reshape(-1)
+        miss = gidx >= cap0 * cells
+        offs = torch.arange(bt, device=gidx.device)[:, None] * (cap0 * cells)
+        flat = torch.where(miss, bt * cap0 * cells, gidx + offs).reshape(-1)
 
-        x = cell_feats_2d(point_feats.reshape(bt * n, -1), flat, bt * cap0)
+        x = cell_feats_2d(point_feats.reshape(bt * n, -1), flat, bt * cap0,
+                          cells=cells)
         x = _fsubm(x.to(self.dtype), levels[0], self.input_kernel,
                    self.dtype, self.sm_max_cin, self.conv_engine,
                    self.deep_xla_rows)
@@ -624,8 +646,8 @@ class SparseConvNet(nn.Module):
         # output norm folded past the voxel -> point gather (f32 affine)
         o_scale, o_bias = self.output_norm(x, levels[0].occ, domain,
                                            fold=True)
-        cells = x.reshape(bt * cap0 * CELLS, m)
-        gathered = cells.index_select(0, flat.clamp(max=cells.shape[0] - 1))
+        vox = x.reshape(bt * cap0 * cells, m)
+        gathered = vox.index_select(0, flat.clamp(max=vox.shape[0] - 1))
         gathered = gathered.reshape(bt, n, m).float()
         out_feats = torch.where(miss[..., None], 0,
                                 torch.relu(gathered * o_scale + o_bias))

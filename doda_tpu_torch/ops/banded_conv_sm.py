@@ -25,6 +25,11 @@ in bf16, from the raster weights w (27, cin, cout). It multiplies only the
 version is the first one on ``sm_weights(w)``. The bf16 route of
 ``bricks2d`` takes it at every cin; float32 operands keep the first
 version.
+
+The widths above are brick side 4's. The plain versions take the operands
+of ``bricks2d._assemble_sm`` at any even side (s slices of s^2 cells);
+both kernels are built for side 4 only, and a CUDA call at another side
+raises ValueError (``bricks2d.uses_sm`` refuses the route there first).
 """
 
 from __future__ import annotations
@@ -35,8 +40,10 @@ import functools
 import torch
 
 from . import _build
+from .banded_conv import kernel_side
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+SM_SIDES = (4,)            # the brick sides K2's kernels are built for
 _SLICES = 4                # x-slices of a brick
 _X, _GYZ, _GX = 64, 96, 40  # cells per operand row
 
@@ -48,14 +55,15 @@ def banded_conv_sm_plain(x, gyz, gxm, gxp, wc, wh, wx,
     x, gyz, gxm, gxp, wc, wh, wx = (t.float() for t in
                                     (x, gyz, gxm, gxp, wc, wh, wx))
     k16, k24 = wc.shape[1], wh.shape[1]
+    slices = x.shape[1] // k16          # the brick side
     outs = []
-    for xr in range(_SLICES):
+    for xr in range(slices):
         acc = 0
         for i in range(3):
             cx = xr + i - 1
             if cx == -1:
                 acc = acc + gxm @ wx[0]
-            elif cx == _SLICES:
+            elif cx == slices:
                 acc = acc + gxp @ wx[1]
             else:
                 acc = acc + x[:, cx * k16:(cx + 1) * k16] @ wc[i] \
@@ -123,6 +131,9 @@ def banded_conv_sm(x, gyz, gxm, gxp, wc, wh, wx, out_dtype) -> torch.Tensor:
     tensors = (x, gyz, gxm, gxp, wc, wh, wx)
     if all(t.device.type == 'cpu' for t in tensors):
         return banded_conv_sm_plain(*tensors, out_dtype)
+    if wc.dim() == 3 and wc.shape[1]:
+        kernel_side('banded_conv_sm', (x.shape[1] // wc.shape[1]) ** 3,
+                    SM_SIDES)
     _check(*tensors, out_dtype)
     b, cin = x.shape[0], x.shape[1] // _X
     n = wc.shape[2]
@@ -151,8 +162,11 @@ banded_conv_sm.launches = 0
 
 def banded_conv_sm_taps_plain(x, gyz, gxm, gxp, w, out_dtype) -> torch.Tensor:
     """The first version's plain arithmetic on ``sm_weights(w)``."""
+    from .bricks import side_of
     from .bricks2d import sm_weights
-    return banded_conv_sm_plain(x, gyz, gxm, gxp, *sm_weights(w), out_dtype)
+    side = side_of(x.shape[1] // w.shape[1])
+    return banded_conv_sm_plain(x, gyz, gxm, gxp, *sm_weights(w, side),
+                                out_dtype)
 
 
 @functools.lru_cache(maxsize=None)
@@ -216,6 +230,9 @@ def banded_conv_sm_taps(x, gyz, gxm, gxp, w, out_dtype) -> torch.Tensor:
     tensors = (x, gyz, gxm, gxp, w)
     if all(t.device.type == 'cpu' for t in tensors):
         return banded_conv_sm_taps_plain(*tensors, out_dtype)
+    if w.dim() == 3 and w.shape[1]:
+        kernel_side('banded_conv_sm_taps', x.shape[1] // w.shape[1],
+                    SM_SIDES)
     _check_taps(*tensors, out_dtype)
     b, cout = x.shape[0], w.shape[2]
     out = torch.empty((b, _SLICES * 16 * cout), dtype=out_dtype,

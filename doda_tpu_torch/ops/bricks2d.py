@@ -3,7 +3,12 @@
 Port of ``doda_tpu/ops/bricks2d.py``, forward and backward. Activations are
 ``(rows, 64*C)`` with the channels of cell ``x*16 + y*4 + z`` at lanes
 ``[cell*C, (cell+1)*C)``; tables are flattened across the batch and the
-null id of a table equals its row count.
+null id of a table equals its row count. That is side 4, the default; at a
+brick side s (``bricks.geometry``) a row holds s^3 cells, a brick has s+2
+halo planes of (s+2)^2 cells and s output x-slices of s^2 cells, and every
+function here reads s from the widths of its operands (the occupancy's s^3,
+the halo table's (s+2)^3) or, where none tells, takes ``side``. The
+numbers below are side 4's.
 
 The submanifold 3^3 conv is a banded 1-D conv along the brick's x-slices:
 each brick gets six halo planes (x = -1, 0..3, +4), each a 6x6 (y', z')
@@ -69,12 +74,21 @@ import torch
 
 from .banded_conv import (NARROW_MAX_CIN, banded_conv, banded_conv_fused,
                           banded_conv_narrow, occ_words)
-from .banded_conv_sm import banded_conv_sm, banded_conv_sm_taps
-from .bricks import BRICK, CELLS, _H, WINDOWS
+from .banded_conv_sm import SM_SIDES, banded_conv_sm, banded_conv_sm_taps
+from .bricks import BRICK, geometry, side_of
 
 H = BRICK + 2
 PLANE = H * H               # 36 cells per halo plane
 OUTP = BRICK * BRICK        # 16 output cells per x-slice
+
+
+def halo_side_of(halo_cells: int) -> int:
+    """The brick side whose halo holds ``halo_cells`` = (side+2)^3 cells
+    (a ``halo_index`` table's width)."""
+    hs = round(halo_cells ** (1 / 3))
+    if hs ** 3 != halo_cells:
+        raise ValueError(f'{halo_cells} halo cells is no cube of a side')
+    return geometry(hs - 2).side
 
 
 def dir3_index(dx: int, dy: int, dz: int) -> int:
@@ -82,37 +96,40 @@ def dir3_index(dx: int, dy: int, dz: int) -> int:
     return ((dx + 1) * 3 + (dy + 1)) * 3 + (dz + 1)
 
 
-def _cell(x: int, y: int, z: int) -> int:
-    return x * BRICK * BRICK + y * BRICK + z
+def _cell(x: int, y: int, z: int, side: int = BRICK) -> int:
+    return x * side * side + y * side + z
 
 
 @functools.lru_cache(maxsize=None)
-def _halo_map():
-    """(rulebook column, cell) of each of the 6*36 halo cells, in
-    (x', y', z') raster order: plane x' = 0..5 holds brick x = x' - 1."""
+def _halo_map(side: int = BRICK):
+    """(rulebook column, cell) of each of the (s+2)^3 halo cells (6*36 at
+    side 4), in (x', y', z') raster order: plane x' = 0..s+1 holds brick
+    x = x' - 1."""
+    geometry(side)
+
     def split(h):
-        d = -1 if h < 0 else (1 if h >= BRICK else 0)
-        return d, h % BRICK
+        d = -1 if h < 0 else (1 if h >= side else 0)
+        return d, h % side
 
     cols, cells = [], []
-    for hx in range(-1, BRICK + 1):
-        for hy in range(-1, BRICK + 1):
-            for hz in range(-1, BRICK + 1):
+    for hx in range(-1, side + 1):
+        for hy in range(-1, side + 1):
+            for hz in range(-1, side + 1):
                 (dx, cx), (dy, cy), (dz, cz) = split(hx), split(hy), split(hz)
                 cols.append(dir3_index(dx, dy, dz))
-                cells.append(_cell(cx, cy, cz))
+                cells.append(_cell(cx, cy, cz, side))
     return np.asarray(cols, np.int64), np.asarray(cells, np.int64)
 
 
-def halo_index(nbr: torch.Tensor) -> torch.Tensor:
-    """(rows, 27) rulebook -> (rows, 216) int32 flat cell ids of the six
-    halo planes; absent neighbours -> rows*64, the zero row that
-    ``_assemble_p6`` appends."""
-    rows = nbr.shape[0]
+def halo_index(nbr: torch.Tensor, side: int = BRICK) -> torch.Tensor:
+    """(rows, 27) rulebook -> (rows, (s+2)^3) int32 flat cell ids of the
+    s+2 halo planes of bricks of ``side`` s (216 at side 4); absent
+    neighbours -> rows*s^3, the zero row that ``_assemble_p6`` appends."""
+    rows, cells_ = nbr.shape[0], geometry(side).cells
     cols, cells = (torch.as_tensor(a, device=nbr.device)
-                   for a in _halo_map())
+                   for a in _halo_map(side))
     src = nbr[:, cols].long()
-    flat = torch.where(src < rows, src * CELLS + cells, rows * CELLS)
+    flat = torch.where(src < rows, src * cells_ + cells, rows * cells_)
     return flat.to(torch.int32)
 
 
@@ -161,137 +178,171 @@ def _pro_backward(x2, h, scale, dh, compute_dtype):
 
 def _assemble_p6(x2: torch.Tensor, halo: torch.Tensor, compute_dtype,
                  pro=None) -> torch.Tensor:
-    """(rows, 64*cin) -> (rows, 6, 36*cin) halo planes in compute_dtype.
+    """(rows, s^3*cin) -> (rows, s+2, (s+2)^2*cin) halo planes in
+    compute_dtype ((rows, 6, 36*cin) at side 4; s from the width of
+    ``halo``).
 
     ``pro = (scale, bias, occ)``: the planes of the prologue's output, the
     gather of ``pro_full`` (an absent neighbour's cells are zero either
     way)."""
+    g = geometry(halo_side_of(halo.shape[1]))
     rows, lanes = x2.shape
-    cin = lanes // CELLS
+    cin = lanes // g.cells
     if pro is not None:
         x2 = pro_full(x2, pro, cin, compute_dtype)
-    x = x2.to(compute_dtype).reshape(rows * CELLS, cin)
+    x = x2.to(compute_dtype).reshape(rows * g.cells, cin)
     x = torch.cat([x, x.new_zeros(1, cin)])
-    return x.index_select(0, halo.reshape(-1)).reshape(rows, 6, PLANE * cin)
+    return x.index_select(0, halo.reshape(-1)).reshape(rows, g.halo_side,
+                                                       g.plane * cin)
 
 
 @functools.lru_cache(maxsize=None)
-def _band_np():
-    """One-hot map (3, 36, 16, 27): tap k of output cell (y, z) reads
-    plane cell (y + dy + 1, z + dz + 1) of plane x + i."""
-    m = np.zeros((3, PLANE, OUTP, 27), np.float32)
+def _band_np(side: int = BRICK):
+    """One-hot map (3, (s+2)^2, s^2, 27) ((3, 36, 16, 27) at side 4): tap
+    k of output cell (y, z) reads plane cell (y + dy + 1, z + dz + 1) of
+    plane x + i."""
+    g = geometry(side)
+    m = np.zeros((3, g.plane, g.slice_cells, 27), np.float32)
     for i in range(3):
-        for y in range(BRICK):
-            for z in range(BRICK):
+        for y in range(side):
+            for z in range(side):
                 for dy in (-1, 0, 1):
                     for dz in (-1, 0, 1):
                         yh, zh = y + dy + 1, z + dz + 1
                         k = i * 9 + (dy + 1) * 3 + (dz + 1)
-                        m[i, yh * H + zh, y * BRICK + z, k] = 1.0
+                        m[i, yh * g.halo_side + zh, y * side + z, k] = 1.0
     return m
 
 
 @functools.lru_cache(maxsize=None)
-def _band_nonzero():
-    return tuple(np.nonzero(_band_np()))
+def _band_nonzero(side: int = BRICK):
+    return tuple(np.nonzero(_band_np(side)))
 
 
-def banded_weights(w: torch.Tensor) -> torch.Tensor:
-    """(27, cin, cout) raster (dx, dy, dz) -> (3, 36*cin, 16*cout).
+def banded_weights(w: torch.Tensor, side: int = BRICK) -> torch.Tensor:
+    """(27, cin, cout) raster (dx, dy, dz) -> (3, (s+2)^2*cin, s^2*cout)
+    at brick side s ((3, 36*cin, 16*cout) at side 4).
 
     Placement only (no arithmetic), so it is exact in any dtype."""
+    g = geometry(side)
     cin, cout = w.shape[1], w.shape[2]
     i, q, r, k = (torch.as_tensor(a, device=w.device)
-                  for a in _band_nonzero())
-    wb = w.new_zeros((3, PLANE, cin, OUTP, cout))
+                  for a in _band_nonzero(side))
+    wb = w.new_zeros((3, g.plane, cin, g.slice_cells, cout))
     wb[i, q, :, r, :] = w[k]
-    return wb.reshape(3, PLANE * cin, OUTP * cout)
+    return wb.reshape(3, g.plane * cin, g.slice_cells * cout)
 
 
 def _mask(out: torch.Tensor, occ: torch.Tensor, c: int) -> torch.Tensor:
-    """Zero the lanes of inactive cells of a (rows, 64*c) tensor."""
-    rows = out.shape[0]
-    return torch.where(occ[:, :, None], out.reshape(rows, CELLS, c),
-                       0).reshape(rows, CELLS * c)
+    """Zero the lanes of inactive cells of a (rows, cells*c) tensor."""
+    rows, cells = occ.shape
+    return torch.where(occ[:, :, None], out.reshape(rows, cells, c),
+                       0).reshape(rows, cells * c)
 
 
 # ---------------------------------------------------------------------------
 # source-major operands and weights (kernel K2)
 # ---------------------------------------------------------------------------
 
-# in-plane halo positions of one x-slice in gyz order: the four 4-cell edge
-# runs (z-1, z+1, y-1, y+1), then the four corners; runs are padded from 20
-# to 24 cells (zero weights) and x-planes from 36 to 40, as in the JAX
-# package, so the two packages' operands and weights are interchangeable.
-_R = range(BRICK)
-_H_LIST = ([(y, -1) for y in _R] + [(y, BRICK) for y in _R]
-           + [(-1, z) for z in _R] + [(BRICK, z) for z in _R]
-           + [(-1, -1), (-1, BRICK), (BRICK, -1), (BRICK, BRICK)])
-RUN = len(_H_LIST) + 4          # 24 cells per padded x-run of gyz
-XPAD = PLANE + 4                # x-plane rows padded 36 -> 40 cells
-SM_CELLS = BRICK * RUN + 2 * XPAD   # 176 gathered cells per brick
+@functools.lru_cache(maxsize=None)
+def _sm_layout(side: int = BRICK):
+    """K2's operand layout at brick side s: (in-plane halo positions of
+    one x-slice in gyz order, cells of a padded gyz x-run, cells of a
+    padded x-plane, cells gathered a brick). The positions are the four
+    s-cell edge runs (z-1, z+1, y-1, y+1), then the four corners; runs are
+    padded by 4 cells (20 -> 24 at side 4, zero weights) and x-planes by 4
+    (36 -> 40), as in the JAX package, so the two packages' operands and
+    weights are interchangeable."""
+    g = geometry(side)
+    r = range(side)
+    h_list = ([(y, -1) for y in r] + [(y, side) for y in r]
+              + [(-1, z) for z in r] + [(side, z) for z in r]
+              + [(-1, -1), (-1, side), (side, -1), (side, side)])
+    run, xpad = len(h_list) + 4, g.plane + 4
+    return tuple(h_list), run, xpad, side * run + 2 * xpad
+
+
+_H_LIST, RUN, XPAD, SM_CELLS = _sm_layout()   # side 4: 24, 40 and 176
 
 
 @functools.lru_cache(maxsize=None)
-def _sm_cols():
-    """Column of ``halo_index`` for each of the 176 source-major cells, -1
-    for the zero padding: [gyz 4 x 24 | gxm 40 | gxp 40]."""
+def _sm_cols(side: int = BRICK):
+    """Column of ``halo_index`` for each source-major cell (176 at side 4),
+    -1 for the zero padding: [gyz s x run | gxm xpad | gxp xpad]."""
+    g = geometry(side)
+    h_list, _, _, _ = _sm_layout(side)
     cols = []
-    for x in range(BRICK):
-        cols += [(x + 1) * PLANE + (hy + 1) * H + (hz + 1)
-                 for hy, hz in _H_LIST] + [-1] * 4
-    for plane in (0, BRICK + 1):
-        cols += [plane * PLANE + q for q in range(PLANE)] + [-1] * 4
+    for x in range(side):
+        cols += [(x + 1) * g.plane + (hy + 1) * g.halo_side + (hz + 1)
+                 for hy, hz in h_list] + [-1] * 4
+    for plane in (0, side + 1):
+        cols += [plane * g.plane + q for q in range(g.plane)] + [-1] * 4
     return np.asarray(cols, np.int64)
 
 
-def sm_index(nbr: torch.Tensor) -> torch.Tensor:
+def sm_index(nbr: torch.Tensor, side: int = BRICK) -> torch.Tensor:
     """(rows, 27) rulebook -> (rows, 176) int32 flat cell ids of the
-    source-major operands; absent neighbours and padding -> rows*64."""
+    source-major operands (side 4; ``_sm_layout``'s count at another
+    side); absent neighbours and padding -> rows*s^3."""
     rows = nbr.shape[0]
-    cols = torch.as_tensor(_sm_cols(), device=nbr.device)
-    picked = halo_index(nbr)[:, cols.clamp(min=0)]
-    return torch.where(cols >= 0, picked, rows * CELLS).to(torch.int32)
+    cols = torch.as_tensor(_sm_cols(side), device=nbr.device)
+    picked = halo_index(nbr, side)[:, cols.clamp(min=0)]
+    return torch.where(cols >= 0, picked,
+                       rows * geometry(side).cells).to(torch.int32)
 
 
-def _assemble_sm(x2: torch.Tensor, sm: torch.Tensor, compute_dtype):
-    """(rows, 64*cin) -> (x, gyz (rows, 96*cin), gxm, gxp (rows, 40*cin))
-    in compute_dtype, with one row gather; gyz, gxm and gxp are column
-    slices of the gathered (rows, 176*cin) buffer (unit inner stride)."""
+def _assemble_sm(x2: torch.Tensor, sm: torch.Tensor, compute_dtype,
+                 side: int = BRICK):
+    """(rows, s^3*cin) -> (x, gyz (rows, 96*cin), gxm, gxp (rows, 40*cin))
+    in compute_dtype (side 4's widths), with one row gather; gyz, gxm and
+    gxp are column slices of the gathered (rows, 176*cin) buffer (unit
+    inner stride)."""
+    _, run, xpad, sm_cells = _sm_layout(side)
+    ncell = geometry(side).cells
     rows, lanes = x2.shape
-    cin = lanes // CELLS
+    cin = lanes // ncell
     x = x2.to(compute_dtype)
-    cells = torch.cat([x.reshape(rows * CELLS, cin), x.new_zeros(1, cin)])
-    g = cells.index_select(0, sm.reshape(-1)).reshape(rows, SM_CELLS * cin)
-    a, b = BRICK * RUN * cin, (BRICK * RUN + XPAD) * cin
+    cells = torch.cat([x.reshape(rows * ncell, cin), x.new_zeros(1, cin)])
+    g = cells.index_select(0, sm.reshape(-1)).reshape(rows, sm_cells * cin)
+    a, b = side * run * cin, (side * run + xpad) * cin
     return x, g[:, :a], g[:, a:b], g[:, b:]
 
 
-def sm_weights(w: torch.Tensor):
+def sm_weights(w: torch.Tensor, side: int = BRICK):
     """(27, cin, cout) -> wc (3, 16cin, 16cout), wh (3, 24cin, 16cout),
-    wx (2, 40cin, 16cout): rows of the banded weights selected and
-    zero-padded to match the operands of ``_assemble_sm``. Placement only,
-    so the products are the rows6 form's, term for term."""
+    wx (2, 40cin, 16cout) at side 4 (``_sm_layout``'s widths at another
+    side): rows of the banded weights selected and zero-padded to match
+    the operands of ``_assemble_sm``. Placement only, so the products are
+    the rows6 form's, term for term."""
+    g = geometry(side)
+    h_list, _, _, _ = _sm_layout(side)
     cin = w.shape[1]
-    wb = banded_weights(w)
+    wb = banded_weights(w, side)
     n = wb.shape[2]
-    wb4 = wb.reshape(3, PLANE, cin, n)
-    idx_c = torch.as_tensor([(cy + 1) * H + (cz + 1) for cy in range(BRICK)
-                             for cz in range(BRICK)], device=w.device)
-    idx_h = torch.as_tensor([(hy + 1) * H + (hz + 1) for hy, hz in _H_LIST],
+    wb4 = wb.reshape(3, g.plane, cin, n)
+    idx_c = torch.as_tensor([(cy + 1) * g.halo_side + (cz + 1)
+                             for cy in range(side) for cz in range(side)],
                             device=w.device)
-    wc = wb4[:, idx_c].reshape(3, OUTP * cin, n)
-    wh = torch.cat([wb4[:, idx_h].reshape(3, len(_H_LIST) * cin, n),
+    idx_h = torch.as_tensor([(hy + 1) * g.halo_side + (hz + 1)
+                             for hy, hz in h_list], device=w.device)
+    wc = wb4[:, idx_c].reshape(3, g.slice_cells * cin, n)
+    wh = torch.cat([wb4[:, idx_h].reshape(3, len(h_list) * cin, n),
                     wb.new_zeros(3, 4 * cin, n)], dim=1)
     wx = torch.cat([torch.stack([wb[0], wb[2]]),
                     wb.new_zeros(2, 4 * cin, n)], dim=1)
     return wc, wh, wx
 
 
-def uses_sm(cin: int, cout: int, sm_max_cin: int) -> bool:
+def uses_sm(cin: int, cout: int, sm_max_cin: int, side: int = BRICK) -> bool:
     """Whether a (cin -> cout) subm conv runs on K2: the JAX package's
     ``DODA_SM=shallow`` rule with ``sm_max_cin`` for ``DODA_SM_MAXC``
-    (0 = K1 everywhere). K2 tiles its weights, so there is no size test."""
+    (0 = K1 everywhere). K2 tiles its weights, so there is no size test.
+    K2 is built for side 4 only: ``sm_max_cin > 0`` at another brick
+    side raises ValueError."""
+    if sm_max_cin > 0 and side not in SM_SIDES:
+        raise ValueError(f'brick side {side}: the sm route (K2, '
+                         f'sm_max_cin={sm_max_cin}) is built for side '
+                         f'{SM_SIDES[0]} only; use sm_max_cin=0')
     return cin <= sm_max_cin and cin % 16 == 0 and cout % 8 == 0
 
 
@@ -313,11 +364,14 @@ def uses_narrow(cin: int, cout: int, dtype) -> bool:
         and cout % 8 == 0
 
 
-def subm_route(cin: int, cout: int, dtype, sm_max_cin: int) -> str:
-    """The kernel a (cin -> cout) subm conv runs: 'sm' (K2), 'fused' (K1
-    from activation and rulebook), 'narrow' (the same for cin < 8) or
-    'assembled' (K1 on halo planes)."""
-    if uses_sm(cin, cout, sm_max_cin):
+def subm_route(cin: int, cout: int, dtype, sm_max_cin: int,
+               side: int = BRICK) -> str:
+    """The kernel a (cin -> cout) subm conv runs at brick side ``side``:
+    'sm' (K2), 'fused' (K1 from activation and rulebook), 'narrow' (the
+    same for cin < 8) or 'assembled' (K1 on halo planes). K1's routes are
+    the same at every side; ``uses_sm`` refuses K2 at a side other than
+    4."""
+    if uses_sm(cin, cout, sm_max_cin, side):
         return 'sm'
     if uses_fused(cin, cout, dtype):
         return 'fused'
@@ -343,8 +397,9 @@ def _subm_raw(x2, halo, sm, weights, compute_dtype, sm_max_cin, nbr=None,
     (made from occ where not given); the other routes apply ``pro_full``
     once up front, as the JAX package's source-major engines do."""
     cin, cout = weights.shape[1], weights.shape[2]
+    side = side_of(x2.shape[1] // cin)
     w = weights.to(compute_dtype)
-    route = subm_route(cin, cout, compute_dtype, sm_max_cin)
+    route = subm_route(cin, cout, compute_dtype, sm_max_cin, side)
     out_dtype = x2.dtype
     if pro is not None and route != 'fused':
         x2 = pro_full(x2, pro, cin, compute_dtype).to(out_dtype)
@@ -354,7 +409,7 @@ def _subm_raw(x2, halo, sm, weights, compute_dtype, sm_max_cin, nbr=None,
             raise ValueError(f'subm conv {cin}->{cout} selects K2 '
                              f'(sm_max_cin={sm_max_cin}) but the level has '
                              'no sm_index table')
-        ops = _assemble_sm(x2, sm, compute_dtype)
+        ops = _assemble_sm(x2, sm, compute_dtype)   # side 4 (uses_sm)
         if compute_dtype == torch.bfloat16:
             # K2's second version: raster weights, the taps only
             return banded_conv_sm_taps(*ops, w.contiguous(), x2.dtype)
@@ -373,7 +428,7 @@ def _subm_raw(x2, halo, sm, weights, compute_dtype, sm_max_cin, nbr=None,
         return banded_conv_fused(x2.to(compute_dtype), nbr, w.contiguous(),
                                  out_dtype, pro)
     return banded_conv(_assemble_p6(x2, halo, compute_dtype),
-                       banded_weights(w), out_dtype)
+                       banded_weights(w, side), out_dtype)
 
 
 def _contract_rows(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -394,28 +449,33 @@ def _contract_rows(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return a.float().T @ b.float()
 
 
-def _dwb_to_dw(dwb: torch.Tensor, cin: int, cout: int) -> torch.Tensor:
-    """Banded dW (3, 36*cin, 16*cout) -> raster (27, cin, cout): the sum
-    over the band cells each tap was placed at by ``banded_weights``."""
+def _dwb_to_dw(dwb: torch.Tensor, cin: int, cout: int,
+               side: int = BRICK) -> torch.Tensor:
+    """Banded dW (3, (s+2)^2*cin, s^2*cout) -> raster (27, cin, cout): the
+    sum over the band cells each tap was placed at by
+    ``banded_weights``."""
+    g = geometry(side)
     i, q, r, k = (torch.as_tensor(a, device=dwb.device)
-                  for a in _band_nonzero())
-    d5 = dwb.reshape(3, PLANE, cin, OUTP, cout)
+                  for a in _band_nonzero(side))
+    d5 = dwb.reshape(3, g.plane, cin, g.slice_cells, cout)
     return dwb.new_zeros(27, cin, cout).index_add_(0, k, d5[i, q, :, r, :])
 
 
 def _subm_dw(rows6: torch.Tensor, g: torch.Tensor, compute_dtype, cin: int,
              cout: int) -> torch.Tensor:
     """Raster float32 dW (27, cin, cout) from the conv input's halo planes
-    and the masked cotangent. Planes x..x+2 of a brick are one contiguous
-    run of 3K lanes, so output slice x contributes one (3K, N) product to
-    the three taps at once."""
-    b, _, k = rows6.shape
-    g4 = g.to(compute_dtype).reshape(b, BRICK, OUTP * cout)
+    (rows, s+2, K) and the masked cotangent. Planes x..x+2 of a brick are
+    one contiguous run of 3K lanes, so output slice x contributes one
+    (3K, N) product to the three taps at once."""
+    b, planes, k = rows6.shape
+    side = planes - 2
+    n = side * side * cout
+    g4 = g.to(compute_dtype).reshape(b, side, n)
     dwb = sum(_contract_rows(
-        rows6.as_strided((b, 3 * k), (6 * k, 1),
+        rows6.as_strided((b, 3 * k), (planes * k, 1),
                          rows6.storage_offset() + x * k),
-        g4[:, x]) for x in range(BRICK))
-    return _dwb_to_dw(dwb.reshape(3, k, OUTP * cout), cin, cout)
+        g4[:, x]) for x in range(side))
+    return _dwb_to_dw(dwb.reshape(3, k, n), cin, cout, side)
 
 
 @torch.library.custom_op('doda_torch::subm_conv3_product', mutates_args=())
@@ -446,7 +506,8 @@ def subm_conv3_product(x2: torch.Tensor, weights: torch.Tensor,
 
 @subm_conv3_product.register_fake
 def _(x2, weights, *_):
-    return x2.new_empty(x2.shape[0], CELLS * weights.shape[2])
+    cells = x2.shape[1] // weights.shape[1]
+    return x2.new_empty(x2.shape[0], cells * weights.shape[2])
 
 
 class _SubmConv(torch.autograd.Function):
@@ -555,36 +616,37 @@ def subm_conv3_norm_2d(x2: torch.Tensor, occ: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 @functools.lru_cache(maxsize=None)
-def _wo_cells():
+def _wo_cells(side: int = BRICK):
     """Cell ids in (window, offset) order: w=(xh,yh,zh), o=(xl,yl,zl)."""
-    return tuple(_cell(xh * 2 + xl, yh * 2 + yl, zh * 2 + zl)
-                 for xh in range(_H) for yh in range(_H) for zh in range(_H)
+    h = geometry(side).half
+    return tuple(_cell(xh * 2 + xl, yh * 2 + yl, zh * 2 + zl, side)
+                 for xh in range(h) for yh in range(h) for zh in range(h)
                  for xl in range(2) for yl in range(2) for zl in range(2))
 
 
 @functools.lru_cache(maxsize=None)
-def _ow_cells():
+def _ow_cells(side: int = BRICK):
     """Cell ids in (octant, window) order — parent-side raster."""
-    return tuple(_cell(rx * _H + xh, ry * _H + yh, rz * _H + zh)
+    h = geometry(side).half
+    return tuple(_cell(rx * h + xh, ry * h + yh, rz * h + zh, side)
                  for rx in range(2) for ry in range(2) for rz in range(2)
-                 for xh in range(_H) for yh in range(_H) for zh in range(_H))
+                 for xh in range(h) for yh in range(h) for zh in range(h))
 
 
 @functools.lru_cache(maxsize=None)
 def _inv(cells):
-    """Inverse permutation of a 64-cell order."""
-    inv = [0] * CELLS
+    """Inverse permutation of a cell order."""
+    inv = [0] * len(cells)
     for pos, c in enumerate(cells):
         inv[c] = pos
     return tuple(inv)
 
 
 def _lane_permute(x2: torch.Tensor, cells, c: int) -> torch.Tensor:
-    """Reorder the 64 cell blocks of (rows, 64*c) lanes."""
-    rows = x2.shape[0]
+    """Reorder the cell blocks of (rows, cells*c) lanes."""
+    rows, n = x2.shape[0], len(cells)
     idx = torch.as_tensor(cells, device=x2.device)
-    return x2.reshape(rows, CELLS, c).index_select(1, idx).reshape(
-        rows, CELLS * c)
+    return x2.reshape(rows, n, c).index_select(1, idx).reshape(rows, n * c)
 
 
 def _gather_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -610,39 +672,43 @@ def _octant_gather(par_ow: torch.Tensor, child_parent: torch.Tensor,
 
 def _down_apply(x, weights, parent_children, occ_p, compute_dtype,
                 out_dtype):
-    """The stride-2 down conv of x (B, 64*cin), already in compute_dtype
-    -> (P, 64*cout) in out_dtype, masked to the parents' cells."""
+    """The stride-2 down conv of x (B, s^3*cin), already in compute_dtype
+    -> (P, s^3*cout) in out_dtype, masked to the parents' cells."""
+    geo = geometry(side_of(occ_p.shape[1]))
     b, lanes = x.shape
-    cin = lanes // CELLS
+    cin = lanes // geo.cells
     cout = weights.shape[-1]
-    x = _lane_permute(x, _wo_cells(), cin)
+    x = _lane_permute(x, _wo_cells(geo.side), cin)
     w = weights.reshape(8 * cin, cout).to(compute_dtype)
-    child_out = (x.reshape(b * WINDOWS, 8 * cin) @ w).reshape(
-        b, WINDOWS * cout)
+    child_out = (x.reshape(b * geo.windows, 8 * cin) @ w).reshape(
+        b, geo.windows * cout)
     pow_ = _children_gather(child_out, parent_children)
-    p_raster = _lane_permute(pow_, _inv(_ow_cells()), cout).to(out_dtype)
+    p_raster = _lane_permute(pow_, _inv(_ow_cells(geo.side)),
+                             cout).to(out_dtype)
     return _mask(p_raster, occ_p, cout)
 
 
 def _down_grads(x, weights, g, occ_p, child_parent, parity, compute_dtype,
                 need_dx, need_dw):
     """(dx in compute_dtype, float32 dW) of ``_down_apply`` at its input x
-    (B, 64*cin) in compute_dtype, from the output's cotangent g."""
+    (B, s^3*cin) in compute_dtype, from the output's cotangent g."""
+    geo = geometry(side_of(occ_p.shape[1]))
     b, lanes = x.shape
-    cin = lanes // CELLS
+    cin = lanes // geo.cells
     cout = weights.shape[-1]
     g = _mask(g, occ_p, cout).to(compute_dtype)
-    g_ow = _lane_permute(g, _ow_cells(), cout)
+    g_ow = _lane_permute(g, _ow_cells(geo.side), cout)
     gc_rows = _octant_gather(g_ow, child_parent, parity,
-                             WINDOWS * cout).reshape(b * WINDOWS, cout)
+                             geo.windows * cout).reshape(b * geo.windows,
+                                                         cout)
     dx = dw = None
     if need_dx:
         w = weights.reshape(8 * cin, cout).to(compute_dtype)
-        dx_wo = (gc_rows @ w.T).reshape(b, CELLS * cin)
-        dx = _lane_permute(dx_wo, _inv(_wo_cells()), cin)
+        dx_wo = (gc_rows @ w.T).reshape(b, geo.cells * cin)
+        dx = _lane_permute(dx_wo, _inv(_wo_cells(geo.side)), cin)
     if need_dw:
-        xw = _lane_permute(x, _wo_cells(), cin)
-        dw = _contract_rows(xw.reshape(b * WINDOWS, 8 * cin), gc_rows)
+        xw = _lane_permute(x, _wo_cells(geo.side), cin)
+        dw = _contract_rows(xw.reshape(b * geo.windows, 8 * cin), gc_rows)
         dw = dw.reshape(8, cin, cout)
     return dx, dw
 
@@ -672,7 +738,7 @@ class _DownConv(torch.autograd.Function):
 def down_conv2_2d(x2: torch.Tensor, occ_p: torch.Tensor, down,
                   weights: torch.Tensor,
                   compute_dtype=torch.bfloat16) -> torch.Tensor:
-    """SparseConv3d(k=2, s=2): (B, 64*cin) children -> (P, 64*cout).
+    """SparseConv3d(k=2, s=2): (B, s^3*cin) children -> (P, s^3*cout).
 
     ``down`` carries the flat maps child_parent (B,), parity (B,) and
     parent_children (P, 8); nulls are the respective row counts.
@@ -691,7 +757,7 @@ class _DownConvNorm(torch.autograd.Function):
         ctx.save_for_backward(x2, weights, scale, bias, occ_c, occ_p,
                               child_parent, parity)
         ctx.compute_dtype = compute_dtype
-        cin = x2.shape[1] // CELLS
+        cin = x2.shape[1] // occ_c.shape[1]
         h = pro_full(x2, (scale, bias, occ_c), cin, compute_dtype)
         return _down_apply(h, weights, parent_children, occ_p,
                            compute_dtype, x2.dtype)
@@ -702,7 +768,8 @@ class _DownConvNorm(torch.autograd.Function):
          parity) = ctx.saved_tensors
         cd = ctx.compute_dtype
         need_dw = ctx.needs_input_grad[1]
-        h = pro_full(x2, (scale, bias, occ_c), x2.shape[1] // CELLS, cd)
+        h = pro_full(x2, (scale, bias, occ_c), x2.shape[1] // occ_c.shape[1],
+                     cd)
         dh, dw = _down_grads(h, weights, g, occ_p, child_parent, parity, cd,
                              True, need_dw)
         dx, ds, db = _pro_backward(x2, h, scale, dh, cd)
@@ -721,48 +788,52 @@ def down_conv2_norm_2d(x2: torch.Tensor, occ_c: torch.Tensor,
                                down.parent_children, compute_dtype)
 
 
-def _up_corner(p, child_parent, parity):
-    """(P, 64*cin) parents -> (B, 8*cin): each child's octant."""
-    cin = p.shape[1] // CELLS
-    par_ow = _lane_permute(p, _ow_cells(), cin)
-    return _octant_gather(par_ow, child_parent, parity, WINDOWS * cin)
+def _up_corner(p, child_parent, parity, side: int = BRICK):
+    """(P, s^3*cin) parents -> (B, windows*cin): each child's octant."""
+    geo = geometry(side)
+    cin = p.shape[1] // geo.cells
+    par_ow = _lane_permute(p, _ow_cells(side), cin)
+    return _octant_gather(par_ow, child_parent, parity, geo.windows * cin)
 
 
 def _up_apply(p, weights, child_parent, parity, occ_c, compute_dtype,
               out_dtype):
-    """The stride-2 up conv of p (P, 64*cin), already in compute_dtype
-    -> (B, 64*cout) in out_dtype, masked to the children's cells."""
-    cin = p.shape[1] // CELLS
+    """The stride-2 up conv of p (P, s^3*cin), already in compute_dtype
+    -> (B, s^3*cout) in out_dtype, masked to the children's cells."""
+    geo = geometry(side_of(occ_c.shape[1]))
+    cin = p.shape[1] // geo.cells
     cout = weights.shape[-1]
     b = child_parent.shape[0]
-    corner = _up_corner(p, child_parent, parity)
+    corner = _up_corner(p, child_parent, parity, geo.side)
     # W[o, c, :] -> (cin, 8*cout) so out lanes come back (o, cout)
     w = weights.permute(1, 0, 2).reshape(cin, 8 * cout).to(compute_dtype)
-    out8 = (corner.reshape(b * WINDOWS, cin) @ w).reshape(
-        b, WINDOWS * 8 * cout)
-    out = _lane_permute(out8, _inv(_wo_cells()), cout).to(out_dtype)
+    out8 = (corner.reshape(b * geo.windows, cin) @ w).reshape(
+        b, geo.windows * 8 * cout)
+    out = _lane_permute(out8, _inv(_wo_cells(geo.side)),
+                        cout).to(out_dtype)
     return _mask(out, occ_c, cout)
 
 
 def _up_grads(p, weights, g, occ_c, child_parent, parity, parent_children,
               compute_dtype, need_dp, need_dw):
     """(dp in compute_dtype, float32 dW) of ``_up_apply`` at its input p
-    (P, 64*cin) in compute_dtype, from the output's cotangent g."""
-    cin = p.shape[1] // CELLS
+    (P, s^3*cin) in compute_dtype, from the output's cotangent g."""
+    geo = geometry(side_of(occ_c.shape[1]))
+    cin = p.shape[1] // geo.cells
     cout = weights.shape[-1]
     b = child_parent.shape[0]
     g = _mask(g, occ_c, cout).to(compute_dtype)
-    g_rows = _lane_permute(g, _wo_cells(), cout).reshape(
-        b * WINDOWS, 8 * cout)
+    g_rows = _lane_permute(g, _wo_cells(geo.side), cout).reshape(
+        b * geo.windows, 8 * cout)
     dp = dw = None
     if need_dp:
         w = weights.permute(1, 0, 2).reshape(cin, 8 * cout).to(compute_dtype)
-        dcorner = (g_rows @ w.T).reshape(b, WINDOWS * cin)
+        dcorner = (g_rows @ w.T).reshape(b, geo.windows * cin)
         dp_ow = _children_gather(dcorner, parent_children)
-        dp = _lane_permute(dp_ow, _inv(_ow_cells()), cin)
+        dp = _lane_permute(dp_ow, _inv(_ow_cells(geo.side)), cin)
     if need_dw:
-        corner = _up_corner(p, child_parent, parity)
-        dw8 = _contract_rows(corner.reshape(b * WINDOWS, cin), g_rows)
+        corner = _up_corner(p, child_parent, parity, geo.side)
+        dw8 = _contract_rows(corner.reshape(b * geo.windows, cin), g_rows)
         dw = dw8.reshape(cin, 8, cout).permute(1, 0, 2)
     return dp, dw
 
@@ -794,7 +865,7 @@ class _UpConv(torch.autograd.Function):
 def up_conv2_2d(p2: torch.Tensor, occ_c: torch.Tensor, down,
                 weights: torch.Tensor,
                 compute_dtype=torch.bfloat16) -> torch.Tensor:
-    """SparseInverseConv3d(k=2): (P, 64*cin) parents -> (B, 64*cout).
+    """SparseInverseConv3d(k=2): (P, s^3*cin) parents -> (B, s^3*cout).
 
     Each child reads the 8 parent cells of its octant through W[offset]."""
     return _UpConv.apply(p2, weights, occ_c, down.child_parent, down.parity,
@@ -811,7 +882,7 @@ class _UpConvNorm(torch.autograd.Function):
         ctx.save_for_backward(p2, weights, scale, bias, occ_p, occ_c,
                               child_parent, parity, parent_children)
         ctx.compute_dtype = compute_dtype
-        h = pro_full(p2, (scale, bias, occ_p), p2.shape[1] // CELLS,
+        h = pro_full(p2, (scale, bias, occ_p), p2.shape[1] // occ_p.shape[1],
                      compute_dtype)
         return _up_apply(h, weights, child_parent, parity, occ_c,
                          compute_dtype, p2.dtype)
@@ -821,7 +892,8 @@ class _UpConvNorm(torch.autograd.Function):
         (p2, weights, scale, bias, occ_p, occ_c, child_parent, parity,
          parent_children) = ctx.saved_tensors
         cd = ctx.compute_dtype
-        h = pro_full(p2, (scale, bias, occ_p), p2.shape[1] // CELLS, cd)
+        h = pro_full(p2, (scale, bias, occ_p), p2.shape[1] // occ_p.shape[1],
+                     cd)
         dh, dw = _up_grads(h, weights, g, occ_c, child_parent, parity,
                            parent_children, cd, True,
                            ctx.needs_input_grad[1])
@@ -845,8 +917,8 @@ def conv1x1_2d(x2: torch.Tensor, occ: torch.Tensor, weights: torch.Tensor,
                compute_dtype=torch.bfloat16) -> torch.Tensor:
     """Per-cell channel mix (the residual shortcut's 1x1); its backward is
     autograd's (two matmuls and the mask, no gather)."""
-    rows = x2.shape[0]
+    rows, cells = occ.shape
     cin, cout = weights.shape
-    out = (x2.to(compute_dtype).reshape(rows * CELLS, cin)
-           @ weights.to(compute_dtype)).reshape(rows, CELLS * cout)
+    out = (x2.to(compute_dtype).reshape(rows * cells, cin)
+           @ weights.to(compute_dtype)).reshape(rows, cells * cout)
     return _mask(out.to(x2.dtype), occ, cout)

@@ -1,6 +1,7 @@
 """Times one subm conv on each route at the bench shapes.
 
     python -m doda_tpu_torch.tools.bench_conv [--reps 20] [--levels 0-6]
+                                              [--brick 4|2]
                                               [--device cuda|cpu]
 
 from the repo root; the counterpart of the JAX package's root
@@ -37,8 +38,10 @@ two CUDA events (the JAX tool's unrolled chain: eager PyTorch elides no
 application, so no data dependency is needed). Prints one JSON line a
 reading: ms an application, the bound of ``utils/roofline.py`` beside it
 (none for the library call), and the card's name and power limit.
-``--points``, ``--batch`` and ``--brick-cap`` cut the size for the CPU
-(``--device cpu``), where the times are the host's.
+``--brick 2`` builds the plan in bricks of side 2, under
+``synth.BRICK_CAPS_SIDE2`` (K2, ``sm``, is built for side 4 and is not
+timed there). ``--points``, ``--batch`` and ``--brick-cap`` cut the size
+for the CPU (``--device cpu``), where the times are the host's.
 """
 
 from __future__ import annotations
@@ -83,6 +86,18 @@ def timed_ms(fn, reps: int, dev: torch.device) -> float:
     return e0.elapsed_time(e1) / reps
 
 
+def bench_caps(brick: int, cap0, num_levels: int) -> tuple:
+    """The brick caps of ``num_levels`` levels at side ``brick``: the
+    schedule of ``cap0`` where given, else the bench caps of the side
+    (``default_brick_caps(synth.BRICK_CAP)`` at 4,
+    ``synth.BRICK_CAPS_SIDE2`` at 2)."""
+    if cap0 is not None:
+        return default_brick_caps(cap0, num_levels)
+    if brick == 2:
+        return synth.BRICK_CAPS_SIDE2[:num_levels]
+    return default_brick_caps(synth.BRICK_CAP, num_levels)
+
+
 def combos(levels: str) -> list:
     """(level, cin, cout) to time: the JAX tool's level-0 combos, or each
     level of the range ``a-b`` at its width."""
@@ -96,12 +111,13 @@ def combos(levels: str) -> list:
 def readings(lv, cin: int, cout: int, dtype, reps: int, gen) -> list:
     """One dict a route at (cin -> cout) over the flat level ``lv``."""
     dev = lv.occ.device
-    rows = lv.occ.shape[0]
-    x3 = torch.randn(rows, 64, cin, device=dev, generator=gen)
+    rows, cells = lv.occ.shape
+    side = bricks.side_of(cells)
+    x3 = torch.randn(rows, cells, cin, device=dev, generator=gen)
     x2 = torch.where(lv.occ[..., None], x3, 0).reshape(rows, -1).to(dtype)
     w = (torch.randn(27, cin, cout, device=dev, generator=gen)
          / (27 * cin) ** 0.5).to(dtype)
-    route = bricks2d.subm_route(cin, cout, dtype, 0)
+    route = bricks2d.subm_route(cin, cout, dtype, 0, side)
     reads = roofline.present_reads(lv.halo)
     out = []
 
@@ -111,7 +127,7 @@ def readings(lv, cin: int, cout: int, dtype, reps: int, gen) -> list:
                                             'flops')}})
 
     if route == 'fused':
-        fused = roofline.fused_work(rows, cin, cout, reads)
+        fused = roofline.fused_work(rows, cin, cout, reads, side)
         add('fused', lambda: banded_conv_fused(x2, lv.nbr, w, dtype), fused)
         add('plain', lambda: banded_conv_fused_plain(x2, lv.nbr, w, dtype),
             fused)
@@ -119,13 +135,13 @@ def readings(lv, cin: int, cout: int, dtype, reps: int, gen) -> list:
         bias = 0.2 * torch.randn(cin, device=dev, generator=gen)
         bias[::2] = bias[::2].abs() + 0.1
         pro = (scale, bias, occ_words(lv.occ))
-        work = roofline.prologue_work(rows, cin, cout, reads)
+        work = roofline.prologue_work(rows, cin, cout, reads, side)
         add('prologue', lambda: banded_conv_fused(x2, lv.nbr, w, dtype, pro),
             work)
         add('unfused', lambda: banded_conv_fused(bricks2d.pro_full(
             x2, (scale, bias, lv.occ), cin, dtype), lv.nbr, w, dtype), work)
     if route == 'narrow':
-        narrow = roofline.narrow_work(rows, cin, cout, reads)
+        narrow = roofline.narrow_work(rows, cin, cout, reads, side)
         add('narrow', lambda: banded_conv_narrow(x2, lv.nbr, w, dtype),
             narrow)
         add('plain', lambda: banded_conv_fused_plain(x2, lv.nbr, w, dtype),
@@ -133,12 +149,12 @@ def readings(lv, cin: int, cout: int, dtype, reps: int, gen) -> list:
         w8 = F.pad(w, (0, 0, 0, 8 - cin)).contiguous()
 
         def padded():
-            x8 = F.pad(x2.reshape(rows, 64, cin), (0, 8 - cin))
+            x8 = F.pad(x2.reshape(rows, cells, cin), (0, 8 - cin))
             return banded_conv_fused(x8.reshape(rows, -1), lv.nbr, w8, dtype)
         add('padded', padded, narrow)
     rows6 = bricks2d._assemble_p6(x2, lv.halo, dtype)
-    wb = bricks2d.banded_weights(w)
-    assembled = roofline.assembled_work(rows, cin, cout, dtype)
+    wb = bricks2d.banded_weights(w, side)
+    assembled = roofline.assembled_work(rows, cin, cout, dtype, side=side)
     add('assembled', lambda: banded_conv(rows6, wb, dtype), assembled)
     if route == 'narrow':
         add('assembled+gather', lambda: banded_conv(
@@ -146,12 +162,13 @@ def readings(lv, cin: int, cout: int, dtype, reps: int, gen) -> list:
     if route == 'assembled':
         add('plain', lambda: banded_conv_plain(rows6, wb, dtype), assembled)
     del rows6, wb
-    if dtype == torch.bfloat16 and cin % 16 == 0 and cout % 8 == 0:
+    if dtype == torch.bfloat16 and cin % 16 == 0 and cout % 8 == 0 \
+            and side in bricks2d.SM_SIDES:
         ops = bricks2d._assemble_sm(x2, bricks2d.sm_index(lv.nbr), dtype)
         add('sm', lambda: banded_conv_sm_taps(*ops, w, dtype),
             roofline.sm_taps_work(rows, cin, cout))
         del ops
-    halo = bricks.shell_halo(x2.reshape(rows, 64, cin), lv.nbr, dtype)
+    halo = bricks.shell_halo(x2.reshape(rows, cells, cin), lv.nbr, dtype)
     hin = halo.permute(0, 4, 1, 2, 3)
     wc = w.reshape(3, 3, 3, cin, cout).permute(4, 3, 0, 1, 2).contiguous(
         memory_format=torch.channels_last_3d)
@@ -172,7 +189,11 @@ def main(argv=None) -> list:
     ap.add_argument('--batch', type=int, default=synth.BATCH)
     ap.add_argument('--points', type=int, default=synth.N_REAL,
                     help='points a scene')
-    ap.add_argument('--brick-cap', type=int, default=synth.BRICK_CAP)
+    ap.add_argument('--brick', type=int, choices=(2, 4), default=4,
+                    help='brick side (default 4)')
+    ap.add_argument('--brick-cap', type=int, default=None,
+                    help='level-0 brick cap (default: the bench caps of '
+                         'the side)')
     args = ap.parse_args(argv)
     dev = resolve_device(args.device)
     if dev.type == 'cuda':
@@ -180,10 +201,12 @@ def main(argv=None) -> list:
         torch.backends.cudnn.allow_tf32 = False
     todo = combos(args.levels)
     num_levels = max(lvl for lvl, _, _ in todo) + 1
-    b_caps = default_brick_caps(args.brick_cap, num_levels)
-    batch = synth.bench_batch(args.batch, args.points, b_caps)
+    b_caps = bench_caps(args.brick, args.brick_cap, num_levels)
+    batch = synth.bench_batch(args.batch, args.points, b_caps,
+                              brick=args.brick)
     with torch.no_grad():
-        plan = build_level_plan(batch.coords, batch.valid, b_caps, dev)
+        plan = build_level_plan(batch.coords, batch.valid, b_caps, dev,
+                                brick=args.brick)
         levels, _ = flatten_plan(plan)
     if todo[0][0] == 0:
         todo += [(0, *INPUT_CONV, torch.float32), (0, *INPUT_CONV)]
@@ -194,7 +217,7 @@ def main(argv=None) -> list:
         for lvl, cin, cout, *dt in todo:
             dtype = dt[0] if dt else torch.bfloat16
             for r in readings(levels[lvl], cin, cout, dtype, args.reps, gen):
-                r = {'card': card, 'level': lvl, 'rows':
+                r = {'card': card, 'brick': args.brick, 'level': lvl, 'rows':
                      levels[lvl].occ.shape[0], 'cin': cin, 'cout': cout,
                      'dtype': str(dtype).replace('torch.', ''),
                      'reps': args.reps, 'clock': 'cuda events'

@@ -45,6 +45,22 @@ def add_remat_arg(parser):
                              "the U-Net blocks keep for the backward")
 
 
+def add_brick_arg(parser):
+    """``--brick``, the brick side of the plan and the kernels
+    (``build_model``'s ``brick``): the JAX CLIs read it from
+    ``DODA_BRICK``. 4 by default, as there; the cfg's ``brick_cap`` is the
+    level-0 cap at the side in use."""
+    parser.add_argument('--brick', type=int, choices=(2, 4), default=4,
+                        help='brick side: 4 (default) or 2')
+
+
+def brick_of(args) -> int:
+    """The brick side of a loop's ``args``: ``--brick``, or 4 where the
+    namespace comes from another parser that has no such flag (the JAX
+    CLIs' loops drive the port's steps with their own)."""
+    return getattr(args, 'brick', 4)
+
+
 def load_cfg(args):
     """A fresh config from ``--cfg_file`` and ``--set`` (so that several
     CLI runs in one process do not share one), tagged as the JAX CLIs tag

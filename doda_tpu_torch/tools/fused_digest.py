@@ -1,15 +1,18 @@
 """Digests of the fused K1's outputs, to hold two builds of it bit for bit.
 
-    python -m doda_tpu_torch.tools.fused_digest [--csrc DIR]
+    python -m doda_tpu_torch.tools.fused_digest [--csrc DIR] [--brick 4]
 
 from the repo root, on the card. Builds ``banded_conv_fused.cu`` from
 ``DIR`` (by default this checkout's ``doda_tpu_torch/csrc``; another
 commit's, unpacked with ``git archive``, to compare) and runs it without
 the prologue on seeded bf16 operands at ``chip_smoke.py``'s shapes: the
 bench batch's real rulebooks at levels 0, 1, 5 and 6 and three synthetic
-ones, each to float32 and to bf16. Prints one JSON line a shape with the
-sha256 of each output's bytes and the card's name and power limit; two
-builds that print the same digests computed the same bits.
+ones, each to float32 and to bf16, in bricks of side ``--brick`` (4, or 2
+for a source built for it). Prints one JSON line a shape with the sha256
+of each output's bytes and the card's name and power limit; two builds
+that print the same digests computed the same bits. A source from before
+the brick side was a kernel argument is called through its own signature
+(side 4 only).
 """
 
 from __future__ import annotations
@@ -34,31 +37,45 @@ LEVEL_SHAPES = ((0, 16, 16), (0, 32, 16), (1, 32, 32), (1, 64, 32),
 SYNTH_SHAPES = ((4099, 20, 16, 16), (1001, 12, 24, 8), (3, 4, 16, 32))
 
 
-def fused_entry(csrc: Path):
+def fused_entry(csrc: Path, side: int = 4):
+    """The built ``doda_banded_conv_fused`` of ``csrc`` as fn(x2, nbr, w,
+    out, rows, cin, cout, out_dtype code, stream) at ``side``."""
     src = csrc / 'banded_conv_fused.cu'
     lib = ctypes.CDLL(str(_build._compiled(
         src, 'banded_conv_fused', _build._nvcc, _build.NVCC_FLAGS,
         report='.ptxas.txt')))
     fn = lib.doda_banded_conv_fused
+    sided = hasattr(lib, 'doda_banded_conv_fused_has_side')
+    if not sided and side != 4:
+        raise SystemExit(f'fused_digest: {src} has no brick side argument '
+                         f'(side 4 only), asked for side {side}')
     fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_longlong] \
-        + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 4
+        + [ctypes.c_int] * (4 if sided else 3) + [ctypes.c_void_p] * 4
     fn.restype = ctypes.c_int
-    return fn
+
+    def call(x2, nbr, w, out, rows, cin, cout, code, stream):
+        head = (x2, nbr, w, out, rows, cin, cout, code)
+        return fn(*head, *((side,) if sided else ()), None, None, None,
+                  stream)
+    return call
 
 
 def main(argv=None) -> list:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument('--csrc', type=Path, default=_build.CSRC)
+    ap.add_argument('--brick', type=int, choices=(2, 4), default=4)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit('fused_digest: needs a CUDA device')
-    fn = fused_entry(args.csrc.resolve())
+    side = args.brick
+    fn = fused_entry(args.csrc.resolve(), side)
     dev = torch.device('cuda')
-    b_caps = default_brick_caps(synth.BRICK_CAP, 7)
+    b_caps = default_brick_caps(synth.BRICK_CAP, 7) if side == 4 \
+        else synth.BRICK_CAPS_SIDE2
     batch = synth.make_batch(seed=0)
     with torch.no_grad():
-        levels, _ = flatten_plan(build_level_plan(batch.coords, batch.valid,
-                                                  b_caps, dev))
+        levels, _ = flatten_plan(build_level_plan(
+            batch.coords, batch.valid, b_caps, dev, brick=side))
     cases = [(f'level{lvl}', levels[lvl].nbr, cin, cout)
              for lvl, cin, cout in LEVEL_SHAPES]
     cases += [(f'synthetic{rows}', synth.synth_rulebook(rows, grid, rows),
@@ -69,21 +86,22 @@ def main(argv=None) -> list:
     out = []
     for name, nbr, cin, cout in cases:
         rows = nbr.shape[0]
-        x2 = torch.randn(rows, 64 * cin, device=dev, generator=g).bfloat16()
+        x2 = torch.randn(rows, side ** 3 * cin, device=dev,
+                         generator=g).bfloat16()
         w = (torch.randn(27, cin, cout, device=dev, generator=g)
              / (27 * cin) ** 0.5).bfloat16()
         digests = {}
         for code, dt in ((0, torch.float32), (1, torch.bfloat16)):
-            y = torch.zeros(rows, 64 * cout, dtype=dt, device=dev)
+            y = torch.zeros(rows, side ** 3 * cout, dtype=dt, device=dev)
             err = fn(x2.data_ptr(), nbr.data_ptr(), w.data_ptr(),
-                     y.data_ptr(), rows, cin, cout, code, None, None, None,
-                     stream)
+                     y.data_ptr(), rows, cin, cout, code, stream)
             if err:
                 raise RuntimeError(f'{name}: CUDA error {err}')
             torch.cuda.synchronize(dev)
             digests[str(dt)[6:]] = hashlib.sha256(
                 y.view(torch.uint8).cpu().numpy().tobytes()).hexdigest()
-        line = {'card': card, 'csrc': str(args.csrc), 'case': name,
+        line = {'card': card, 'csrc': str(args.csrc), 'brick': side,
+                'case': name,
                 'shape': [rows, cin, cout], 'sha256': digests}
         print(json.dumps(line), flush=True)
         out.append(line)

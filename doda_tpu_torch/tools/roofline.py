@@ -1,6 +1,6 @@
 """Bytes, operations and bounds of the subm convs of one bench forward.
 
-    python -m doda_tpu_torch.tools.roofline [--device cuda|cpu]
+    python -m doda_tpu_torch.tools.roofline [--device cuda|cpu] [--brick 4|2]
 
 from the repo root; the counterpart of the JAX package's root
 ``tools/roofline.py``, which models that package's TPU engine. This one
@@ -17,8 +17,10 @@ an idealized occupied-cell conv's floor (each active cell read once and
 written once, every tap of every active cell). A last line holds the
 totals of one forward's subm convs. Nothing here is measured: the card's
 name and power limit stand beside the bounds because a card set below
-700 W does not reach the peaks. ``--points``, ``--batch``,
-``--brick-cap`` and ``--levels`` cut the size (for the CPU).
+700 W does not reach the peaks. ``--brick 2`` counts the same forward
+in bricks of side 2 (under ``synth.BRICK_CAPS_SIDE2``, or the schedule of
+``--brick-cap`` where given). ``--points``, ``--batch``, ``--brick-cap``
+and ``--levels`` cut the size (for the CPU).
 """
 
 from __future__ import annotations
@@ -31,10 +33,12 @@ import torch
 
 from ..config import CfgNode, cfg_from_yaml_file
 from ..models import model_fn
-from ..models.unet import build_level_plan, default_brick_caps, flatten_plan
+from ..models.unet import build_level_plan, flatten_plan
+from ..ops.bricks import side_of
 from ..ops.bricks2d import subm_route
 from ..utils import roofline, synth
 from ..utils.device import card_label, resolve_device
+from .bench_conv import bench_caps
 
 
 def level_convs(model) -> list:
@@ -47,7 +51,7 @@ def level_convs(model) -> list:
             _, cin, cout = p.shape
             convs[name.split('.').count('u')].append(
                 (cin, cout, subm_route(cin, cout, model.dtype,
-                                       model.sm_max_cin)))
+                                       model.sm_max_cin, model.brick)))
     return convs
 
 
@@ -56,7 +60,8 @@ def level_rows(levels, convs, scenes: int) -> list:
     with the subm convs ``convs`` (``level_convs``)."""
     out = []
     for lvl, (lv, level_conv) in enumerate(zip(levels, convs)):
-        rows = lv.occ.shape[0]
+        rows, per_brick = lv.occ.shape
+        side = side_of(per_brick)
         cells = int(lv.occ.sum())
         reads = roofline.present_reads(lv.halo)
         work = {'bytes': 0, 'flops': 0, 'bound_ms': 0.0}
@@ -64,11 +69,11 @@ def level_rows(levels, convs, scenes: int) -> list:
         routes = {}
         for cin, cout, route in level_conv:
             if route == 'fused':
-                w = roofline.fused_work(rows, cin, cout, reads)
+                w = roofline.fused_work(rows, cin, cout, reads, side)
             elif route == 'narrow':
-                w = roofline.narrow_work(rows, cin, cout, reads)
+                w = roofline.narrow_work(rows, cin, cout, reads, side)
             elif route == 'assembled':
-                w = roofline.assembled_work(rows, cin, cout)
+                w = roofline.assembled_work(rows, cin, cout, side=side)
             else:
                 w = roofline.sm_taps_work(rows, cin, cout)
             routes[route] = routes.get(route, 0) + 1
@@ -77,9 +82,9 @@ def level_rows(levels, convs, scenes: int) -> list:
                 for k in acc:
                     acc[k] += got[k]
         out.append({
-            'level': lvl, 'rows': rows, 'scenes': scenes,
+            'level': lvl, 'brick': side, 'rows': rows, 'scenes': scenes,
             'bricks': int(lv.occ.any(1).sum()), 'active_cells': cells,
-            'cell_occupancy': cells / (rows * 64),
+            'cell_occupancy': cells / (rows * per_brick),
             'channels': level_conv[-1][1], 'subm_convs': len(level_conv),
             'routes': routes, 'present_halo_reads': reads,
             'bytes': work['bytes'], 'flops': work['flops'],
@@ -94,18 +99,24 @@ def main(argv=None) -> list:
     ap.add_argument('--batch', type=int, default=synth.BATCH)
     ap.add_argument('--points', type=int, default=synth.N_REAL,
                     help='points a scene')
-    ap.add_argument('--brick-cap', type=int, default=synth.BRICK_CAP)
+    ap.add_argument('--brick', type=int, choices=(2, 4), default=4,
+                    help='brick side (default 4)')
+    ap.add_argument('--brick-cap', type=int, default=None,
+                    help='level-0 brick cap (default: the bench caps of '
+                         'the side)')
     ap.add_argument('--levels', type=int, default=7)
     args = ap.parse_args(argv)
     dev = resolve_device(args.device)
 
     cfg = cfg_from_yaml_file('cfgs/scannet/spconv.yaml', CfgNode())
     cfg.MODEL.BACKBONE.num_levels = args.levels
-    model = model_fn.build_model(cfg, device='cpu')
-    b_caps = default_brick_caps(args.brick_cap, args.levels)
-    batch = synth.bench_batch(args.batch, args.points, b_caps)
+    model = model_fn.build_model(cfg, device='cpu', brick=args.brick)
+    b_caps = bench_caps(args.brick, args.brick_cap, args.levels)
+    batch = synth.bench_batch(args.batch, args.points, b_caps,
+                              brick=args.brick)
     with torch.no_grad():
-        plan = build_level_plan(batch.coords, batch.valid, b_caps, dev)
+        plan = build_level_plan(batch.coords, batch.valid, b_caps, dev,
+                                brick=args.brick)
         levels, _ = flatten_plan(plan)
         table = level_rows(levels, level_convs(model), args.batch)
     card = card_label(dev)

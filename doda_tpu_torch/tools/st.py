@@ -11,7 +11,8 @@ domain 0) and TACM-mixed target batches (domain 1) through the port's
 ``make_st_step``, updating the tail-cuboid queue from each mixed batch.
 Checkpoints, eval, split-sampler persistence and the done.txt /
 class_ratio.txt artifacts match the reference's output tree. ``--remat``
-is the U-Net blocks' memory policy, as in ``tools/train.py``.
+is the U-Net blocks' memory policy and ``--brick`` the brick side, as in
+``tools/train.py``.
 
 Under ``--launcher pytorch`` or ``slurm`` (one process per card, see
 ``tools/train.py``) the ranks also share the pseudo-label pass (the
@@ -39,8 +40,8 @@ from ..utils import checkpoint as ckpt_utils
 from ..utils import pseudo_labels as pl_utils
 from ..utils.metrics import AverageMeter, calc_metrics
 from ..utils.optim import build_optimizer, make_lr_fn
-from .common import (add_port_args, add_remat_arg, host, load_cfg,
-                     rank_share)
+from .common import (add_brick_arg, add_port_args, add_remat_arg, brick_of,
+                     host, load_cfg, rank_share)
 from .train import resume, save_epoch, start, validate_epoch
 
 ST_METRICS = ('loss_x', 'loss_u', 'intersection_x', 'union_x', 'target_x',
@@ -67,6 +68,7 @@ def parse_config(argv=None):
     parser.add_argument('--print_freq', type=int, default=5)
     parser.add_argument('--pin_memory', action='store_true')
     add_remat_arg(parser)
+    add_brick_arg(parser)
     add_port_args(parser)
     args = parser.parse_args(argv)
     return args, load_cfg(args)
@@ -219,7 +221,8 @@ def train_epoch(args, cfg, logger, writer, source_reader, tar_loader,
             tar_loader.dataset.check_brick_capacity(
                 batch, cfg.DATA_CONFIG_TAR.DATA_PROCESSOR.get(
                     'brick_cap', 32768), logger,
-                num_levels=cfg.MODEL.BACKBONE.get('num_levels', 7))
+                num_levels=cfg.MODEL.BACKBONE.get('num_levels', 7),
+                brick=brick_of(args))
         t0 = time.time()
         source_batch = source_reader.read_data()
         # data wait: the target batch's and the source batch's
@@ -316,7 +319,8 @@ def main(argv=None):
                                                              'st')
     pseudo_labels_dir = output_dir / 'pseudo_labels'
 
-    model = mf.build_model(cfg, device=dev, train=True, remat=args.remat)
+    model = mf.build_model(cfg, device=dev, train=True, remat=args.remat,
+                           brick=args.brick)
     optimizer = build_optimizer(cfg.OPTIMIZATION, model.parameters())
     b_caps = default_brick_caps(
         cfg.DATA_CONFIG_TAR.DATA_PROCESSOR.get('brick_cap', 32768),

@@ -11,7 +11,8 @@ crop -> full-scene 1-NN label broadcast for S3DIS-style eval (subsampled
 or region-split scenes, ref: model/unet.py:135-145). Under
 ``--launcher pytorch`` or ``slurm`` each rank scores its shard of the
 scenes (sampler padding trimmed, root tools/test.py:84-100) and writes
-its scenes' dumps; the metrics are summed over the ranks.
+its scenes' dumps; the metrics are summed over the ranks. ``--brick 2``
+runs the net in bricks of side 2 (default 4; the JAX CLIs' ``DODA_BRICK``).
 """
 
 from __future__ import annotations
@@ -33,8 +34,8 @@ from ..parallel import collectives
 from ..utils.logging import get_logger
 from ..utils.metrics import (AverageMeter, calc_metrics,
                              intersection_and_union)
-from .common import (add_port_args, host, launch, load_cfg, output_dir_of,
-                     rank_share, reduce_meters)
+from .common import (add_brick_arg, add_port_args, brick_of, host, launch,
+                     load_cfg, output_dir_of, rank_share, reduce_meters)
 
 
 def parse_config(argv=None):
@@ -51,6 +52,7 @@ def parse_config(argv=None):
     parser.add_argument('--eval_src', action='store_true',
                         help='evaluate with source-domain DSNorm stats')
     parser.add_argument('--split', type=str, default='test')
+    add_brick_arg(parser)
     add_port_args(parser)
     args = parser.parse_args(argv)
     return args, load_cfg(args)
@@ -124,7 +126,8 @@ def test_one_epoch(args, cfg, logger, loader, eval_step, result_dir):
             loader.dataset.check_brick_capacity(
                 batch, cfg.DATA_CONFIG_TAR.DATA_PROCESSOR.get(
                     'brick_cap', 32768), logger,
-                num_levels=cfg.MODEL.BACKBONE.get('num_levels', 7))
+                num_levels=cfg.MODEL.BACKBONE.get('num_levels', 7),
+                brick=brick_of(args))
         # exact-count duplicate trimming: sampler-padded scenes at the tail
         # of the last batch are masked out of metrics and skipped in dumps
         # (ref tool/test.py:138-141). In region-eval mode a scene spans
@@ -224,7 +227,7 @@ def main(argv=None):
     from ..config import log_config_to_file
     log_config_to_file(cfg, logger=logger)
 
-    model = mf.build_model(cfg, device=dev)
+    model = mf.build_model(cfg, device=dev, brick=args.brick)
     b_caps = default_brick_caps(
         cfg.DATA_CONFIG_TAR.DATA_PROCESSOR.get('brick_cap', 32768),
         model.num_levels)

@@ -3,7 +3,7 @@ device time.
 
     python -m doda_tpu_torch.tools.trace_fwd [--train] [--sm-max-cin N]
                                              [--fuse-norm] [--remat P]
-                                             [--trace PATH]
+                                             [--brick 4|2] [--trace PATH]
 
 from the repo root. Builds the flagship (cfgs/scannet/spconv.yaml) with
 seeded weights in bf16, runs ``make_eval_step`` on 4 bench scenes (with
@@ -12,7 +12,10 @@ seeded weights in bf16, runs ``make_eval_step`` on 4 bench scenes (with
 for the forward and 32, K2 at levels 0 and 1, for the train step;
 ``--fuse-norm`` turns on the fused norm + ReLU engine, whose block convs
 run K1's prologue variant, a bucket of its own; ``--remat`` is the train
-step's memory policy, ``build_model``'s ``remat``) twice to warm up, times
+step's memory policy, ``build_model``'s ``remat``; ``--brick 2`` builds
+the net and its plans in bricks of side 2 under ``synth.BRICK_CAPS_SIDE2``,
+where the default ``--sm-max-cin`` is 0 with ``--train`` too, since K2 is
+built for side 4) twice to warm up, times
 three calls on the host clock, then profiles one with
 ``torch.profiler``. Prints one JSON line: the call's wall
 time, the device's busy share of it, device time per bucket of kernels, and
@@ -70,6 +73,8 @@ def main(argv=None):
     ap.add_argument('--remat', default='off',
                     help="the train step's memory policy: off (default), "
                          'dots, all, mix or mixN')
+    ap.add_argument('--brick', type=int, choices=(2, 4), default=4,
+                    help='brick side (default 4)')
     ap.add_argument('--trace', help='write a Chrome trace to this path')
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -78,16 +83,17 @@ def main(argv=None):
     torch.backends.cudnn.allow_tf32 = False
 
     cfg = cfg_from_yaml_file('cfgs/scannet/spconv.yaml', CfgNode())
-    b_caps = default_brick_caps(synth.BRICK_CAP, 7)
+    b_caps = default_brick_caps(synth.BRICK_CAP, 7) if args.brick == 4 \
+        else synth.BRICK_CAPS_SIDE2
     batch = synth.make_batch(
         seed=0, batch=synth.TRAIN_BATCH if args.train else synth.BATCH)
-    synth.capacity_audit(batch, b_caps)
+    synth.capacity_audit(batch, b_caps, args.brick)
     batch = batch.to('cuda')
     sm_max_cin = args.sm_max_cin if args.sm_max_cin is not None else (
-        32 if args.train else 0)
+        32 if args.train and args.brick == 4 else 0)
     model = model_fn.build_model(cfg, sm_max_cin=sm_max_cin,
                                  train=args.train, fuse_norm=args.fuse_norm,
-                                 remat=args.remat)
+                                 remat=args.remat, brick=args.brick)
     model.load_state_dict(synth.seeded_state_dict(model, seed=0))
     if args.train:
         opt = optim.build_optimizer(cfg.OPTIMIZATION, model.parameters())
@@ -128,7 +134,7 @@ def main(argv=None):
     print(json.dumps({
         'card': smi, 'mode': 'train step' if args.train else 'eval forward',
         'sm_max_cin': sm_max_cin, 'fuse_norm': args.fuse_norm,
-        'remat': args.remat,
+        'remat': args.remat, 'brick': args.brick,
         'scenes': int(batch.coords.shape[0]),
         'wall_ms': wall_ms,
         'profiled_device_ms': device_ms,

@@ -12,7 +12,8 @@ the device) one padded batch at a time; validation runs ``make_eval_step``.
 ``--profile N`` captures a ``torch.profiler`` trace of the first N train
 steps into <output_dir>/profile. ``--remat off|dots|all|mix|mixN``
 (default off) is the U-Net blocks' memory policy (``build_model``'s
-``remat``, the JAX CLIs' ``DODA_REMAT``).
+``remat``, the JAX CLIs' ``DODA_REMAT``) and ``--brick 2|4`` (default 4)
+the brick side (``build_model``'s ``brick``, the JAX CLIs' ``DODA_BRICK``).
 
 ``--launcher pytorch`` (torchrun) or ``slurm`` runs one process per card
 (``parallel/collectives.py``): each rank loads its shard of every batch,
@@ -42,8 +43,9 @@ from ..parallel import collectives
 from ..utils.logging import get_logger, make_writer
 from ..utils.metrics import AverageMeter, calc_metrics
 from ..utils.optim import build_optimizer, make_lr_fn
-from .common import (add_port_args, add_remat_arg, host, launch, load_cfg,
-                     output_dir_of, rank_share, reduce_meters)
+from .common import (add_brick_arg, add_port_args, add_remat_arg, brick_of,
+                     host, launch, load_cfg, output_dir_of, rank_share,
+                     reduce_meters)
 
 METRICS = ('loss', 'intersection', 'union', 'target', 'count')
 
@@ -73,6 +75,7 @@ def parse_config(argv=None):
                         help='capture a torch.profiler trace of the first '
                              'N train steps into <output_dir>/profile')
     add_remat_arg(parser)
+    add_brick_arg(parser)
     add_port_args(parser)
     args = parser.parse_args(argv)
     return args, load_cfg(args)
@@ -137,7 +140,8 @@ def train_epoch(args, cfg, logger, writer, train_loader, train_step, lr_fn,
             train_loader.dataset.check_brick_capacity(
                 batch, cfg.DATA_CONFIG.DATA_PROCESSOR.get(
                     'brick_cap', 32768), logger,
-                num_levels=cfg.MODEL.BACKBONE.get('num_levels', 7))
+                num_levels=cfg.MODEL.BACKBONE.get('num_levels', 7),
+                brick=brick_of(args))
         if profiler is not None and epoch == args.start_epoch:
             profiler.before(i)
         t0 = time.time()
@@ -353,7 +357,8 @@ def main(argv=None):
     dev, world, output_dir, ckpt_dir, logger, writer = start(args, cfg,
                                                              'train')
 
-    model = mf.build_model(cfg, device=dev, train=True, remat=args.remat)
+    model = mf.build_model(cfg, device=dev, train=True, remat=args.remat,
+                           brick=args.brick)
     optimizer = build_optimizer(cfg.OPTIMIZATION, model.parameters())
     b_caps = default_brick_caps(
         cfg.DATA_CONFIG.DATA_PROCESSOR.get('brick_cap', 32768),

@@ -29,7 +29,10 @@ def _walk(tree, prefix=()):
 def params_from_jax(params, batch_stats) -> dict:
     """flax ``params`` and ``batch_stats`` trees (nested dicts of arrays,
     e.g. ``jax.device_get(state.params)``) -> a state_dict for
-    ``SparseConvNet.load_state_dict(strict=True)``."""
+    ``SparseConvNet.load_state_dict(strict=True)``. No weight depends on
+    the brick side (a subm kernel is (27, cin, cout) raster taps, a
+    stride-2 kernel (8, cin, cout) offsets), so the same converted weights
+    run a net of any ``brick``, whatever ``DODA_BRICK`` the JAX run had."""
     sd = {}
     for path, t in _walk(params):
         if path[:-1] == ('linear',) and path[-1] == 'kernel':

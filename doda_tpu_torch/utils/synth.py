@@ -19,6 +19,11 @@ TRAIN_BATCH = 2         # scenes per train step (the JAX bench's TRAIN_BATCH)
 N_CAP = 163840          # the quarter-step point bucket of a 150k scene
 N_REAL = 150_000
 BRICK_CAP = 40960       # level-0 brick cap that clears every bench scene
+# the caps of every level in bricks of side 2: a side-2 level l holds the
+# bricks of side 4's level l - 1 (side 4's caps from level 0 on, after a
+# level-0 cap of twice side 4's), which clears every bench scene
+# (``capacity_audit(make_batch(seed=0), BRICK_CAPS_SIDE2, brick=2)``)
+BRICK_CAPS_SIDE2 = (81920, 40960, 16384, 3328, 768, 256, 128)
 
 
 def make_scene(rng, n: int = N_REAL) -> np.ndarray:
@@ -53,22 +58,23 @@ def make_batch(seed: int = 0, batch: int = BATCH, n_cap: int = N_CAP,
                         for a in (coords, feats, labels, valid)))
 
 
-def bench_batch(batch: int, n_real: int, b_caps, seed: int = 0
-                ) -> PointBatch:
+def bench_batch(batch: int, n_real: int, b_caps, seed: int = 0,
+                brick: int = BRICK) -> PointBatch:
     """``make_batch`` of ``batch`` scenes of ``n_real`` points (padded to
     N_CAP for the bench's 150k, else not at all), audited against the
-    brick caps ``b_caps``: the probes' batch."""
+    brick caps ``b_caps`` in bricks of side ``brick``: the probes'
+    batch."""
     out = make_batch(seed=seed, batch=batch, n_real=n_real,
                      n_cap=N_CAP if n_real == N_REAL else n_real)
-    capacity_audit(out, b_caps)
+    capacity_audit(out, b_caps, brick)
     return out
 
 
-def capacity_audit(batch: PointBatch, b_caps) -> None:
-    """Raise if any level of any scene holds more bricks than its cap
-    (the plan would drop them silently)."""
+def capacity_audit(batch: PointBatch, b_caps, brick: int = BRICK) -> None:
+    """Raise if any level of any scene holds more bricks of side ``brick``
+    than its cap (the plan would drop them silently)."""
     for b in range(batch.coords.shape[0]):
-        bc = batch.coords[b][batch.valid[b]].cpu().numpy() // BRICK
+        bc = batch.coords[b][batch.valid[b]].cpu().numpy() // brick
         for lvl, cap in enumerate(b_caps):
             occ = len(np.unique(bc >> lvl, axis=0))
             if occ > cap:

@@ -1,8 +1,8 @@
 """The port's probes on the CPU at a tiny size: ``probe_train_mem``,
 ``roofline`` and ``bench_conv`` (``doda_tpu_torch/tools``), each through
 its ``main([... '--device', 'cpu'])``. The roofline's per-level bytes and
-operations are held to a direct numpy count over the plan's rulebooks;
-``bench_conv`` prints one JSON line a route."""
+operations are held to a direct numpy count over the plan's rulebooks, at
+brick sides 4 and 2; ``bench_conv`` prints one JSON line a route."""
 
 import json
 
@@ -48,15 +48,15 @@ def test_probe_train_mem_runs_and_reports(capsys, monkeypatch):
     assert _json_lines(got.out)[-1]['fits'] is False
 
 
-def _numpy_level(occ, nbr, convs):
+def _numpy_level(occ, nbr, convs, side=4):
     """Bytes and operations of one level's subm convs, counted from the
     rulebook in numpy: a present neighbour in direction (dx, dy, dz)
     supplies the halo cells its offset reaches, read r(dx) r(dy) r(dz)
     times by the brick's (output cell, tap) pairs along each axis: r(-1) =
     r(+1) = 1 (one slice, read by one tap of the edge cell) and r(0) = 2 +
-    3 + 3 + 2 = 10 (the brick's own four slices)."""
+    3 + 3 + 2 = 10 (the brick's own four slices; 2 + 2 = 4 at side 2)."""
     rows = occ.shape[0]
-    r = {-1: 1, 0: 10, 1: 1}
+    r = {-1: 1, 0: 10 if side == 4 else 4, 1: 1}
     reads = 0
     for col in range(27):
         dx, dy, dz = col // 9 - 1, col // 3 % 3 - 1, col % 3 - 1
@@ -65,7 +65,7 @@ def _numpy_level(occ, nbr, convs):
     for cin, cout in convs:
         # the fused K1 and, at the cin = 3 input conv, its narrow-input
         # version: activation, rulebook, taps
-        moved += 2 * (rows * 64 * (cin + cout) + 27 * cin * cout) \
+        moved += 2 * (rows * side ** 3 * (cin + cout) + 27 * cin * cout) \
             + 4 * rows * 27
         flops += 2 * cin * cout * reads
     return reads, moved, flops
@@ -92,6 +92,34 @@ def test_roofline_counts_equal_a_numpy_count(capsys):
     assert lines[-1]['bytes'] == sum(r['bytes'] for r in table[:2])
     assert lines[-1]['subm_convs'] == 13
     assert table[0]['routes'] == {'narrow': 1, 'fused': 8}
+
+
+def test_roofline_side2_counts_equal_a_numpy_count(capsys):
+    """The side-2 bound: the same forward counted in bricks of side 2
+    (8 cells, a 4x4x4 halo), against the numpy count at that side."""
+    table = roofline.main(TINY + ['--levels', '2', '--brick', '2'])
+    lines = _json_lines(capsys.readouterr().out)
+    batch = synth.make_batch(seed=0, batch=2, n_cap=200, n_real=200)
+    plan = tunet.build_level_plan(batch.coords, batch.valid,
+                                  tunet.default_brick_caps(512, 2), 'cpu',
+                                  brick=2)
+    convs = ([(3, 16)] + [(16, 16)] * 7 + [(32, 16)], [(32, 32)] * 4)
+    for lvl, row in enumerate(table[:2]):
+        occ = plan.occs[lvl].reshape(-1, 8).numpy()
+        nbr = tunet.flatten_plan(plan)[0][lvl].nbr.numpy()
+        reads, moved, flops = _numpy_level(occ, nbr, convs[lvl], side=2)
+        assert row['brick'] == 2 and lines[lvl]['brick'] == 2
+        assert row['present_halo_reads'] == reads
+        assert row['bytes'] == moved and row['flops'] == flops
+        assert row['active_cells'] == occ.sum()
+        assert row['cell_occupancy'] == occ.sum() / occ.size
+        assert row['bound_ms'] == pytest.approx(sum(
+            bounds.fused_work(occ.shape[0], cin, cout, reads, 2)['bound_ms']
+            for cin, cout in convs[lvl]))
+    # a side-2 level holds the voxels of side 4's: the same active cells
+    plan4 = tunet.build_level_plan(batch.coords, batch.valid,
+                                   tunet.default_brick_caps(512, 2), 'cpu')
+    assert table[0]['active_cells'] == int(plan4.occs[0].sum())
 
 
 def test_bench_conv_prints_a_line_a_route(capsys):
