@@ -10,8 +10,9 @@ Phases, each printing one line:
   3. plan: the bench batch's level plan on the card equals the CPU's
      kernels: each kernel's wrapper (K1 banded_conv, its fused version
      banded_conv_fused, its narrow-input version banded_conv_narrow, K2
-     banded_conv_sm and its second version banded_conv_sm_taps) on the
-     card vs its plain version, at the main
+     banded_conv_sm on float32 operands, refusing bf16 ones, and its
+     second version banded_conv_sm_taps) on the card vs its plain
+     version, at the main
      paths' widths (K2's second version also on row-strided operands, a
      ragged tile and no rows); the fused K1 on the real plan's
      rulebooks (levels 0, 1, 5, 6) and on a synthetic one (ragged rows,
@@ -74,11 +75,20 @@ Phases, each printing one line:
      levels 0-1, the narrow K1 at the input conv, the first version at
      float32), timed beside its side-2 bound, its plain version, cuDNN
      ``conv3d`` over the oracle's side-2 halo and the same kernel at side
-     4; the eval forward at both sides (bf16 predictions >= 99%, float32
+     4; K2 at side 2 likewise (its second version on bf16 operands to
+     float32, 1e-5 of max|ref|, and bf16, 1.6e-2, its first on float32
+     operands, 1e-5, at every level's p -> p and the sm_max_cin=32 step's
+     other shapes; the second version timed at every level beside the
+     side-2 fused K1 and K2 at side 4, the first at level 0); the eval
+     forward at both sides (bf16 predictions >= 99%, float32
      logits to 1e-3, launches against ``subm_routes``, scenes/sec in
      turns, device time by bucket, launches and peak), the ``fuse_norm``
      forward at side 2, one float32 train step (loss 1e-4 relative,
-     gradients 1e-3) and three bf16 train steps at both sides
+     gradients 1e-3) and three bf16 train steps at both sides; at side 2
+     the same under ``sm_max_cin=32`` (K2): the bf16 forward (predictions
+     >= 99% against ``sm_max_cin=0``), the float32 step against side 2's
+     ``sm_max_cin=0`` step (loss 1e-4 relative, gradients 1e-3 of their
+     scale) and three bf16 steps, launches against ``subm_routes``
   9. remat: the U-Net blocks' memory policies (``remat``) in the
      CLI-shaped train step (cfgs/da_front3d_scannet/spconv.yaml, batch 4
      of the bench rooms, bf16, ``sm_max_cin=0``), 'off', 'dots', 'all'
@@ -141,9 +151,10 @@ Phases, each printing one line:
      the first version over its planes (alone and with the plane gather),
      the fused K1 on x2 zero-padded to cin = 8 (padding pass included) and
      cuDNN conv3d over the oracle's halo; K2 in both versions at the
-     level-0 and level-1 shapes; K1's and K2's library time is phase
-     engines' conv3d
-Then a JSON line of the kernels and, last, {"ok": true, "device": ...}.
+     level-0 and level-1 shapes (the second in bf16, the first in
+     float32); K1's and K2's library time is phase engines' conv3d
+Then a JSON line of the kernels (K2 at side 2 in two rows of its own,
+from phase brick) and, last, {"ok": true, "device": ...}.
 Any failure raises, and the script exits non-zero without that last line.
 """
 
@@ -427,22 +438,29 @@ def phase_kernels(levels):
             worst[f'K1/{b}x{cin}x{cout}/{str(dt)[6:]}'] = _close(
                 got, ref, rel, bound, f'banded_conv {b},{cin},{cout} {dt}')
 
-    # K2 at every shape the rule can send it, ragged B included
+    # K2's first version (float32 operands) at every shape the rule can
+    # send it, ragged B included; bf16 operands are the second version's
+    # and the first refuses them, naming it
+    f32, (_, rel, bound) = torch.float32, CHECKS[0]
     for b, cin, cout in K2_SHAPES:
         ops = [torch.randn(b, cells * cin, device='cuda', generator=g)
                for cells in (64, 96, 40, 40)]
         w = torch.randn(27, cin, cout, device='cuda', generator=g)
-        w = w / (27 * cin) ** 0.5
-        for dt, rel, bound in CHECKS:
-            args = [t.to(dt) for t in ops] + list(
-                bricks2d.sm_weights(w.to(dt)))
-            got = banded_conv_sm(*args, dt)
-            torch.cuda.synchronize()
-            ref = banded_conv_sm_plain(*args, dt)
-            worst[f'K2/{b}x{cin}x{cout}/{str(dt)[6:]}'] = _close(
-                got, ref, rel, bound, f'banded_conv_sm {b},{cin},{cout} {dt}')
+        args = ops + list(bricks2d.sm_weights(w / (27 * cin) ** 0.5))
+        got = banded_conv_sm(*args, f32)
+        torch.cuda.synchronize()
+        ref = banded_conv_sm_plain(*args, f32)
+        worst[f'K2/{b}x{cin}x{cout}/float32'] = _close(
+            got, ref, rel, bound, f'banded_conv_sm {b},{cin},{cout} float32')
     assert banded_conv_sm(*(t[:0] for t in args[:4]), *args[4:],
-                          torch.float32).shape == (0, 64 * 112)
+                          f32).shape == (0, 64 * 112)
+    before = banded_conv_sm.launches
+    try:
+        banded_conv_sm(*(t.to(bf) for t in args), bf)
+        raise AssertionError('banded_conv_sm ran bf16 operands')
+    except ValueError as e:
+        assert 'banded_conv_sm_taps' in str(e), e
+    assert banded_conv_sm.launches == before
 
     # K2's second version at the same shapes, on less than one tile, with a
     # half-filled last cout block, and at a cin that takes two weight
@@ -1245,6 +1263,19 @@ BRICK_K1_SHAPES = tuple((lvl, 16 * (lvl + 1), 16 * (lvl + 1))
                         for lvl in range(7)) + ((0, 32, 16), (1, 64, 32))
 
 
+# (level, cin, cout) of phase brick's K2 checks on the side-2 bench
+# rulebooks: every level's block conv p -> p, and the shapes the
+# sm_max_cin=32 step adds at levels 0 and 1 (the 2p -> p tail 32 -> 16 and
+# the dx of the tails, 16 -> 32 and 32 -> 64)
+BRICK_K2_SHAPES = tuple((lvl, 16 * (lvl + 1), 16 * (lvl + 1))
+                        for lvl in range(7)) + ((0, 32, 16), (0, 16, 32),
+                                                (1, 32, 64))
+# K2 at side 2, (output dtype, tolerance relative to max|ref|): float32
+# output, the same products summed in float32 in another order; bf16
+# output, one rounding of the result
+K2_SIDE2_CHECKS = ((torch.float32, 1e-5), (torch.bfloat16, 1.6e-2))
+
+
 def _scene_table(table, s):
     """Scene ``s`` of a stacked ``CoordTable``."""
     return type(table)(*(f[s] for f in table))
@@ -1353,6 +1384,67 @@ def _first_timings(lv, side, g, plain=False, library=False):
     return out
 
 
+def _sm_operands(lv, cin, cout, side, g, dtype):
+    """Seeded activations masked to one level's active cells, assembled
+    into K2's operands at ``side`` (``_assemble_sm``; not timed), and
+    raster weights, in ``dtype``."""
+    from doda_tpu_torch.ops import bricks2d
+    rows, cells = lv.occ.shape
+    x2 = (torch.randn(rows, cells, cin, device='cuda', generator=g)
+          * lv.occ[..., None]).reshape(rows, -1)
+    w = torch.randn(27, cin, cout, device='cuda', generator=g) \
+        / (27 * cin) ** 0.5
+    ops = bricks2d._assemble_sm(x2, bricks2d.sm_index(lv.nbr, side), dtype,
+                                side)
+    return ops, w.to(dtype)
+
+
+def _sm_timings(lv, cin, cout, side, g, plain=False):
+    """K2's second version at one (cin -> cout) on one level's rulebook at
+    ``side``, bf16: ms over 20 launches, its bound (``utils/roofline.py``
+    at that side) and, where asked, its plain version's ms over 3."""
+    from doda_tpu_torch.ops.banded_conv_sm import (banded_conv_sm_taps,
+                                                   banded_conv_sm_taps_plain,
+                                                   sm_taps_smem_bytes)
+    from doda_tpu_torch.utils import roofline
+    bf = torch.bfloat16
+    ops, w = _sm_operands(lv, cin, cout, side, g, bf)
+    rows = lv.occ.shape[0]
+    work = roofline.sm_taps_work(rows, cin, cout, side)
+    out = {'side': side, 'shape': [rows, cin, cout],
+           'ms': cuda_ms(lambda: banded_conv_sm_taps(*ops, w, bf), 20),
+           'bound_ms': work['bound_ms'], 'bound_by': work['bound_by'],
+           'dynamic_smem_bytes': sm_taps_smem_bytes(cin, side)}
+    out['x_bound'] = out['ms'] / out['bound_ms']
+    if plain:
+        out['plain_ms'] = cuda_ms(
+            lambda: banded_conv_sm_taps_plain(*ops, w, bf), 3)
+    return out
+
+
+def _sm_first_timings(lv, side, g):
+    """K2's first version at float32 (its main-path dtype), 16 -> 16 on
+    one level's rulebook at ``side``: ms over 10 launches, its bound
+    (float32 on the CUDA cores) and its plain version's ms over 3."""
+    from doda_tpu_torch.ops import bricks2d
+    from doda_tpu_torch.ops.banded_conv_sm import (banded_conv_sm,
+                                                   banded_conv_sm_plain)
+    from doda_tpu_torch.utils import roofline
+    f32 = torch.float32
+    ops, w = _sm_operands(lv, 16, 16, side, g, f32)
+    wts = bricks2d.sm_weights(w, side)
+    rows = lv.occ.shape[0]
+    work = roofline.sm_first_work(rows, 16, 16, side)
+    out = {'side': side, 'shape': [rows, 16, 16], 'dtype': 'float32',
+           'ms': cuda_ms(lambda: banded_conv_sm(*ops, *wts, f32), 10),
+           'bound_ms': work['bound_ms'], 'bound_by': work['bound_by'],
+           'executed_flops': work['executed_flops'],
+           'plain_ms': cuda_ms(lambda: banded_conv_sm_plain(*ops, *wts, f32),
+                               3)}
+    out['x_bound'] = out['ms'] / out['bound_ms']
+    return out
+
+
 def phase_brick(cfg, batch, b_caps, card):
     """The brick side (``build_model(..., brick=2)``, the JAX package's
     ``DODA_BRICK=2``) on the flagship against side 4 (``b_caps``), on the
@@ -1379,6 +1471,10 @@ def phase_brick(cfg, batch, b_caps, card):
                                                 banded_conv_fused,
                                                 banded_conv_fused_plain,
                                                 banded_conv_plain)
+    from doda_tpu_torch.ops.banded_conv_sm import (banded_conv_sm,
+                                                   banded_conv_sm_plain,
+                                                   banded_conv_sm_taps,
+                                                   banded_conv_sm_taps_plain)
     from doda_tpu_torch.utils import optim, synth
     t_phase = time.perf_counter()
     bf, f32 = torch.bfloat16, torch.float32
@@ -1455,6 +1551,32 @@ def phase_brick(cfg, batch, b_caps, card):
     del x2, w, rows6, wb, got
     torch.cuda.empty_cache()
 
+    # K2 at side 2 against its plain versions: the second version on bf16
+    # operands to float32 and bf16, the first on float32 operands
+    for lvl, cin, cout in BRICK_K2_SHAPES:
+        for op_dt in (bf, f32):
+            ops, w = _sm_operands(lv2[lvl], cin, cout, 2, g, op_dt)
+            if op_dt == bf:
+                runs = [(f'K2/L{lvl}/{cin}x{cout}/{str(dt)[6:]}', dt,
+                         bound, lambda dt=dt: banded_conv_sm_taps(
+                             *ops, w, dt), lambda dt=dt:
+                         banded_conv_sm_taps_plain(*ops, w, dt))
+                        for dt, bound in K2_SIDE2_CHECKS]
+            else:
+                wts = bricks2d.sm_weights(w, 2)
+                runs = [(f'K2first/L{lvl}/{cin}x{cout}/float32', f32,
+                         K2_SIDE2_CHECKS[0][1],
+                         lambda: banded_conv_sm(*ops, *wts, f32),
+                         lambda: banded_conv_sm_plain(*ops, *wts, f32))]
+            for key, dt, bound, kernel, plain in runs:
+                got = kernel()
+                torch.cuda.synchronize()
+                assert got.shape == (lv2[lvl].occ.shape[0], 8 * cout)
+                worst[key] = _close(got, plain(), True, bound,
+                                    f'side-2 {key}')
+            del ops, w, got
+    torch.cuda.empty_cache()
+
     # the kernels timed at side 2 beside side 4, in this call
     timing = {'fused': [], 'narrow': [], 'first': []}
     for lvl in range(7):
@@ -1470,6 +1592,17 @@ def phase_brick(cfg, batch, b_caps, card):
         timing['first'].append(_first_timings(lv[0], s, g, plain=s == 2,
                                               library=True))
         torch.cuda.empty_cache()
+    # K2: the second version at every level, the first at level 0 (float32)
+    timing['sm'], timing['sm_first'] = [], []
+    for lvl in range(7):
+        p = 16 * (lvl + 1)
+        for s, lv in ((4, lv4), (2, lv2)):
+            timing['sm'].append(dict(level=lvl, **_sm_timings(
+                lv[lvl], p, p, s, g, plain=lvl == 0)))
+        torch.cuda.empty_cache()
+    for s, lv in ((4, lv4), (2, lv2)):
+        timing['sm_first'].append(_sm_first_timings(lv[0], s, g))
+        torch.cuda.empty_cache()
     del levels, lv2, lv4
     torch.cuda.empty_cache()
 
@@ -1477,9 +1610,9 @@ def phase_brick(cfg, batch, b_caps, card):
     sd = synth.seeded_state_dict(model_fn.build_model(cfg), seed=0)
     launched, model_r = {}, {}
 
-    def evaluator(dtype, side, fuse=False):
+    def evaluator(dtype, side, fuse=False, sm_max_cin=0):
         model = model_fn.build_model(cfg, dtype=dtype, brick=side,
-                                     fuse_norm=fuse)
+                                     fuse_norm=fuse, sm_max_cin=sm_max_cin)
         model.load_state_dict(sd, strict=True)
         return model, model_fn.make_eval_step(cfg, model, caps[side])
 
@@ -1534,6 +1667,16 @@ def phase_brick(cfg, batch, b_caps, card):
         'sm': 0, 'fused': 0, 'narrow': 1, 'assembled': 0, 'prologue': 52}
     agree_fuse = (out['preds'] == preds[2])[valid].float().mean().item()
     assert agree_fuse >= 0.99, f'side-2 fuse_norm preds agree {agree_fuse}'
+    del model, step, out
+    torch.cuda.empty_cache()
+    # K2 at side 2: the same forward with sm_max_cin=32
+    model, step = evaluator(bf, 2, sm_max_cin=SM_MAX_CIN)
+    step(batch)
+    out = counted('eval_bf16_side2_sm32', model, lambda: step(batch))
+    assert launched['eval_bf16_side2_sm32'] == {
+        'sm': 15, 'fused': 37, 'narrow': 1, 'assembled': 0, 'prologue': 0}
+    agree_sm = (out['preds'] == preds[2])[valid].float().mean().item()
+    assert agree_sm >= 0.99, f'side-2 sm_max_cin=32 preds agree {agree_sm}'
     del model, step, out, preds
     torch.cuda.empty_cache()
     logits = {}
@@ -1550,6 +1693,7 @@ def phase_brick(cfg, batch, b_caps, card):
     model_r['eval_forward'] = {
         'bf16_pred_agreement': agree,
         'bf16_fuse_norm_side2_pred_agreement': agree_fuse,
+        'bf16_sm_max_cin_32_side2_pred_agreement': agree_sm,
         'f32_logit_max_abs_err': err32, 'f32_logit_bound': lim32}
 
     tbatch = synth.make_batch(seed=0, batch=synth.TRAIN_BATCH)
@@ -1559,8 +1703,9 @@ def phase_brick(cfg, batch, b_caps, card):
     lr = optim.make_lr_fn(cfg.OPTIMIZATION, cfg.OPTIMIZATION.NUM_EPOCHS,
                           100)(1, 0)
 
-    def trainer(dtype, s):
-        model = model_fn.build_model(cfg, dtype=dtype, brick=s, train=True)
+    def trainer(dtype, s, sm_max_cin=0):
+        model = model_fn.build_model(cfg, dtype=dtype, brick=s, train=True,
+                                     sm_max_cin=sm_max_cin)
         model.load_state_dict(sd, strict=True)
         opt = optim.build_optimizer(cfg.OPTIMIZATION, model.parameters())
         return model, model_fn.make_train_step(cfg, model, opt, caps[s])
@@ -1581,28 +1726,43 @@ def phase_brick(cfg, batch, b_caps, card):
         del model, step
         torch.cuda.empty_cache()
     assert launched['train_f32_side2']['assembled'] == 105
+    # K2 at side 2: the float32 step with sm_max_cin=32 (its first version)
+    model, step = trainer(f32, 2, SM_MAX_CIN)
+    loss = float(counted('train_f32_side2_sm32', model,
+                         lambda: step(tbatch, lr), rule(model, 1))['loss'])
+    g2_sm = {n: p.grad.float().clone() for n, p in model.named_parameters()}
+    del model, step
+    assert launched['train_f32_side2_sm32']['sm'] == 31
     (l4, g4), (l2, g2) = first[4], first[2]
     assert abs(l2 - l4) <= 1e-4 * abs(l4), (l2, l4)
     l2_err, f32_worst = _grad_error(g2, g4)
     assert f32_worst <= 1e-3, f'float32 gradients side 2 vs 4: {f32_worst}'
-    del first, g4, g2
+    assert abs(loss - l2) <= 1e-4 * abs(l2), (loss, l2)
+    sm_l2_err, sm_worst = _grad_error(g2_sm, g2)
+    assert sm_worst <= 1e-3, \
+        f'float32 gradients K2 vs K1 at side 2: {sm_worst}'
+    del first, g4, g2, g2_sm
     torch.cuda.empty_cache()
     train = {'f32_loss_side4': l4, 'f32_loss_side2': l2,
              'f32_grad_rel_l2_err': l2_err,
-             'f32_worst_gradient_err': f32_worst}
+             'f32_worst_gradient_err': f32_worst,
+             'f32_loss_side2_sm32': loss,
+             'f32_sm32_vs_sm0_side2_grad_rel_l2_err': sm_l2_err,
+             'f32_sm32_vs_sm0_side2_worst_gradient_err': sm_worst}
     n_steps = 3
-    for s in (4, 2):
-        model, step = trainer(bf, s)
+    for s, smc in ((4, 0), (2, 0), (2, SM_MAX_CIN)):
+        model, step = trainer(bf, s, smc)
         step(tbatch, lr)                            # warm-up (set-up)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
+        run = f'bf16_side{s}' + (f'_sm{smc}' if smc else '')
         t0 = time.perf_counter()
-        losses = counted(f'train_bf16_side{s}', model, lambda: [
+        losses = counted(f'train_{run}', model, lambda: [
             float(step(tbatch, lr)['loss']) for _ in range(n_steps)],
             rule(model, n_steps))
         dt = time.perf_counter() - t0
         assert all(math.isfinite(v) for v in losses), losses
-        train[f'bf16_side{s}'] = {
+        train[run] = {
             'seconds_per_step': dt / n_steps,
             'trained_scenes_per_sec': n_steps * synth.TRAIN_BATCH / dt,
             'peak_memory_gib': torch.cuda.max_memory_allocated() / 2 ** 30,
@@ -1610,6 +1770,8 @@ def phase_brick(cfg, batch, b_caps, card):
         del model, step
         torch.cuda.empty_cache()
     model_r['train'] = {'batch': synth.TRAIN_BATCH, 'lr': lr, **train}
+    timing['sm_err'] = {'taps': worst['K2/L0/16x16/bfloat16'],
+                        'first': worst['K2first/L0/16x16/float32']}
     log('brick', card=card, plan=plan, kernel_max_abs_err=worst,
         kernel_timing=timing, **model_r, launches=launched,
         phase_seconds=time.perf_counter() - t_phase)
@@ -2687,43 +2849,56 @@ def time_narrow(nbr, halo, occ, g):
 
 
 def time_k2(b, cin, cout, g):
-    """K2 in both versions at (B, cin, cout), bf16, on random operands laid
-    out as the path lays them (x contiguous, gyz/gxm/gxp column slices of
-    one gathered buffer): the second version, its plain version and bound;
-    the first version on ``sm_weights``. Every cell is present, so every
-    tap is needed (``doda_tpu_torch/utils/roofline.py``)."""
+    """K2 in both versions at (B, cin, cout) on random operands laid out as
+    the path lays them (x contiguous, gyz/gxm/gxp column slices of one
+    gathered buffer): the second version at bf16, its plain version and
+    bound; the first at float32, its main-path dtype (the float32 'sm'
+    convs), its plain version and bound (float32 on the CUDA cores). Every
+    cell is present, so every tap is needed
+    (``doda_tpu_torch/utils/roofline.py``)."""
     from doda_tpu_torch.ops import bricks2d
     from doda_tpu_torch.ops.banded_conv_sm import (banded_conv_sm,
+                                                   banded_conv_sm_plain,
                                                    banded_conv_sm_taps,
                                                    banded_conv_sm_taps_plain,
                                                    sm_taps_smem_bytes)
     from doda_tpu_torch.utils import roofline
-    bf = torch.bfloat16
-    x = torch.randn(b, 64 * cin, device='cuda', generator=g).to(bf)
-    buf = torch.randn(b, 176 * cin, device='cuda', generator=g).to(bf)
+    bf, f32 = torch.bfloat16, torch.float32
+    x = torch.randn(b, 64 * cin, device='cuda', generator=g)
+    buf = torch.randn(b, 176 * cin, device='cuda', generator=g)
     ops = (x, buf[:, :96 * cin], buf[:, 96 * cin:136 * cin],
            buf[:, 136 * cin:])
-    w = (torch.randn(27, cin, cout, device='cuda', generator=g)
-         / (27 * cin) ** 0.5).to(bf)
-    out = banded_conv_sm_taps(*ops, w, bf)
-    ref = banded_conv_sm_taps_plain(*ops, w, bf)
+    w = torch.randn(27, cin, cout, device='cuda', generator=g) \
+        / (27 * cin) ** 0.5
+    bufb, wb = buf.to(bf), w.to(bf)
+    opsb = (x.to(bf), bufb[:, :96 * cin], bufb[:, 96 * cin:136 * cin],
+            bufb[:, 136 * cin:])
+    out = banded_conv_sm_taps(*opsb, wb, bf)
+    ref = banded_conv_sm_taps_plain(*opsb, wb, bf)
     err = _close(out, ref, True, 2e-2, f'banded_conv_sm_taps at {b}x{cin}')
-    del ref
-    ms = cuda_ms(lambda: banded_conv_sm_taps(*ops, w, bf), 20)
-    plain_ms = cuda_ms(lambda: banded_conv_sm_taps_plain(*ops, w, bf), 3)
+    del ref, out
+    ms = cuda_ms(lambda: banded_conv_sm_taps(*opsb, wb, bf), 20)
+    plain_ms = cuda_ms(lambda: banded_conv_sm_taps_plain(*opsb, wb, bf), 3)
     taps = {'ms': ms, 'plain_ms': plain_ms, 'max_abs_err': err,
             **roofline.sm_taps_work(b, cin, cout),
             'dynamic_smem_bytes': sm_taps_smem_bytes(cin)}
+    del opsb, bufb
     wts = bricks2d.sm_weights(w)
     sm_weights_ms = cuda_ms(lambda: bricks2d.sm_weights(w), 10)
-    old = banded_conv_sm(*ops, *wts, bf)
-    vs_old = _close(out, old, True, 2e-2, f'K2 second vs first at {b}x{cin}')
-    old_ms = cuda_ms(lambda: banded_conv_sm(*ops, *wts, bf), 10)
-    old_work = roofline.sm_first_work(b, cin, cout)
-    first = {'ms': old_ms, 'sm_weights_ms': sm_weights_ms,
-             'executed_flops': old_work['executed_flops'],
-             'bound_ms_of_its_operands': old_work['bound_ms'],
-             'second_vs_first_max_abs_err': vs_old}
+    got = banded_conv_sm(*ops, *wts, f32)
+    ref = banded_conv_sm_plain(*ops, *wts, f32)
+    first_err = _close(got, ref, False, CHECKS[0][2],
+                       f'banded_conv_sm float32 at {b}x{cin}')
+    del got, ref
+    work = roofline.sm_first_work(b, cin, cout, 4)
+    first = {'dtype': 'float32',
+             'ms': cuda_ms(lambda: banded_conv_sm(*ops, *wts, f32), 10),
+             'plain_ms': cuda_ms(
+                 lambda: banded_conv_sm_plain(*ops, *wts, f32), 3),
+             'max_abs_err': first_err, 'bound_ms': work['bound_ms'],
+             'bound_by': work['bound_by'],
+             'executed_flops': work['executed_flops'],
+             'sm_weights_ms': sm_weights_ms}
     return {'shape': [b, cin, cout], 'taps': taps, 'first': first}
 
 
@@ -2845,7 +3020,9 @@ def phase_timing(levels, launches, fuse_launches, library, engine_launches):
                    'bound_ms': k1['taps']['bound_ms'],
                    'bound_by': k1['taps']['bound_by'],
                    'plain_ms': k1['taps']['plain_ms'],
-                   'first_version_ms': k1['first']['ms']}})
+                   'first_version_float32_ms': k1['first']['ms'],
+                   'first_version_float32_bound_ms':
+                       k1['first']['bound_ms']}})
 
     # K1's narrow-input version: a row of its own (its own source), and
     # its readings beside the fused version's in K1's row
@@ -2879,9 +3056,15 @@ def add_brick_phase(rows, launched, timing):
     """Phase brick's launches (``launches_brick_phase``, by run) into the
     kernel rows, and its readings at side 2 beside side 4's: the fused K1
     (every level; level 0 with its plain version and ``conv3d``), its
-    prologue variant, the first version (float32) and the narrow K1."""
-    def total(route):
-        return sum(n[route] for n in launched.values())
+    prologue variant, the first version (float32) and the narrow K1. K2 at
+    side 2 gets two rows of its own, appended: its second version (bf16,
+    every level, beside the side-2 fused K1 and K2 at side 4 of the same
+    call) and its first version (float32). Their library call is cuDNN
+    ``conv3d`` over the oracle's side-2 halo at the same shape, from the
+    K1 readings of the phase (bf16, and float32 for the first version)."""
+    def total(route, runs=None):
+        return sum(n[route] for run, n in launched.items()
+                   if runs is None or run in runs)
 
     def pair(readings, level=None):
         got = {r['side']: r for r in readings
@@ -2897,12 +3080,13 @@ def add_brick_phase(rows, launched, timing):
     pro = fused_l0.pop('prologue')
     pro4 = next(r for r in timing['fused']
                 if r['side'] == 4 and r['level'] == 0)['prologue']
+    first = pair(timing['first'])
     for row, n, reading in (
             (k1, total('fused') + total('prologue'), fused_l0),
             (k1['prologue'], total('prologue'),
              {**pro, 'side4_ms': pro4['ms'],
               'side2_over_side4': pro['ms'] / pro4['ms']}),
-            (k1['assembled'], total('assembled'), pair(timing['first'])),
+            (k1['assembled'], total('assembled'), first),
             (k2, 0, None),
             (narrow, total('narrow'), pair(timing['narrow']))):
         row['launches_brick_phase'] = n
@@ -2913,6 +3097,60 @@ def add_brick_phase(rows, launched, timing):
     k1['brick2']['levels'] = [
         {k: v for k, v in pair(timing['fused'], lvl).items()
          if k != 'prologue'} for lvl in range(7)]
+    # K2's first version at side 4 has its float32 conv3d from here too
+    k2['first_version']['library_ms'] = next(
+        r for r in timing['first'] if r['side'] == 4)['library_ms']
+
+    # K2 at side 2: the bf16 runs launch the second version, the float32
+    # runs the first
+    sm_runs = [run for run, n in launched.items() if n['sm']]
+    taps_runs = [run for run in sm_runs if 'bf16' in run]
+    fused2 = {r['level']: r for r in timing['fused'] if r['side'] == 2}
+    sm_levels = []
+    for lvl in range(7):
+        reading = pair(timing['sm'], lvl)
+        reading['fused_k1_side2_ms'] = fused2[lvl]['ms']
+        reading['side2_over_fused_k1'] = reading['ms'] / fused2[lvl]['ms']
+        sm_levels.append(reading)
+    l0 = sm_levels[0]
+    err = timing['sm_err']
+    rows.append({
+        'name': 'banded_conv_sm_taps at side 2', 'route': 'cuda',
+        'source': 'doda_tpu_torch/csrc/banded_conv_sm_taps.cu (S = 2)',
+        'replaces': 'doda_tpu/ops/pallas_sm.py:83 under DODA_BRICK=2',
+        'launches': total('sm', taps_runs),
+        'launches_by_run': {run: launched[run]['sm'] for run in taps_runs},
+        'max_abs_err': err['taps'], 'ms': l0['ms'],
+        'plain_ms': l0['plain_ms'], 'bound_ms': l0['bound_ms'],
+        'bound_by': l0['bound_by'],
+        'library_ms': fused2[0]['library_ms'],
+        'library': "torch.nn.functional.conv3d over the shell-gather "
+                   "oracle's assembled side-2 (rows, 4, 4, 4, cin) bf16 "
+                   'halo, channels-last (phase brick)',
+        'shape': l0['shape'], 'side4_ms': l0['side4_ms'],
+        'fused_k1_side2_ms': l0['fused_k1_side2_ms'],
+        'dynamic_smem_bytes': l0['dynamic_smem_bytes'],
+        'levels': sm_levels})
+    f2 = pair(timing['sm_first'])
+    k1_first2 = next(r for r in timing['first'] if r['side'] == 2)
+    f32_runs = [run for run in sm_runs if 'f32' in run]
+    rows.append({
+        'name': 'banded_conv_sm first version at side 2', 'route': 'cuda',
+        'source': 'doda_tpu_torch/csrc/banded_conv_sm.cu (S = 2)',
+        'replaces': 'doda_tpu/ops/pallas_sm.py:83 under DODA_BRICK=2 '
+                    '(float32 operands)',
+        'launches': total('sm', f32_runs),
+        'launches_by_run': {run: launched[run]['sm'] for run in f32_runs},
+        'max_abs_err': err['first'], 'ms': f2['ms'],
+        'plain_ms': f2['plain_ms'], 'bound_ms': f2['bound_ms'],
+        'bound_by': f2['bound_by'],
+        'library_ms': k1_first2['library_ms'],
+        'library': "torch.nn.functional.conv3d over the shell-gather "
+                   "oracle's assembled side-2 float32 halo (phase brick)",
+        'dtype': 'float32', 'shape': f2['shape'],
+        'side4_ms': f2['side4_ms'], 'side4_bound_ms': f2['side4_bound_ms'],
+        'executed_flops': f2['executed_flops']})
+    assert len(taps_runs) == 2 and len(f32_runs) == 1, sm_runs
 
 
 def main():

@@ -1,4 +1,5 @@
-// Kernel K2: the source-major banded submanifold conv.
+// Kernel K2, first version: the source-major banded submanifold conv on
+// float32 operands.
 //
 // Replaces the TPU kernel doda_tpu/ops/pallas_sm.py::banded_conv_sm. The
 // operands are a brick's own activation x (B, 64*cin) and only the halo
@@ -13,35 +14,31 @@
 //           + gyz[b, cx*24cin : +24cin] . wh[i][:, n]      otherwise
 //
 // unmasked, with float32 accumulation. cin % 16 == 0 and cout % 8 == 0.
+// Those are brick side 4's widths. The side S is a template parameter,
+// instantiated for 4 and 2: S slices of S^2 cells, gyz runs of RUN = 4S+8
+// cells, x-planes of XPAD = (S+2)^2+4 cells, N = S^2*cout (side 2: x 8,
+// gyz 32, gxm / gxp 20 cells a row). bf16 operands take the second
+// version, banded_conv_sm_taps.cu; this kernel runs the float32 'sm' convs,
+// whose checks need full float32, not TF32.
 //
-// Design. Each output slice is one GEMM (B, 120*cin) @ (120*cin, N) whose K
-// axis is pieced together from five or six segments, each with its own A
-// base, A row stride and weight block. The host lays those out as a small
-// table per slice; a block owns one (row tile, slice, N tile) and walks the
-// table with the tile loop of kernel K1 (banded_conv.cu). Every segment
-// length is a multiple of 16*cin >= 256, so a K tile never straddles two
-// segments and 16-byte loads always apply. The Pallas kernel kept the
-// weights resident in VMEM; they are 1.6 MB in bf16 at cin = cout = 16 and
-// 6.6 MB at 32/32, against 227 KB of shared memory, so this kernel tiles
-// rows, N and K. Blocks walk N fastest, then the slice, so the blocks that
-// share a row tile run together and re-read it from L2. B need not divide
-// the row tile: the row edge is masked.
+// Design. Each output slice is one GEMM (B, 3*XPAD*cin) @ (3*XPAD*cin, N)
+// whose K axis is pieced together from five or six segments, each with its
+// own A base, A row stride and weight block. The host lays those out as a
+// small table per slice; a block owns one (row tile, slice, N tile) and
+// walks the table with an exact CUDA-core tile loop. Every segment length
+// is a multiple of S^2*cin >= 64, so a K tile never straddles two
+// segments. Blocks walk N fastest, then the slice, so the blocks that share
+// a row tile run together and re-read it from L2. B need not divide the
+// row tile: the row edge is masked.
 //
-// What bounds it on an H100: at the level-0 training shape the function
-// must move 240*cin + 64*cout elements per brick (0.48 ms at B = 163840,
-// cin = cout = 16, bf16, 3.35 TB/s) against 0.15 ms of non-zero taps at
-// 989 TFLOP/s, so the least time is set by bytes. This first kernel multiplies
-// the full 120*cin band of every slice, zero padding included (27 of every
-// 120 products are non-zero taps), and is bound by its
-// WMMA 16x16x16 tile loop rather than by memory. bf16 operands run on
-// tensor cores with the next K tile prefetched into registers; float32
-// operands take an exact CUDA-core path (the float32 checks of the model
-// need full float32, not TF32). Skipping zero K blocks, wgmma, TMA and
-// fusing the gather in are later work.
+// What bounds it on an H100: float32 operations on the CUDA cores. Every
+// tap of every row is 2*B*S^3*27*cin*cout operations (at side 4, B =
+// 163840, cin = cout = 16: 1.45e11, 2.2 ms at 67 TFLOP/s), and the kernel
+// multiplies the whole band, zero padding included (27 of every 120
+// products at side 4 are taps). It serves the float32 checks only.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
 
 namespace {
@@ -66,165 +63,23 @@ struct Seg {
 };
 constexpr int MAX_SEGS = 6;
 struct Plan {
-  Seg seg[4][MAX_SEGS];
+  Seg seg[4][MAX_SEGS];   // slices 0..S-1 used
   int nseg[4];
 };
 
-// ---------------------------------------------------------------- bf16 ----
-constexpr int TC_BM = 128, TC_BN = 128, TC_BK = 32, TC_THREADS = 256;
-constexpr int A_LD = TC_BK + 8;   // smem row pitch (elements), 80 B
-constexpr int B_LD = TC_BN + 8;   // 272 B
-constexpr int C_LD = 20;          // per-warp float staging pitch
-// Two resident blocks per SM are asked of ptxas: left alone it takes 166
-// registers, which fits one block; held to 128 (8 bytes spilled) the second
-// block hides the first one's loads and the kernel runs a quarter faster.
-constexpr int TC_MIN_BLOCKS = 2;
-
-struct TcSmem {                   // bf16 tiles held as raw 16-bit words
-  unsigned short a[TC_BM * A_LD];
-  unsigned short b[TC_BK * B_LD];
-  float c[TC_THREADS / 32][16 * C_LD];
-  Seg seg[MAX_SEGS];
-};
-
-template <typename OutT>
-__global__ void __launch_bounds__(TC_THREADS, TC_MIN_BLOCKS)
-sm_tc(const __grid_constant__ Plan plan, OutT* __restrict__ out, int64_t M,
-      int N) {
-  using namespace nvcuda;
-  __shared__ __align__(128) TcSmem sm;
-  const int n_tiles = (N + TC_BN - 1) / TC_BN;
-  const int n0 = (int)(blockIdx.x % n_tiles) * TC_BN;
-  const int xr = (int)((blockIdx.x / n_tiles) & 3);
-  const int64_t m0 = (int64_t)(blockIdx.x / (4 * n_tiles)) * TC_BM;
-  const int tid = threadIdx.x;
-  const int nseg = plan.nseg[xr];
-  if (tid < nseg) sm.seg[tid] = plan.seg[xr][tid];
-  __syncthreads();
-
-  // each thread stages two 8-element chunks of A and two of B per K tile
-  bool a_ok[2];
-  int64_t a_rowi[2];
-  int a_row[2], a_k[2], b_k[2], b_n[2];
-#pragma unroll
-  for (int c = 0; c < 2; ++c) {
-    int chunk = tid + c * TC_THREADS;
-    a_row[c] = chunk >> 2;
-    a_k[c] = (chunk & 3) * 8;
-    int64_t r = m0 + a_row[c];
-    a_ok[c] = r < M;
-    a_rowi[c] = a_ok[c] ? r : 0;
-    b_k[c] = chunk >> 4;
-    b_n[c] = (chunk & 15) * 8;
-  }
-  uint4 ra[2], rb[2];
-
-  // (s, k0): the K tile at offset k0 of segment s
-  auto load = [&](int s, int k0) {
-    const Seg sg = sm.seg[s];
-    const bf16* a = static_cast<const bf16*>(sg.a);
-    const bf16* w = static_cast<const bf16*>(sg.w);
-#pragma unroll
-    for (int c = 0; c < 2; ++c) {
-      ra[c] = a_ok[c] ? *reinterpret_cast<const uint4*>(
-                            a + a_rowi[c] * sg.lda + k0 + a_k[c])
-                      : make_uint4(0, 0, 0, 0);
-      int nb = n0 + b_n[c];
-      rb[c] = nb < N ? *reinterpret_cast<const uint4*>(
-                           w + (int64_t)(k0 + b_k[c]) * N + nb)
-                     : make_uint4(0, 0, 0, 0);
-    }
-  };
-  auto store = [&]() {
-#pragma unroll
-    for (int c = 0; c < 2; ++c) {
-      *reinterpret_cast<uint4*>(&sm.a[a_row[c] * A_LD + a_k[c]]) = ra[c];
-      *reinterpret_cast<uint4*>(&sm.b[b_k[c] * B_LD + b_n[c]]) = rb[c];
-    }
-  };
-
-  const int warp = tid >> 5, lane = tid & 31;
-  const int wm = (warp >> 2) * 64;   // 2 x 4 warps, 64 x 32 each
-  const int wn = (warp & 3) * 32;
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[4][2];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.0f);
-
-  int s = 0, k0 = 0;                 // cursor of the tile being prefetched
-  load(s, k0);
-  store();
-  __syncthreads();
-  while (true) {
-    k0 += TC_BK;
-    if (k0 >= sm.seg[s].k) { ++s; k0 = 0; }
-    const bool more = s < nseg;
-    if (more) load(s, k0);
-#pragma unroll
-    for (int ks = 0; ks < TC_BK; ks += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa[4];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb[2];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        wmma::load_matrix_sync(
-            fa[i], reinterpret_cast<const bf16*>(&sm.a[(wm + i * 16) * A_LD + ks]),
-            A_LD);
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-        wmma::load_matrix_sync(
-            fb[j], reinterpret_cast<const bf16*>(&sm.b[ks * B_LD + wn + j * 16]),
-            B_LD);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j)
-          wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
-    }
-    __syncthreads();
-    if (!more) break;
-    store();
-    __syncthreads();
-  }
-
-  // epilogue: each warp stages one 16x16 fragment at a time in smem and
-  // writes it into the slice's columns with the ragged row edge masked
-  float* stage = sm.c[warp];
-  const int64_t ldo = 4 * (int64_t)N;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      wmma::store_matrix_sync(stage, acc[i][j], C_LD, wmma::mem_row_major);
-      __syncwarp();
-#pragma unroll
-      for (int e = 0; e < 8; ++e) {
-        int idx = lane * 8 + e;
-        int rr = idx >> 4, cc = idx & 15;
-        int64_t gr = m0 + wm + i * 16 + rr;
-        int gc = n0 + wn + j * 16 + cc;
-        if (gr < M && gc < N)
-          out[gr * ldo + (int64_t)xr * N + gc] =
-              from_float<OutT>(stage[rr * C_LD + cc]);
-      }
-      __syncwarp();
-    }
-  }
-}
-
-// ------------------------------------------------------------- float32 ----
 constexpr int S_BM = 64, S_BN = 64, S_BK = 16, S_THREADS = 256;
 
-template <typename OutT>
+template <typename OutT, int S>
 __global__ void __launch_bounds__(S_THREADS)
 sm_f32(const __grid_constant__ Plan plan, OutT* __restrict__ out, int64_t M,
        int N) {
+  static_assert(S == 2 || S == 4, "sides 2 and 4");
   __shared__ float as[S_BK][S_BM + 4];
   __shared__ float bs[S_BK][S_BN + 4];
   const int n_tiles = (N + S_BN - 1) / S_BN;
   const int n0 = (int)(blockIdx.x % n_tiles) * S_BN;
-  const int xr = (int)((blockIdx.x / n_tiles) & 3);
-  const int64_t m0 = (int64_t)(blockIdx.x / (4 * n_tiles)) * S_BM;
+  const int xr = (int)((blockIdx.x / n_tiles) & (S - 1));
+  const int64_t m0 = (int64_t)(blockIdx.x / (S * n_tiles)) * S_BM;
   const int tid = threadIdx.x;
   const int tx = tid & 15, ty = tid >> 4;   // 4x4 outputs per thread
 
@@ -269,7 +124,7 @@ sm_f32(const __grid_constant__ Plan plan, OutT* __restrict__ out, int64_t M,
       __syncthreads();
     }
   }
-  const int64_t ldo = 4 * (int64_t)N;
+  const int64_t ldo = S * (int64_t)N;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     int64_t gr = m0 + ty * 4 + i;
@@ -283,66 +138,76 @@ sm_f32(const __grid_constant__ Plan plan, OutT* __restrict__ out, int64_t M,
   }
 }
 
-template <int BM, int BN>
-int64_t grid_size(int64_t M, int N) {
-  return ((M + BM - 1) / BM) * 4 * ((N + BN - 1) / BN);
-}
-
-}  // namespace
-
-// dtype codes: 0 = float32, 1 = bfloat16; ld* are row strides in elements.
-// Returns cudaGetLastError().
-extern "C" int doda_banded_conv_sm(
-    const void* x, long long ldx, const void* gyz, long long ldg,
-    const void* gxm, long long ldm, const void* gxp, long long ldp,
-    const void* wc, const void* wh, const void* wx, void* out, long long B,
-    int cin, int N, int in_dtype, int out_dtype, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (B <= 0 || cin <= 0 || cin % 16 || N <= 0 || N % 128
-      || (in_dtype != 0 && in_dtype != 1) || (out_dtype != 0 && out_dtype != 1))
-    return (int)cudaErrorInvalidValue;
-  const size_t es = in_dtype == 1 ? 2 : 4;
-  const int k16 = 16 * cin, k24 = 24 * cin, k40 = 40 * cin;
-  auto at = [es](const void* p, long long elems) -> const void* {
-    return static_cast<const char*>(p) + (size_t)elems * es;
-  };
+// The row maps of side S: slice xr reads, for i < 3 and cx = xr + i - 1,
+// gxm (cx == -1), gxp (cx == S) or x's slice cx and its gyz run.
+template <int S>
+Plan make_plan(const float* x, long long ldx, const float* gyz,
+               long long ldg, const float* gxm, long long ldm,
+               const float* gxp, long long ldp, const float* wc,
+               const float* wh, const float* wx, int cin, int N) {
+  constexpr int SL = S * S, RUN = 4 * S + 8, XPAD = (S + 2) * (S + 2) + 4;
+  const int kx = SL * cin, kr = RUN * cin, kp = XPAD * cin;
   Plan plan;
   for (int xr = 0; xr < 4; ++xr) {
     int n = 0;
-    for (int i = 0; i < 3; ++i) {
+    for (int i = 0; xr < S && i < 3; ++i) {
       const int cx = xr + i - 1;
       if (cx == -1) {
-        plan.seg[xr][n++] = Seg{gxm, wx, ldm, k40, 0};
-      } else if (cx == 4) {
-        plan.seg[xr][n++] = Seg{gxp, at(wx, (long long)k40 * N), ldp, k40, 0};
+        plan.seg[xr][n++] = Seg{gxm, wx, ldm, kp, 0};
+      } else if (cx == S) {
+        plan.seg[xr][n++] = Seg{gxp, wx + (long long)kp * N, ldp, kp, 0};
       } else {
-        plan.seg[xr][n++] = Seg{at(x, (long long)cx * k16),
-                                at(wc, (long long)i * k16 * N), ldx, k16, 0};
-        plan.seg[xr][n++] = Seg{at(gyz, (long long)cx * k24),
-                                at(wh, (long long)i * k24 * N), ldg, k24, 0};
+        plan.seg[xr][n++] = Seg{x + (long long)cx * kx,
+                                wc + (long long)i * kx * N, ldx, kx, 0};
+        plan.seg[xr][n++] = Seg{gyz + (long long)cx * kr,
+                                wh + (long long)i * kr * N, ldg, kr, 0};
       }
     }
     plan.nseg[xr] = n;
     for (; n < MAX_SEGS; ++n) plan.seg[xr][n] = Seg{nullptr, nullptr, 0, 0, 0};
   }
-  if (in_dtype == 1) {
-    const int64_t grid = grid_size<TC_BM, TC_BN>(B, N);
-    if (grid > 0x7fffffff) return (int)cudaErrorInvalidConfiguration;
-    if (out_dtype == 1)
-      sm_tc<bf16><<<(unsigned)grid, TC_THREADS, 0, st>>>(
-          plan, static_cast<bf16*>(out), B, N);
-    else
-      sm_tc<float><<<(unsigned)grid, TC_THREADS, 0, st>>>(
-          plan, static_cast<float*>(out), B, N);
-  } else {
-    const int64_t grid = grid_size<S_BM, S_BN>(B, N);
-    if (grid > 0x7fffffff) return (int)cudaErrorInvalidConfiguration;
-    if (out_dtype == 1)
-      sm_f32<bf16><<<(unsigned)grid, S_THREADS, 0, st>>>(
-          plan, static_cast<bf16*>(out), B, N);
-    else
-      sm_f32<float><<<(unsigned)grid, S_THREADS, 0, st>>>(
-          plan, static_cast<float*>(out), B, N);
-  }
+  return plan;
+}
+
+template <int S>
+int launch(const Plan& plan, void* out, long long B, int N, int out_dtype,
+           cudaStream_t st) {
+  const int64_t grid = ((B + S_BM - 1) / S_BM) * S * ((N + S_BN - 1) / S_BN);
+  if (grid > 0x7fffffff) return (int)cudaErrorInvalidConfiguration;
+  if (out_dtype == 1)
+    sm_f32<bf16, S><<<(unsigned)grid, S_THREADS, 0, st>>>(
+        plan, static_cast<bf16*>(out), B, N);
+  else
+    sm_f32<float, S><<<(unsigned)grid, S_THREADS, 0, st>>>(
+        plan, static_cast<float*>(out), B, N);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// 1 if the kernel is built for bricks of `side`, else 0.
+extern "C" int doda_banded_conv_sm_has_side(int side) {
+  return side == 2 || side == 4;
+}
+
+// float32 operands on bricks of `side` (2 or 4), N = side^2 * cout; ld* are
+// row strides in elements; out_dtype: 0 = float32, 1 = bfloat16. Returns
+// cudaGetLastError().
+extern "C" int doda_banded_conv_sm(
+    const void* x, long long ldx, const void* gyz, long long ldg,
+    const void* gxm, long long ldm, const void* gxp, long long ldp,
+    const void* wc, const void* wh, const void* wx, void* out, long long B,
+    int cin, int N, int side, int out_dtype, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (B <= 0 || cin <= 0 || cin % 16 || (side != 2 && side != 4) ||
+      N <= 0 || N % (8 * side * side) || (out_dtype != 0 && out_dtype != 1))
+    return (int)cudaErrorInvalidValue;
+  const auto f = [](const void* p) { return static_cast<const float*>(p); };
+  if (side == 4)
+    return launch<4>(make_plan<4>(f(x), ldx, f(gyz), ldg, f(gxm), ldm,
+                                  f(gxp), ldp, f(wc), f(wh), f(wx), cin, N),
+                     out, B, N, out_dtype, st);
+  return launch<2>(make_plan<2>(f(x), ldx, f(gyz), ldg, f(gxm), ldm, f(gxp),
+                                ldp, f(wc), f(wh), f(wx), cin, N),
+                   out, B, N, out_dtype, st);
 }

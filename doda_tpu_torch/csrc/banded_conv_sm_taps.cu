@@ -67,6 +67,16 @@
 //    mma fragments directly (4-byte pieces) cost 0.35 of 0.92 ms at
 //    163840 x 16 -> 16 (tools/probe_sm.py, PERF.md).
 //
+// The brick side S (the JAX package's DODA_BRICK) is a template parameter,
+// instantiated for 4 (the numbers above) and 2. At side S a brick has S^3
+// cells in S x-slices of S^2, gyz runs of 4S+4 cells padded to RUN = 4S+8,
+// x-planes of (S+2)^2 cells padded to XPAD = (S+2)^2+4, and a tile streams
+// S+2 planes of (S+2)^2 cells. A side-2 slice has 4 output cells, so one
+// warp owns a whole slice (Layout<2>): two consumer warps a block, with
+// four blocks resident an SM. At side 2 a brick reads 64 halo cells and writes 8: 0.755 GB at B =
+// 327680, cin = cout = 16, 0.225 ms at 3.35 TB/s against 3.6e10 FLOPs
+// (0.037 ms); bytes bound it there too.
+//
 // Tensor maps come from cuTensorMapEncodeTiled, reached through
 // cudaGetDriverEntryPoint, so the library links the CUDA runtime only.
 
@@ -79,64 +89,111 @@ namespace {
 
 using bf16 = __nv_bfloat16;
 
-constexpr int TB = 16;                    // bricks per tile (mma M)
 constexpr int CK = 16;                    // channels per chunk (mma K)
-constexpr int SLOT_B = TB * CK * 2;       // one source cell of a tile: 512 B
-constexpr int PLANE_CELLS = 36;           // source cells of a plane
-constexpr int UNIT_B = PLANE_CELLS * SLOT_B;  // 18432
 constexpr int MAX_STAGES = 6;
 constexpr int HEAD_B = 1024;              // mbarriers; stages start 1024-aligned
-constexpr int MAX_SMEM_B = 227 * 1024;
+constexpr int MAX_SMEM_B = 227 * 1024;    // dynamic shared memory of a block
+constexpr int SM_SMEM_B = 228 * 1024;     // of an SM, 1 KB of it kept a block
 constexpr int NC = 16;                    // couts a block (blockIdx.y)
 constexpr int WPITCH = 48;                // bytes a weight row: odd in 16 B
-constexpr int YSPLIT = 2;                 // consumer warps an output slice
-constexpr int RY = 4 / YSPLIT;            // y-rows of a slice a warp
-constexpr int CW = 4 * RY;                // output cells a warp
-constexpr int CWARPS = 4 * YSPLIT;        // consumer warps a block
-constexpr int THREADS = (CWARPS + 1) * 32;
-constexpr int STAGED_B = CW * TB * 32;    // a warp's staged outputs
-static_assert(YSPLIT == 1 || YSPLIT == 2, "one or two warps a slice");
+
+// A block's layout at side S: YSPLIT consumer warps an output slice, and
+// the resident blocks an SM the ring of stages is sized for.
+// tools/probe_sm.py times the alternatives.
+template <int S> struct Layout;
+template <> struct Layout<4> {
+  static constexpr int YSPLIT = 2, BLOCKS = 1;
+};
+template <> struct Layout<2> {
+  static constexpr int YSPLIT = 1, BLOCKS = 4;
+};
+
+// The geometry of side S; the comments give side 4's numbers.
+template <int S_>
+struct Geo {
+  static constexpr int S = S_;
+  static constexpr int SHIFT = S == 4 ? 2 : 1;       // log2 S
+  static constexpr int SL = S * S;                   // cells of a slice: 16
+  static constexpr int CELLS = S * SL;               // cells of a brick: 64
+  static constexpr int PLANE = (S + 2) * (S + 2);    // cells of a plane: 36
+  static constexpr int RUN = 4 * S + 8;              // padded gyz run: 24
+  static constexpr int XPAD = PLANE + 4;             // padded x-plane: 40
+  // the operand cell space [x CELLS | gyz S*RUN | gxm XPAD | gxp XPAD]
+  static constexpr int GYZ0 = CELLS;                 // 64
+  static constexpr int GXM0 = CELLS + S * RUN;       // 160
+  static constexpr int GXP0 = GXM0 + XPAD;           // 200
+  static constexpr int YSPLIT = Layout<S>::YSPLIT;
+  static constexpr int BLOCKS = Layout<S>::BLOCKS;
+  static constexpr int TB = 16;                      // bricks a tile
+  static constexpr int SLOT_B = TB * CK * 2;         // a source cell: 512 B
+  static constexpr int UNIT_B = PLANE * SLOT_B;      // 18432
+  static constexpr int RY = S / YSPLIT;              // y-rows of a slice a warp
+  static constexpr int CW = S * RY;                  // output cells a warp
+  static constexpr int CWARPS = S * YSPLIT;          // consumer warps a block
+  static constexpr int THREADS = (CWARPS + 1) * 32;
+  static constexpr int STAGED_B = CW * TB * 32;      // a warp's staged outputs
+  static_assert(S == 1 << SHIFT, "sides 2 and 4");
+  static_assert(YSPLIT == 1 || YSPLIT == 2, "one or two warps a slice");
+};
 
 // ---------------------------------------------------------------- geometry
-// An in-plane halo cell (hy, hz), each in -1..4, of a brick's x-slice:
+// An in-plane halo cell (hy, hz), each in -1..S, of a brick's x-slice:
 // its place in a gyz run (bricks2d._H_LIST: the edge runs z-1, z+1, y-1,
-// y+1, then the corners), or, inside the brick, its cell y*4 + z.
-__host__ __device__ constexpr bool inside(int h) { return h >= 0 && h < 4; }
+// y+1, then the corners), or, inside the brick, its cell y*S + z.
+template <int S>
+__host__ __device__ constexpr bool inside(int h) {
+  return h >= 0 && h < S;
+}
+template <int S>
 __host__ __device__ constexpr int run_pos(int hy, int hz) {
-  return (!inside(hy) && !inside(hz)) ? 16 + (hy == 4) * 2 + (hz == 4)
-         : hz == -1                   ? hy
-         : hz == 4                    ? 4 + hy
-         : hy == -1                   ? 8 + hz
-                                      : 12 + hz;
+  return (!inside<S>(hy) && !inside<S>(hz)) ? 4 * S + (hy == S) * 2 + (hz == S)
+         : hz == -1                         ? hy
+         : hz == S                          ? S + hy
+         : hy == -1                         ? 2 * S + hz
+                                            : 3 * S + hz;
 }
 
 // The kernel's tap table: the source of tap t (raster (dx, dy, dz)) of
-// output cell o (x*16 + y*4 + z) among the 240 operand cells
-// [x 64 | gyz 96 | gxm 40 | gxp 40]. Padding cells (gyz run places 20..23,
-// plane places 36..39) are never named.
+// output cell o (x*S^2 + y*S + z) in the operand cell space (240 cells at
+// side 4, 80 at side 2). Padding cells (gyz run places 4S+4..RUN-1, plane
+// places PLANE..XPAD-1) are never named.
+template <int S>
 __host__ __device__ constexpr int tap_source(int o, int t) {
-  const int sx = (o >> 4) + t / 9 - 1;
-  const int hy = ((o >> 2) & 3) + (t / 3) % 3 - 1;
-  const int hz = (o & 3) + t % 3 - 1;
-  return sx == -1  ? 160 + (hy + 1) * 6 + (hz + 1)
-         : sx == 4 ? 200 + (hy + 1) * 6 + (hz + 1)
-         : (inside(hy) && inside(hz)) ? sx * 16 + hy * 4 + hz
-                                      : 64 + sx * 24 + run_pos(hy, hz);
+  using G = Geo<S>;
+  const int sx = (o >> (2 * G::SHIFT)) + t / 9 - 1;
+  const int hy = ((o >> G::SHIFT) & (S - 1)) + (t / 3) % 3 - 1;
+  const int hz = (o & (S - 1)) + t % 3 - 1;
+  return sx == -1  ? G::GXM0 + (hy + 1) * (S + 2) + (hz + 1)
+         : sx == S ? G::GXP0 + (hy + 1) * (S + 2) + (hz + 1)
+         : (inside<S>(hy) && inside<S>(hz)) ? sx * G::SL + hy * S + hz
+                                            : G::GYZ0 + sx * G::RUN +
+                                                  run_pos<S>(hy, hz);
 }
 
 // Where a source cell lies in its staged unit: a centre plane holds the
-// slice's 16 x cells at slots 0..15 and its gyz run at 16..35, an x-plane
-// its 36 raster cells.
+// slice's S^2 x cells at slots 0..S^2-1 and its gyz run after them, an
+// x-plane its (S+2)^2 raster cells.
+template <int S>
 __host__ __device__ constexpr int staged_slot(int src) {
-  return src < 64 ? (src & 15) : src < 160 ? 16 + (src - 64) % 24
-                                           : (src - 160) % 40;
+  using G = Geo<S>;
+  return src < G::GYZ0   ? src % G::SL
+         : src < G::GXM0 ? G::SL + (src - G::GYZ0) % G::RUN
+                         : (src - G::GXM0) % G::XPAD;
 }
 
-static_assert(tap_source(0, 0) == 160, "corner of the x-minus plane");
-static_assert(tap_source(63, 26) == 200 + 35, "corner of the x-plus plane");
-static_assert(tap_source(16, 13) == 16, "centre tap reads the cell itself");
-static_assert(tap_source(16, 9) == 64 + 24 + 16, "(-1, -1) corner of run 1");
-static_assert(staged_slot(64 + 24 + 19) == 35, "last cell of a gyz run");
+template <int S>
+constexpr bool tables_hold() {
+  using G = Geo<S>;
+  return tap_source<S>(0, 0) == G::GXM0  // corner of the x-minus plane
+         && tap_source<S>(G::CELLS - 1, 26) == G::GXP0 + G::PLANE - 1
+         && tap_source<S>(G::SL, 13) == G::SL  // centre tap: the cell itself
+         && tap_source<S>(G::SL, 9) == G::GYZ0 + G::RUN + 4 * S  // run 1's
+         && staged_slot<S>(G::GYZ0 + G::RUN + 4 * S + 3) == G::PLANE - 1;
+}
+static_assert(tables_hold<4>() && tables_hold<2>(), "tap tables");
+static_assert(tap_source<4>(16, 9) == 104 && Geo<4>::UNIT_B == 18432 &&
+                  Geo<4>::CWARPS == 8 && Geo<4>::THREADS == 288,
+              "side 4 as in the comments");
 
 // -------------------------------------------------------------- primitives
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -188,8 +245,9 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
   }
 }
 // Barrier 1 of the consumer warps only (the producer never waits on it)
+template <int S>
 __device__ __forceinline__ void consumers_sync() {
-  asm volatile("bar.sync 1, %0;\n" ::"n"(CWARPS * 32) : "memory");
+  asm volatile("bar.sync 1, %0;\n" ::"n"(Geo<S>::CWARPS * 32) : "memory");
 }
 __device__ __forceinline__ void tma_load3(uint32_t dst, const CUtensorMap* map,
                                           uint32_t bar, int c0, int c1,
@@ -226,7 +284,7 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
 struct Params {
   CUtensorMap map[4];  // x, gyz, gxm, gxp viewed as (cells, B, cin)
   const bf16* w;       // (27, cin, cout)
-  void* out;           // (B, 64*cout)
+  void* out;           // (B, S^3*cout)
   long long rows;
   long long ntiles;
   int cin, cout;
@@ -262,29 +320,32 @@ __device__ __forceinline__ void load_weights(const Params& p,
 // cell comes from the tap table: output cells of slice 1 stand for any
 // centre plane (dx = 0), of slice 0 at dx = -1 for an x-plane. NT is a
 // template argument so that the unrolled products are one basic block.
-template <bool XPLANE, int Y0, int NT>
-__device__ __forceinline__ void plane_mma(float (&acc)[CW][2][4],
+template <int S, bool XPLANE, int Y0, int NT>
+__device__ __forceinline__ void plane_mma(float (&acc)[Geo<S>::CW][2][4],
                                           const uint32_t (&b)[9][4],
                                           uint32_t abase) {
+  using G = Geo<S>;
 #pragma unroll
-  for (int hy = Y0 - 1; hy <= Y0 + RY; ++hy) {
+  for (int hy = Y0 - 1; hy <= Y0 + G::RY; ++hy) {
 #pragma unroll
-    for (int hz = -1; hz <= 4; ++hz) {
+    for (int hz = -1; hz <= S; ++hz) {
       // the output cell (y, z) = (hy, hz) clamped into the rows, read
       // through tap (dy, dz) = (hy - y, hz - z): any reader names one slot
-      const int ry = hy < Y0 ? Y0 : (hy >= Y0 + RY ? Y0 + RY - 1 : hy);
-      const int rz = hz < 0 ? 0 : (hz > 3 ? 3 : hz);
-      const int o = (XPLANE ? 0 : 16) + ry * 4 + rz;
+      const int ry = hy < Y0 ? Y0 : (hy >= Y0 + G::RY ? Y0 + G::RY - 1 : hy);
+      const int rz = hz < 0 ? 0 : (hz > S - 1 ? S - 1 : hz);
+      const int o = (XPLANE ? 0 : G::SL) + ry * S + rz;
       const int t = (XPLANE ? 0 : 9) + (hy - ry + 1) * 3 + (hz - rz + 1);
+      const uint32_t slot =
+          abase + staged_slot<S>(tap_source<S>(o, t)) * G::SLOT_B;
       uint32_t a[4];
-      ldsm_x4(a, abase + staged_slot(tap_source(o, t)) * SLOT_B);
+      ldsm_x4(a, slot);
 #pragma unroll
       for (int dy = -1; dy <= 1; ++dy) {
 #pragma unroll
         for (int dz = -1; dz <= 1; ++dz) {
           const int y = hy - dy, z = hz - dz;
-          if (y >= Y0 && y < Y0 + RY && inside(z)) {
-            const int k = (dy + 1) * 3 + (dz + 1), c = (y - Y0) * 4 + z;
+          if (y >= Y0 && y < Y0 + G::RY && inside<S>(z)) {
+            const int k = (dy + 1) * 3 + (dz + 1), c = (y - Y0) * S + z;
 #pragma unroll
             for (int j = 0; j < NT; ++j)
               mma_bf16(acc[c][j], a, b[k][2 * j], b[k][2 * j + 1]);
@@ -295,61 +356,63 @@ __device__ __forceinline__ void plane_mma(float (&acc)[CW][2][4],
   }
 }
 
-template <bool XPLANE, int NT>
-__device__ __forceinline__ void rows_mma(float (&acc)[CW][2][4],
+template <int S, bool XPLANE, int NT>
+__device__ __forceinline__ void rows_mma(float (&acc)[Geo<S>::CW][2][4],
                                          const uint32_t (&b)[9][4],
                                          uint32_t abase, int yh) {
-  if constexpr (YSPLIT == 1) {
-    plane_mma<XPLANE, 0, NT>(acc, b, abase);
+  if constexpr (Geo<S>::YSPLIT == 1) {
+    plane_mma<S, XPLANE, 0, NT>(acc, b, abase);
   } else {
     if (yh == 0)
-      plane_mma<XPLANE, 0, NT>(acc, b, abase);
+      plane_mma<S, XPLANE, 0, NT>(acc, b, abase);
     else
-      plane_mma<XPLANE, 2, NT>(acc, b, abase);
+      plane_mma<S, XPLANE, Geo<S>::RY, NT>(acc, b, abase);
   }
 }
 
-template <int NT>
-__device__ __forceinline__ void unit_mma(float (&acc)[CW][2][4],
+template <int S, int NT>
+__device__ __forceinline__ void unit_mma(float (&acc)[Geo<S>::CW][2][4],
                                          const uint32_t (&b)[9][4],
-                                         uint32_t abase, bool xplane, int yh) {
+                                         uint32_t abase, bool xplane,
+                                         int yh) {
   if (xplane)
-    rows_mma<true, NT>(acc, b, abase, yh);
+    rows_mma<S, true, NT>(acc, b, abase, yh);
   else
-    rows_mma<false, NT>(acc, b, abase, yh);
+    rows_mma<S, false, NT>(acc, b, abase, yh);
 }
 
-// The epilogue of one warp: its CW cells x 16 bricks x 16 couts go to the
+// The epilogue of one warp: its CW cells x TB bricks x 16 couts go to the
 // warp's shared buffer as one 32-byte row a (cell, brick) under the 32-byte
 // swizzle (bf16: all 16 couts; float32: one n8 tile a pass), then every
 // row leaves with two 16-byte stores, 16 bricks of one cell a warp store:
 // whole sectors, where fragment stores would write 4-byte pieces.
+template <int S>
 __device__ __forceinline__ uint32_t staged_off(int c, int r, int half) {
-  return c * TB * 32 + r * 32 + ((half ^ ((r >> 2) & 1)) << 4);
+  return c * Geo<S>::TB * 32 + r * 32 + ((half ^ ((r >> 2) & 1)) << 4);
 }
-template <typename OutT>
-__device__ __forceinline__ void store_tile(const float (&acc)[CW][2][4],
-                                           unsigned char* stg, const Params& p,
-                                           long long brick0, int cell0, int n,
-                                           int nt, int lane) {
+template <int S, typename OutT>
+__device__ __forceinline__ void store_tile(
+    const float (&acc)[Geo<S>::CW][2][4], unsigned char* stg,
+    const Params& p, long long brick0, int cell0, int n, int nt, int lane) {
+  using G = Geo<S>;
   const int g = lane >> 2, q = lane & 3;
   constexpr bool F32 = sizeof(OutT) == 4;
 #pragma unroll
   for (int pass = 0; pass < (F32 ? 2 : 1); ++pass) {
     if (pass >= nt) break;
 #pragma unroll
-    for (int c = 0; c < CW; ++c)
+    for (int c = 0; c < G::CW; ++c)
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         const int r = g + 8 * h;
         if constexpr (F32) {
-          *reinterpret_cast<float2*>(stg + staged_off(c, r, q >> 1) +
+          *reinterpret_cast<float2*>(stg + staged_off<S>(c, r, q >> 1) +
                                      (q & 1) * 8) =
               make_float2(acc[c][pass][2 * h], acc[c][pass][2 * h + 1]);
         } else {
 #pragma unroll
           for (int j = 0; j < 2; ++j)
-            *reinterpret_cast<__nv_bfloat162*>(stg + staged_off(c, r, j) +
+            *reinterpret_cast<__nv_bfloat162*>(stg + staged_off<S>(c, r, j) +
                                                q * 4) =
                 __floats2bfloat162_rn(acc[c][j][2 * h], acc[c][j][2 * h + 1]);
         }
@@ -357,54 +420,59 @@ __device__ __forceinline__ void store_tile(const float (&acc)[CW][2][4],
     __syncwarp();
     // lane -> (brick r, 16-byte half) of cell c: 512 contiguous bytes read
 #pragma unroll
-    for (int c = 0; c < CW; ++c) {
+    for (int c = 0; c < G::CW; ++c) {
       const int r = lane >> 1, half = lane & 1;
       const long long brick = brick0 + r;
       const int col = F32 ? n + pass * 8 + half * 4 : n + half * 8;
       const bool ok = brick < p.rows && (F32 ? n + pass * 8 : col) < p.cout;
       if (ok)
-        *reinterpret_cast<uint4*>(static_cast<OutT*>(p.out) +
-                                  (brick * 64 + cell0 + c) * p.cout + col) =
-            *reinterpret_cast<const uint4*>(stg + staged_off(c, r, half));
+        *reinterpret_cast<uint4*>(
+            static_cast<OutT*>(p.out) +
+            (brick * G::CELLS + cell0 + c) * p.cout + col) =
+            *reinterpret_cast<const uint4*>(stg + staged_off<S>(c, r, half));
     }
     __syncwarp();
   }
 }
 
 // TMA loads of unit (channel chunk kc, plane pl) of the tile at brick c1
+template <int S>
 __device__ __forceinline__ void issue_unit(const Params& p, uint32_t dst,
                                            uint32_t bar, int kc, int pl,
                                            int c1) {
-  if (pl == 0 || pl == 5) {
+  using G = Geo<S>;
+  if (pl == 0 || pl == S + 1) {
     tma_load3(dst, &p.map[pl == 0 ? 2 : 3], bar, kc * CK, c1, 0);
   } else {
-    tma_load3(dst, &p.map[0], bar, kc * CK, c1, (pl - 1) * 16);
-    tma_load3(dst + 16 * SLOT_B, &p.map[1], bar, kc * CK, c1, (pl - 1) * 24);
+    tma_load3(dst, &p.map[0], bar, kc * CK, c1, (pl - 1) * G::SL);
+    tma_load3(dst + G::SL * G::SLOT_B, &p.map[1], bar, kc * CK, c1,
+              (pl - 1) * G::RUN);
   }
 }
 
 // A block: 16 couts (blockIdx.y), CWARPS consumer warps (YSPLIT an output
 // slice) and one producer warp, persistent over tiles blockIdx.x + i *
 // gridDim.x. GROUPED: more than one weight group (gk < nk).
-template <typename OutT, bool GROUPED>
-__global__ void __launch_bounds__(THREADS, 1)
+template <int S, typename OutT, bool GROUPED>
+__global__ void __launch_bounds__(Geo<S>::THREADS, 1)
     sm_taps_tc(const __grid_constant__ Params p) {
+  using G = Geo<S>;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
   const uint32_t full0 = smem_u32(smem);              // [MAX_STAGES] x 8 B
   const uint32_t empty0 = full0 + 8 * MAX_STAGES;
   unsigned char* stage0 = smem + HEAD_B;
-  unsigned char* staged = stage0 + p.stages * UNIT_B;  // [CWARPS] outputs
-  unsigned char* w_s = staged + CWARPS * STAGED_B;
+  unsigned char* staged = stage0 + p.stages * G::UNIT_B;  // [CWARPS] outputs
+  unsigned char* w_s = staged + G::CWARPS * G::STAGED_B;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int n0 = blockIdx.y * NC;
 
-  if (!GROUPED) load_weights(p, w_s, n0, 0, tid, THREADS);
+  if (!GROUPED) load_weights(p, w_s, n0, 0, tid, G::THREADS);
   if (tid == 0) {
     for (int s = 0; s < p.stages; ++s) {
       mbar_init(full0 + 8 * s, 1);
-      mbar_init(empty0 + 8 * s, CWARPS);
+      mbar_init(empty0 + 8 * s, G::CWARPS);
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
@@ -412,10 +480,10 @@ __global__ void __launch_bounds__(THREADS, 1)
 
   const long long my_tiles =
       (p.ntiles - blockIdx.x + gridDim.x - 1) / gridDim.x;
-  const int per_tile = 6 * p.nk;
+  const int per_tile = (S + 2) * p.nk;
   const long long nunits = my_tiles * per_tile;
 
-  if (warp == CWARPS) {  // the producer
+  if (warp == G::CWARPS) {  // the producer
     if (lane == 0) {
       for (long long u = 0; u < nunits; ++u) {
         const int s = (int)(u % p.stages);
@@ -423,18 +491,18 @@ __global__ void __launch_bounds__(THREADS, 1)
         mbar_wait(empty0 + 8 * s, ph ^ 1);
         const long long i = u / per_tile;
         const int rem = (int)(u - i * per_tile);
-        const int kc = rem / 6, pl = rem - kc * 6;
-        const int c1 = (int)((blockIdx.x + i * gridDim.x) * TB);
+        const int kc = rem / (S + 2), pl = rem - kc * (S + 2);
+        const int c1 = (int)((blockIdx.x + i * gridDim.x) * G::TB);
         const uint32_t bar = full0 + 8 * s;
-        mbar_expect_tx(bar, UNIT_B);
-        issue_unit(p, smem_u32(stage0 + s * UNIT_B), bar, kc, pl, c1);
+        mbar_expect_tx(bar, G::UNIT_B);
+        issue_unit<S>(p, smem_u32(stage0 + s * G::UNIT_B), bar, kc, pl, c1);
       }
     }
     return;
   }
 
   // a consumer: y-rows yh*RY .. of output slice xr
-  const int xr = warp & 3, yh = warp >> 2;
+  const int xr = warp & (S - 1), yh = warp >> G::SHIFT;
   const int nvalid = min(NC, p.cout - n0);
   const int nt = nvalid >= 16 ? 2 : 1;
   // this lane's ldmatrix row of an A tile (brick r, channel half) under
@@ -445,9 +513,9 @@ __global__ void __launch_bounds__(THREADS, 1)
       smem_u32(w_s) + (lane & 15) * WPITCH + (lane >> 4) * 16;
   const int wc = p.gk * CK;  // channels of the resident weight rows a tap
 
-  float acc[CW][2][4];
+  float acc[G::CW][2][4];
 #pragma unroll
-  for (int c = 0; c < CW; ++c)
+  for (int c = 0; c < G::CW; ++c)
 #pragma unroll
     for (int j = 0; j < 2; ++j)
 #pragma unroll
@@ -457,14 +525,14 @@ __global__ void __launch_bounds__(THREADS, 1)
     const int s = (int)(u % p.stages);
     const long long i = u / per_tile;
     const int rem = (int)(u - i * per_tile);
-    const int kc = rem / 6, pl = rem - kc * 6;
+    const int kc = rem / (S + 2), pl = rem - kc * (S + 2);
     const int dx = pl - 1 - xr;
     const int kg = GROUPED ? kc % p.gk : kc;  // chunk within its group
     if (GROUPED && kg == 0 && pl == 0) {
       // a new weight group: every consumer is done with the last one
-      consumers_sync();
-      load_weights(p, w_s, n0, kc, tid, CWARPS * 32);
-      consumers_sync();
+      consumers_sync<S>();
+      load_weights(p, w_s, n0, kc, tid, G::CWARPS * 32);
+      consumers_sync<S>();
     }
     mbar_wait(full0 + 8 * s, (uint32_t)((u / p.stages) & 1));
     if (dx >= -1 && dx <= 1) {
@@ -472,22 +540,22 @@ __global__ void __launch_bounds__(THREADS, 1)
       const uint32_t wb = w_lane + ((dx + 1) * 9 * wc + kg * CK) * WPITCH;
 #pragma unroll
       for (int k = 0; k < 9; ++k) ldsm_x4_trans(b[k], wb + k * wc * WPITCH);
-      const uint32_t abase = smem_u32(stage0 + s * UNIT_B) + a_off;
-      const bool xplane = pl == 0 || pl == 5;
+      const uint32_t abase = smem_u32(stage0 + s * G::UNIT_B) + a_off;
+      const bool xplane = pl == 0 || pl == S + 1;
       if (nt == 2)
-        unit_mma<2>(acc, b, abase, xplane, yh);
+        unit_mma<S, 2>(acc, b, abase, xplane, yh);
       else
-        unit_mma<1>(acc, b, abase, xplane, yh);
+        unit_mma<S, 1>(acc, b, abase, xplane, yh);
     }
     __syncwarp();
     if (lane == 0) mbar_arrive(empty0 + 8 * s);
 
     if (kc == p.nk - 1 && pl == xr + 2) {  // the slice's last unit of a tile
-      store_tile<OutT>(acc, staged + warp * STAGED_B, p,
-                       (blockIdx.x + i * gridDim.x) * TB, xr * 16 + yh * CW,
-                       n0, nt, lane);
+      store_tile<S, OutT>(acc, staged + warp * G::STAGED_B, p,
+                          (blockIdx.x + i * gridDim.x) * G::TB,
+                          xr * G::SL + yh * G::CW, n0, nt, lane);
 #pragma unroll
-      for (int c = 0; c < CW; ++c)
+      for (int c = 0; c < G::CW; ++c)
 #pragma unroll
         for (int j = 0; j < 2; ++j)
 #pragma unroll
@@ -523,14 +591,14 @@ EncodeTiled encode_tiled() {
 }
 
 // (cells, B, cin) view of an operand with row stride ld elements; a box is
-// (box_cells, 16 bricks, 16 channels), 32-byte swizzled
+// (box_cells, tb bricks, 16 channels), 32-byte swizzled
 CUresult make_map(EncodeTiled enc, CUtensorMap* map, const void* base,
                   long long ld, long long rows, int cin, int cells,
-                  int box_cells) {
+                  int box_cells, int tb) {
   const cuuint64_t dims[3] = {(cuuint64_t)cin, (cuuint64_t)rows,
                               (cuuint64_t)cells};
   const cuuint64_t strides[2] = {(cuuint64_t)ld * 2, (cuuint64_t)cin * 2};
-  const cuuint32_t box[3] = {CK, TB, (cuuint32_t)box_cells};
+  const cuuint32_t box[3] = {CK, (cuuint32_t)tb, (cuuint32_t)box_cells};
   const cuuint32_t one[3] = {1, 1, 1};
   return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base),
              dims, strides, box, one, CU_TENSOR_MAP_INTERLEAVE_NONE,
@@ -540,24 +608,36 @@ CUresult make_map(EncodeTiled enc, CUtensorMap* map, const void* base,
 
 // Weight groups, ring depth and shared-memory size for cin: as few groups
 // of equal numbers of chunks as leave room for two stages (one group up to
-// cin = 112), then as many stages as fit, at most MAX_STAGES.
+// cin = 112), then as many stages as fit, at most MAX_STAGES, beside
+// Layout<S>::BLOCKS resident blocks an SM (fewer where two stages would
+// not fit).
+template <int S>
 bool plan(int cin, Params* p, int* smem_bytes) {
+  using G = Geo<S>;
   p->nk = cin / CK;
-  const int fixed_b = 2 * HEAD_B + CWARPS * STAGED_B;
+  const int fixed_b = 2 * HEAD_B + G::CWARPS * G::STAGED_B;
   const int chunk_w_b = 27 * CK * WPITCH;  // one chunk's weights
-  const int gmax = (MAX_SMEM_B - fixed_b - 2 * UNIT_B) / chunk_w_b;
+  const int gmax = (MAX_SMEM_B - fixed_b - 2 * G::UNIT_B) / chunk_w_b;
   const int groups = (p->nk + gmax - 1) / gmax;
   p->gk = (p->nk + groups - 1) / groups;
   const int w_b = p->gk * chunk_w_b;
-  const int free_b = MAX_SMEM_B - fixed_b - w_b;
-  p->stages = free_b / UNIT_B < MAX_STAGES ? free_b / UNIT_B : MAX_STAGES;
-  *smem_bytes = fixed_b + p->stages * UNIT_B + w_b;
+  int free_b = 0;
+  for (int blocks = G::BLOCKS; blocks >= 1; --blocks) {
+    const int room = SM_SMEM_B / blocks - 1024;
+    free_b = (room < MAX_SMEM_B ? room : MAX_SMEM_B) - fixed_b - w_b;
+    if (free_b >= 2 * G::UNIT_B) break;
+  }
+  p->stages = free_b / G::UNIT_B < MAX_STAGES ? free_b / G::UNIT_B
+                                              : MAX_STAGES;
+  *smem_bytes = fixed_b + p->stages * G::UNIT_B + w_b;
   return p->stages >= 2;
 }
 
-template <typename OutT>
+template <int S, typename OutT>
 int launch(const Params& p, int smem_bytes, cudaStream_t s) {
-  auto kern = p.gk < p.nk ? sm_taps_tc<OutT, true> : sm_taps_tc<OutT, false>;
+  using G = Geo<S>;
+  auto kern = p.gk < p.nk ? sm_taps_tc<S, OutT, true>
+                          : sm_taps_tc<S, OutT, false>;
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, MAX_SMEM_B);
   if (e != cudaSuccess) return (int)e;
@@ -567,61 +647,81 @@ int launch(const Params& p, int smem_bytes, cudaStream_t s) {
                                   dev)) != cudaSuccess)
     return (int)e;
   if ((e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-           &per_sm, kern, THREADS, smem_bytes)) != cudaSuccess)
+           &per_sm, kern, G::THREADS, smem_bytes)) != cudaSuccess)
     return (int)e;
   if (per_sm < 1) return (int)cudaErrorLaunchOutOfResources;
   const int ny = (p.cout + NC - 1) / NC;
   long long gx = (long long)per_sm * sms / ny;  // one resident wave
   if (gx < 1) gx = 1;
   if (gx > p.ntiles) gx = p.ntiles;
-  kern<<<dim3((unsigned)gx, (unsigned)ny), THREADS, smem_bytes, s>>>(p);
+  kern<<<dim3((unsigned)gx, (unsigned)ny), G::THREADS, smem_bytes, s>>>(p);
   return (int)cudaGetLastError();
 }
 
-}  // namespace
-
-// Dynamic shared memory of a launch at cin, bytes; -1 if refused.
-extern "C" int doda_banded_conv_sm_taps_smem(int cin) {
-  if (cin <= 0 || cin % 16) return -1;
+// The tensor maps, tiles and launch of one call at side S.
+template <int S>
+int run(const void* const (&base)[4], const long long (&ld)[4],
+        const void* w, void* out, long long rows, int cin, int cout,
+        int out_dtype, cudaStream_t s) {
+  using G = Geo<S>;
+  if (rows > 0x7fffffffLL - G::TB) return (int)cudaErrorInvalidValue;
   Params p;
   int smem_bytes = 0;
-  return plan(cin, &p, &smem_bytes) ? smem_bytes : -1;
-}
-
-// Operands bf16 with row strides ld* in elements; out_dtype: 0 = float32,
-// 1 = bfloat16. Returns a CUDA runtime error, or 1000 + the CUresult of
-// cuTensorMapEncodeTiled where a tensor map could not be made.
-extern "C" int doda_banded_conv_sm_taps(
-    const void* x, long long ldx, const void* gyz, long long ldg,
-    const void* gxm, long long ldm, const void* gxp, long long ldp,
-    const void* w, void* out, long long rows, int cin, int cout,
-    int out_dtype, void* stream) {
-  if (rows <= 0 || rows > 0x7fffffffLL - TB || cin <= 0 || cin % 16 ||
-      cout <= 0 || cout % 8 || (out_dtype != 0 && out_dtype != 1))
-    return (int)cudaErrorInvalidValue;
-  Params p;
-  int smem_bytes = 0;
-  if (!plan(cin, &p, &smem_bytes)) return (int)cudaErrorInvalidValue;
+  if (!plan<S>(cin, &p, &smem_bytes)) return (int)cudaErrorInvalidValue;
   EncodeTiled enc = encode_tiled();
   if (enc == nullptr) return (int)cudaErrorNotSupported;
-  const struct {
-    const void* base;
-    long long ld;
-    int cells, box;
-  } ops[4] = {{x, ldx, 64, 16}, {gyz, ldg, 96, 20}, {gxm, ldm, 40, 36},
-              {gxp, ldp, 40, 36}};
+  // cells a row and cells a box: x (a slice), gyz (a run's halo cells),
+  // gxm, gxp (a plane)
+  const int cells[4] = {G::CELLS, S * G::RUN, G::XPAD, G::XPAD};
+  const int boxes[4] = {G::SL, G::PLANE - G::SL, G::PLANE, G::PLANE};
   for (int k = 0; k < 4; ++k) {
-    CUresult r = make_map(enc, &p.map[k], ops[k].base, ops[k].ld, rows, cin,
-                          ops[k].cells, ops[k].box);
+    CUresult r = make_map(enc, &p.map[k], base[k], ld[k], rows, cin,
+                          cells[k], boxes[k], G::TB);
     if (r != CUDA_SUCCESS) return 1000 + (int)r;
   }
   p.w = static_cast<const bf16*>(w);
   p.out = out;
   p.rows = rows;
-  p.ntiles = (rows + TB - 1) / TB;
+  p.ntiles = (rows + G::TB - 1) / G::TB;
   p.cin = cin;
   p.cout = cout;
+  return out_dtype == 1 ? launch<S, bf16>(p, smem_bytes, s)
+                        : launch<S, float>(p, smem_bytes, s);
+}
+
+}  // namespace
+
+// 1 if the kernel is built for bricks of `side`, else 0.
+extern "C" int doda_banded_conv_sm_taps_has_side(int side) {
+  return side == 2 || side == 4;
+}
+
+// Dynamic shared memory of a launch at cin on bricks of `side`, bytes; -1
+// if refused.
+extern "C" int doda_banded_conv_sm_taps_smem(int cin, int side) {
+  if (cin <= 0 || cin % 16 || (side != 2 && side != 4)) return -1;
+  Params p;
+  int smem_bytes = 0;
+  const bool ok = side == 4 ? plan<4>(cin, &p, &smem_bytes)
+                            : plan<2>(cin, &p, &smem_bytes);
+  return ok ? smem_bytes : -1;
+}
+
+// Operands bf16 with row strides ld* in elements, on bricks of `side` (2
+// or 4); out_dtype: 0 = float32, 1 = bfloat16. Returns a CUDA runtime
+// error, or 1000 + the CUresult of cuTensorMapEncodeTiled where a tensor
+// map could not be made.
+extern "C" int doda_banded_conv_sm_taps(
+    const void* x, long long ldx, const void* gyz, long long ldg,
+    const void* gxm, long long ldm, const void* gxp, long long ldp,
+    const void* w, void* out, long long rows, int cin, int cout, int side,
+    int out_dtype, void* stream) {
+  if (rows <= 0 || cin <= 0 || cin % 16 || cout <= 0 || cout % 8 ||
+      (side != 2 && side != 4) || (out_dtype != 0 && out_dtype != 1))
+    return (int)cudaErrorInvalidValue;
+  const void* const base[4] = {x, gyz, gxm, gxp};
+  const long long ld[4] = {ldx, ldg, ldm, ldp};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return out_dtype == 1 ? launch<bf16>(p, smem_bytes, s)
-                        : launch<float>(p, smem_bytes, s);
+  return side == 4 ? run<4>(base, ld, w, out, rows, cin, cout, out_dtype, s)
+                   : run<2>(base, ld, w, out, rows, cin, cout, out_dtype, s);
 }

@@ -76,8 +76,7 @@ so a step moves them once under every policy; results equal 'off''s.
 brick=s)`` builds the plan in bricks of s^3 cells and the net reads s
 from the plan's occupancy; a plan of another side than the net's raises.
 The parameters do not depend on it, so one set of weights runs at every
-side. K1's kernels run at sides 2 and 4; K2 (``sm_max_cin > 0``) at side 4
-only.
+side. K1's kernels and K2's (``sm_max_cin > 0``) run at sides 2 and 4.
 """
 
 from __future__ import annotations

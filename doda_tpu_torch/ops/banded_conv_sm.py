@@ -15,8 +15,8 @@ weights of ``bricks2d.sm_weights`` — wc (3, 16cin, 16cout), wh
 
 unmasked, accumulating in float32; the result is (B, 64*cout). It needs
 cin % 16 == 0 and cout % 8 == 0. On CUDA tensors this is the hand-written
-kernel of ``csrc/banded_conv_sm.cu``; on CPU tensors it is
-``banded_conv_sm_plain``. There is no other path.
+kernel of ``csrc/banded_conv_sm.cu``, for float32 operands; on CPU tensors
+it is ``banded_conv_sm_plain``. There is no other path.
 
 ``banded_conv_sm_taps`` is the kernel's second version
 (``csrc/banded_conv_sm_taps.cu``): the same function of the same operands
@@ -24,12 +24,15 @@ in bf16, from the raster weights w (27, cin, cout). It multiplies only the
 27 taps of each output cell, so no ``sm_weights`` are built. Its plain
 version is the first one on ``sm_weights(w)``. The bf16 route of
 ``bricks2d`` takes it at every cin; float32 operands keep the first
-version.
+version, and bf16 operands on the card are refused by the first.
 
-The widths above are brick side 4's. The plain versions take the operands
-of ``bricks2d._assemble_sm`` at any even side (s slices of s^2 cells);
-both kernels are built for side 4 only, and a CUDA call at another side
-raises ValueError (``bricks2d.uses_sm`` refuses the route there first).
+The widths above are brick side 4's. At side s the operands are those of
+``bricks2d._assemble_sm`` (``bricks2d._sm_layout(s)``: s slices of s^2
+cells, gyz runs of 4s+4 cells padded to 4s+8, x-planes of (s+2)^2 cells
+padded by 4; at side 2: x 8, gyz 32, gxm/gxp 20 cells a row) and the
+output has s^3*cout columns. The plain versions take any even side; both
+kernels are built for ``SM_SIDES``, and a CUDA call at another side
+raises ValueError naming it.
 """
 
 from __future__ import annotations
@@ -43,9 +46,15 @@ from . import _build
 from .banded_conv import kernel_side
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-SM_SIDES = (4,)            # the brick sides K2's kernels are built for
-_SLICES = 4                # x-slices of a brick
-_X, _GYZ, _GX = 64, 96, 40  # cells per operand row
+SM_SIDES = (2, 4)          # the brick sides K2's kernels are built for
+
+
+def sm_widths(side: int):
+    """Cells a row of K2's operands x, gyz and gxm/gxp at brick ``side``,
+    padding included (64, 96, 40 at side 4; 8, 32, 20 at side 2)."""
+    from .bricks2d import _sm_layout
+    _, run, xpad, _ = _sm_layout(side)
+    return side ** 3, side * run, xpad
 
 
 def banded_conv_sm_plain(x, gyz, gxm, gxp, wc, wh, wx,
@@ -77,41 +86,44 @@ def _entry():
     fn = _build.load('banded_conv_sm').doda_banded_conv_sm
     fn.argtypes = ([ctypes.c_void_p, ctypes.c_longlong] * 4    # operands
                    + [ctypes.c_void_p] * 4                     # wc wh wx out
-                   + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-                      ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+                   + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int,  # B cin N
+                      ctypes.c_int, ctypes.c_int,               # side dtype
+                      ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
 
-def _check(x, gyz, gxm, gxp, wc, wh, wx, out_dtype) -> None:
+def _check(x, gyz, gxm, gxp, wc, wh, wx, out_dtype, side) -> None:
     tensors = (x, gyz, gxm, gxp, wc, wh, wx)
     if any(t.device.type != 'cuda' or t.device != x.device for t in tensors):
         raise ValueError('banded_conv_sm: operands on '
                          f'{[str(t.device) for t in tensors]}; all must be '
                          'on one CUDA device')
-    if x.dtype not in _DTYPE_CODES or any(t.dtype != x.dtype
-                                          for t in tensors):
+    if any(t.dtype != torch.float32 for t in tensors):
         raise ValueError('banded_conv_sm: operands '
-                         f'{[str(t.dtype) for t in tensors]}; all must be '
-                         'float32 or all bfloat16')
+                         f'{[str(t.dtype) for t in tensors]}; the kernel '
+                         'takes float32 (bf16 operands run '
+                         'banded_conv_sm_taps on raster weights)')
     if out_dtype not in _DTYPE_CODES:
         raise ValueError(f'banded_conv_sm: out_dtype {out_dtype} '
                          'unsupported')
-    if x.dim() != 2 or x.shape[1] % (_X * 16):
+    cx, cg, cp = sm_widths(side)
+    sl = side * side
+    if x.dim() != 2 or x.shape[1] % (cx * 16):
         raise ValueError(f'banded_conv_sm: x {tuple(x.shape)}; need '
-                         '(B, 64*cin) with cin a multiple of 16')
-    b, cin = x.shape[0], x.shape[1] // _X
+                         f'(B, {cx}*cin) with cin a multiple of 16')
+    b, cin = x.shape[0], x.shape[1] // cx
     n = wc.shape[2] if wc.dim() == 3 else 0
-    want = {'gyz': (b, _GYZ * cin), 'gxm': (b, _GX * cin),
-            'gxp': (b, _GX * cin), 'wc': (3, 16 * cin, n),
-            'wh': (3, 24 * cin, n), 'wx': (2, _GX * cin, n)}
+    want = {'gyz': (b, cg * cin), 'gxm': (b, cp * cin),
+            'gxp': (b, cp * cin), 'wc': (3, sl * cin, n),
+            'wh': (3, cg // side * cin, n), 'wx': (2, cp * cin, n)}
     got = {'gyz': gyz, 'gxm': gxm, 'gxp': gxp, 'wc': wc, 'wh': wh, 'wx': wx}
     for name, shape in want.items():
         if tuple(got[name].shape) != shape:
             raise ValueError(f'banded_conv_sm: {name} '
                              f'{tuple(got[name].shape)}, need {shape}')
-    if n == 0 or n % 128:
-        raise ValueError(f'banded_conv_sm: 16*cout = {n}; cout must be a '
+    if n == 0 or n % (8 * sl):
+        raise ValueError(f'banded_conv_sm: {sl}*cout = {n}; cout must be a '
                          'positive multiple of 8')
     for name, t in (('x', x), ('gyz', gyz), ('gxm', gxm), ('gxp', gxp)):
         # rows may be strided (column slices of one gathered buffer)
@@ -127,24 +139,27 @@ def _check(x, gyz, gxm, gxp, wc, wh, wx, out_dtype) -> None:
 
 def banded_conv_sm(x, gyz, gxm, gxp, wc, wh, wx, out_dtype) -> torch.Tensor:
     """x (B, 64cin), gyz (B, 96cin), gxm/gxp (B, 40cin) and the weights of
-    ``bricks2d.sm_weights`` -> (B, 64*cout), unmasked."""
+    ``bricks2d.sm_weights`` -> (B, 64*cout), unmasked (side 4's widths;
+    ``_sm_layout``'s at side s)."""
     tensors = (x, gyz, gxm, gxp, wc, wh, wx)
     if all(t.device.type == 'cpu' for t in tensors):
         return banded_conv_sm_plain(*tensors, out_dtype)
-    if wc.dim() == 3 and wc.shape[1]:
-        kernel_side('banded_conv_sm', (x.shape[1] // wc.shape[1]) ** 3,
-                    SM_SIDES)
-    _check(*tensors, out_dtype)
-    b, cin = x.shape[0], x.shape[1] // _X
-    n = wc.shape[2]
-    out = torch.empty((b, _SLICES * n), dtype=out_dtype, device=x.device)
+    if wc.dim() != 3 or wc.shape[1] == 0:
+        raise ValueError(f'banded_conv_sm: wc {tuple(wc.shape)}; need (3, '
+                         's^2*cin, s^2*cout)')
+    side = kernel_side('banded_conv_sm', (x.shape[1] // wc.shape[1]) ** 3,
+                       SM_SIDES)
+    _check(*tensors, out_dtype, side)
+    b = x.shape[0]
+    cin, n = x.shape[1] // side ** 3, wc.shape[2]
+    out = torch.empty((b, side * n), dtype=out_dtype, device=x.device)
     if b == 0:
         return out
     err = _entry()(x.data_ptr(), x.stride(0), gyz.data_ptr(), gyz.stride(0),
                    gxm.data_ptr(), gxm.stride(0), gxp.data_ptr(),
                    gxp.stride(0), wc.data_ptr(), wh.data_ptr(),
-                   wx.data_ptr(), out.data_ptr(), b, cin, n,
-                   _DTYPE_CODES[x.dtype], _DTYPE_CODES[out_dtype],
+                   wx.data_ptr(), out.data_ptr(), b, cin, n, side,
+                   _DTYPE_CODES[out_dtype],
                    torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
         raise RuntimeError('banded_conv_sm: kernel launch failed with CUDA '
@@ -175,19 +190,21 @@ def _taps_lib():
     lib.doda_banded_conv_sm_taps.argtypes = (
         [ctypes.c_void_p, ctypes.c_longlong] * 4             # operands
         + [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,  # w out B
-           ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+           ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # side
+           ctypes.c_void_p])
     lib.doda_banded_conv_sm_taps.restype = ctypes.c_int
-    lib.doda_banded_conv_sm_taps_smem.argtypes = [ctypes.c_int]
+    lib.doda_banded_conv_sm_taps_smem.argtypes = [ctypes.c_int] * 2
     lib.doda_banded_conv_sm_taps_smem.restype = ctypes.c_int
     return lib
 
 
-def sm_taps_smem_bytes(cin: int) -> int:
-    """Dynamic shared memory of one ``banded_conv_sm_taps`` launch."""
-    return _taps_lib().doda_banded_conv_sm_taps_smem(cin)
+def sm_taps_smem_bytes(cin: int, side: int = 4) -> int:
+    """Dynamic shared memory of one ``banded_conv_sm_taps`` launch on
+    bricks of ``side``."""
+    return _taps_lib().doda_banded_conv_sm_taps_smem(cin, side)
 
 
-def _check_taps(x, gyz, gxm, gxp, w, out_dtype) -> None:
+def _check_taps(x, gyz, gxm, gxp, w, out_dtype, side) -> None:
     tensors = (x, gyz, gxm, gxp, w)
     if any(t.device.type != 'cuda' or t.device != x.device for t in tensors):
         raise ValueError('banded_conv_sm_taps: operands on '
@@ -200,15 +217,16 @@ def _check_taps(x, gyz, gxm, gxp, w, out_dtype) -> None:
     if out_dtype not in _DTYPE_CODES:
         raise ValueError(f'banded_conv_sm_taps: out_dtype {out_dtype} '
                          'unsupported')
+    cx, cg, cp = sm_widths(side)
     if x.dim() != 2 or w.dim() != 3 or w.shape[0] != 27 \
             or w.shape[1] % 16 or w.shape[2] % 8 or w.shape[2] == 0 \
-            or x.shape[1] != _X * w.shape[1]:
+            or x.shape[1] != cx * w.shape[1]:
         raise ValueError(f'banded_conv_sm_taps: x {tuple(x.shape)}, w '
-                         f'{tuple(w.shape)}; need (B, 64*cin) and (27, cin, '
-                         'cout) with cin a multiple of 16, cout of 8')
+                         f'{tuple(w.shape)}; need (B, {cx}*cin) and (27, '
+                         'cin, cout) with cin a multiple of 16, cout of 8')
     b, cin = x.shape[0], w.shape[1]
-    for name, t, cells in (('gyz', gyz, _GYZ), ('gxm', gxm, _GX),
-                           ('gxp', gxp, _GX)):
+    for name, t, cells in (('gyz', gyz, cg), ('gxm', gxm, cp),
+                           ('gxp', gxp, cp)):
         if tuple(t.shape) != (b, cells * cin):
             raise ValueError(f'banded_conv_sm_taps: {name} '
                              f'{tuple(t.shape)}, need {(b, cells * cin)}')
@@ -226,23 +244,25 @@ def _check_taps(x, gyz, gxm, gxp, w, out_dtype) -> None:
 
 def banded_conv_sm_taps(x, gyz, gxm, gxp, w, out_dtype) -> torch.Tensor:
     """x (B, 64cin), gyz (B, 96cin), gxm/gxp (B, 40cin) bf16 and raster
-    weights w (27, cin, cout) -> (B, 64*cout), unmasked."""
+    weights w (27, cin, cout) -> (B, 64*cout), unmasked (side 4's widths;
+    ``_sm_layout``'s at side s)."""
     tensors = (x, gyz, gxm, gxp, w)
     if all(t.device.type == 'cpu' for t in tensors):
         return banded_conv_sm_taps_plain(*tensors, out_dtype)
+    side = 4
     if w.dim() == 3 and w.shape[1]:
-        kernel_side('banded_conv_sm_taps', x.shape[1] // w.shape[1],
-                    SM_SIDES)
-    _check_taps(*tensors, out_dtype)
+        side = kernel_side('banded_conv_sm_taps', x.shape[1] // w.shape[1],
+                           SM_SIDES)
+    _check_taps(*tensors, out_dtype, side)
     b, cout = x.shape[0], w.shape[2]
-    out = torch.empty((b, _SLICES * 16 * cout), dtype=out_dtype,
+    out = torch.empty((b, side ** 3 * cout), dtype=out_dtype,
                       device=x.device)
     if b == 0:
         return out
     err = _taps_lib().doda_banded_conv_sm_taps(
         x.data_ptr(), x.stride(0), gyz.data_ptr(), gyz.stride(0),
         gxm.data_ptr(), gxm.stride(0), gxp.data_ptr(), gxp.stride(0),
-        w.data_ptr(), out.data_ptr(), b, w.shape[1], cout,
+        w.data_ptr(), out.data_ptr(), b, w.shape[1], cout, side,
         _DTYPE_CODES[out_dtype],
         torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:

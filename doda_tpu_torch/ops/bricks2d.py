@@ -74,7 +74,7 @@ import torch
 
 from .banded_conv import (NARROW_MAX_CIN, banded_conv, banded_conv_fused,
                           banded_conv_narrow, occ_words)
-from .banded_conv_sm import SM_SIDES, banded_conv_sm, banded_conv_sm_taps
+from .banded_conv_sm import banded_conv_sm, banded_conv_sm_taps
 from .bricks import BRICK, geometry, side_of
 
 H = BRICK + 2
@@ -334,15 +334,12 @@ def sm_weights(w: torch.Tensor, side: int = BRICK):
 
 
 def uses_sm(cin: int, cout: int, sm_max_cin: int, side: int = BRICK) -> bool:
-    """Whether a (cin -> cout) subm conv runs on K2: the JAX package's
-    ``DODA_SM=shallow`` rule with ``sm_max_cin`` for ``DODA_SM_MAXC``
-    (0 = K1 everywhere). K2 tiles its weights, so there is no size test.
-    K2 is built for side 4 only: ``sm_max_cin > 0`` at another brick
-    side raises ValueError."""
-    if sm_max_cin > 0 and side not in SM_SIDES:
-        raise ValueError(f'brick side {side}: the sm route (K2, '
-                         f'sm_max_cin={sm_max_cin}) is built for side '
-                         f'{SM_SIDES[0]} only; use sm_max_cin=0')
+    """Whether a (cin -> cout) subm conv at brick side ``side`` runs on K2:
+    the JAX package's ``DODA_SM=shallow`` rule with ``sm_max_cin`` for
+    ``DODA_SM_MAXC`` (0 = K1 everywhere). K2 tiles its weights, so there is
+    no size test. The rule is the same at every side: K2's kernels are
+    built for sides 2 and 4, and its wrappers refuse another side on the
+    card, naming it."""
     return cin <= sm_max_cin and cin % 16 == 0 and cout % 8 == 0
 
 
@@ -368,9 +365,9 @@ def subm_route(cin: int, cout: int, dtype, sm_max_cin: int,
                side: int = BRICK) -> str:
     """The kernel a (cin -> cout) subm conv runs at brick side ``side``:
     'sm' (K2), 'fused' (K1 from activation and rulebook), 'narrow' (the
-    same for cin < 8) or 'assembled' (K1 on halo planes). K1's routes are
-    the same at every side; ``uses_sm`` refuses K2 at a side other than
-    4."""
+    same for cin < 8) or 'assembled' (K1 on halo planes). The routes are
+    the same at every side; each kernel's wrapper refuses a side it is
+    not built for."""
     if uses_sm(cin, cout, sm_max_cin, side):
         return 'sm'
     if uses_fused(cin, cout, dtype):
@@ -409,11 +406,11 @@ def _subm_raw(x2, halo, sm, weights, compute_dtype, sm_max_cin, nbr=None,
             raise ValueError(f'subm conv {cin}->{cout} selects K2 '
                              f'(sm_max_cin={sm_max_cin}) but the level has '
                              'no sm_index table')
-        ops = _assemble_sm(x2, sm, compute_dtype)   # side 4 (uses_sm)
+        ops = _assemble_sm(x2, sm, compute_dtype, side)
         if compute_dtype == torch.bfloat16:
             # K2's second version: raster weights, the taps only
             return banded_conv_sm_taps(*ops, w.contiguous(), x2.dtype)
-        return banded_conv_sm(*ops, *sm_weights(w), x2.dtype)
+        return banded_conv_sm(*ops, *sm_weights(w, side), x2.dtype)
     if route in ('fused', 'narrow') and nbr is None:
         raise ValueError(f'subm conv {cin}->{cout} in {compute_dtype} '
                          f'selects the {route} K1 but was given no '

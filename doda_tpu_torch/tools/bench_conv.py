@@ -39,9 +39,9 @@ application, so no data dependency is needed). Prints one JSON line a
 reading: ms an application, the bound of ``utils/roofline.py`` beside it
 (none for the library call), and the card's name and power limit.
 ``--brick 2`` builds the plan in bricks of side 2, under
-``synth.BRICK_CAPS_SIDE2`` (K2, ``sm``, is built for side 4 and is not
-timed there). ``--points``, ``--batch`` and ``--brick-cap`` cut the size
-for the CPU (``--device cpu``), where the times are the host's.
+``synth.BRICK_CAPS_SIDE2``; every route is timed there too. ``--points``,
+``--batch`` and ``--brick-cap`` cut the size for the CPU (``--device
+cpu``), where the times are the host's.
 """
 
 from __future__ import annotations
@@ -162,11 +162,11 @@ def readings(lv, cin: int, cout: int, dtype, reps: int, gen) -> list:
     if route == 'assembled':
         add('plain', lambda: banded_conv_plain(rows6, wb, dtype), assembled)
     del rows6, wb
-    if dtype == torch.bfloat16 and cin % 16 == 0 and cout % 8 == 0 \
-            and side in bricks2d.SM_SIDES:
-        ops = bricks2d._assemble_sm(x2, bricks2d.sm_index(lv.nbr), dtype)
+    if dtype == torch.bfloat16 and cin % 16 == 0 and cout % 8 == 0:
+        ops = bricks2d._assemble_sm(x2, bricks2d.sm_index(lv.nbr, side),
+                                    dtype, side)
         add('sm', lambda: banded_conv_sm_taps(*ops, w, dtype),
-            roofline.sm_taps_work(rows, cin, cout))
+            roofline.sm_taps_work(rows, cin, cout, side))
         del ops
     halo = bricks.shell_halo(x2.reshape(rows, cells, cin), lv.nbr, dtype)
     hin = halo.permute(0, 4, 1, 2, 3)

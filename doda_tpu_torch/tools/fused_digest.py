@@ -1,18 +1,24 @@
-"""Digests of the fused K1's outputs, to hold two builds of it bit for bit.
+"""Digests of the subm-conv kernels' outputs, to hold two builds of them
+bit for bit.
 
     python -m doda_tpu_torch.tools.fused_digest [--csrc DIR] [--brick 4]
+                                               [--kernel fused|sm]
 
-from the repo root, on the card. Builds ``banded_conv_fused.cu`` from
-``DIR`` (by default this checkout's ``doda_tpu_torch/csrc``; another
-commit's, unpacked with ``git archive``, to compare) and runs it without
-the prologue on seeded bf16 operands at ``chip_smoke.py``'s shapes: the
-bench batch's real rulebooks at levels 0, 1, 5 and 6 and three synthetic
-ones, each to float32 and to bf16, in bricks of side ``--brick`` (4, or 2
-for a source built for it). Prints one JSON line a shape with the sha256
-of each output's bytes and the card's name and power limit; two builds
-that print the same digests computed the same bits. A source from before
-the brick side was a kernel argument is called through its own signature
-(side 4 only).
+from the repo root, on the card. ``--kernel fused`` (the default) builds
+``banded_conv_fused.cu`` from ``DIR`` (by default this checkout's
+``doda_tpu_torch/csrc``; another commit's, unpacked with ``git archive``,
+to compare) and runs it without the prologue on seeded bf16 operands at
+``chip_smoke.py``'s shapes: the bench batch's real rulebooks at levels 0,
+1, 5 and 6 and three synthetic ones, each to float32 and to bf16.
+``--kernel sm`` builds K2's two sources and runs them at the shapes of
+``chip_smoke.py``'s phase kernels: the second version
+(``banded_conv_sm_taps.cu``) on seeded bf16 operands to float32 and to
+bf16, the first (``banded_conv_sm.cu``) on float32 operands to float32.
+Both in bricks of side ``--brick`` (4, or 2 for a source built for it).
+Prints one JSON line a shape with the sha256 of each output's bytes and
+the card's name and power limit; two builds that print the same digests
+computed the same bits. A source from before the brick side was a kernel
+argument is called through its own signature (side 4 only).
 """
 
 from __future__ import annotations
@@ -27,6 +33,7 @@ import torch
 
 from ..models.unet import build_level_plan, default_brick_caps, flatten_plan
 from ..ops import _build
+from ..ops.banded_conv_sm import sm_widths
 from ..utils import synth
 from ..utils.device import card_label
 
@@ -35,6 +42,12 @@ from ..utils.device import card_label
 LEVEL_SHAPES = ((0, 16, 16), (0, 32, 16), (1, 32, 32), (1, 64, 32),
                 (6, 112, 112), (5, 192, 96))
 SYNTH_SHAPES = ((4099, 20, 16, 16), (1001, 12, 24, 8), (3, 4, 16, 32))
+# (rows, cin, cout) of K2: chip_smoke.py's K2_SHAPES and its second
+# version's extra shapes (less than a tile, a half cout block, two weight
+# groups)
+SM_SHAPES = ((4099, 16, 16), (4096, 32, 16), (2048, 16, 32), (2048, 32, 32),
+             (1000, 32, 64), (512, 112, 112), (7, 32, 32), (1000, 16, 24),
+             (333, 144, 24))
 
 
 def fused_entry(csrc: Path, side: int = 4):
@@ -60,14 +73,93 @@ def fused_entry(csrc: Path, side: int = 4):
     return call
 
 
+def _lib(csrc: Path, name: str, side: int) -> tuple:
+    """The built library of ``csrc/<name>.cu`` and whether it takes the
+    brick side."""
+    lib = ctypes.CDLL(str(_build._compiled(
+        csrc / f'{name}.cu', name, _build._nvcc, _build.NVCC_FLAGS,
+        report='.ptxas.txt')))
+    sided = hasattr(lib, f'doda_{name}_has_side')
+    if not sided and side != 4:
+        raise SystemExit(f'fused_digest: {csrc / name}.cu has no brick side '
+                         f'argument (side 4 only), asked for side {side}')
+    return lib, sided
+
+
+def _sha(t) -> str:
+    return hashlib.sha256(t.view(torch.uint8).cpu().numpy().tobytes()
+                          ).hexdigest()
+
+
+def sm_digests(csrc: Path, side: int, card: str) -> list:
+    """K2's two versions at phase kernels' shapes (``SM_SHAPES``)."""
+    taps, taps_sided = _lib(csrc, 'banded_conv_sm_taps', side)
+    first, first_sided = _lib(csrc, 'banded_conv_sm', side)
+    ops_t = [ctypes.c_void_p, ctypes.c_longlong] * 4
+    taps.doda_banded_conv_sm_taps.argtypes = ops_t + [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong] + [
+        ctypes.c_int] * (4 if taps_sided else 3) + [ctypes.c_void_p]
+    # the first version's fourth int: the side, or before it was an
+    # argument the operands' dtype code (0: float32), at the same place
+    first.doda_banded_conv_sm.argtypes = ops_t + [ctypes.c_void_p] * 4 + [
+        ctypes.c_longlong] + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    dev = torch.device('cuda')
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    g = torch.Generator(device=dev).manual_seed(1)
+    cx, cg, cp = sm_widths(side)
+    sl = side * side
+    out = []
+    for rows, cin, cout in SM_SHAPES:
+        x = torch.randn(rows, cx * cin, device=dev, generator=g)
+        buf = torch.randn(rows, (cg + 2 * cp) * cin, device=dev, generator=g)
+        w = torch.randn(27, cin, cout, device=dev, generator=g) \
+            / (27 * cin) ** 0.5
+        a, b = cg * cin, (cg + cp) * cin
+        digests = {}
+        for dt in (torch.float32, torch.bfloat16):
+            ops = [t.to(dt) for t in (x, buf[:, :a], buf[:, a:b], buf[:, b:])]
+            args = [v for t in ops for v in (t.data_ptr(), t.stride(0))]
+            if dt == torch.bfloat16:
+                wb = w.to(dt)
+                for code, odt in ((0, torch.float32), (1, torch.bfloat16)):
+                    y = torch.zeros(rows, cx * cout, dtype=odt, device=dev)
+                    err = taps.doda_banded_conv_sm_taps(
+                        *args, wb.data_ptr(), y.data_ptr(), rows, cin, cout,
+                        *((side,) if taps_sided else ()), code, stream)
+                    if err:
+                        raise RuntimeError(f'sm_taps {rows}: error {err}')
+                    torch.cuda.synchronize(dev)
+                    digests[f'taps_{str(odt)[6:]}'] = _sha(y)
+            elif cin <= 112:
+                from ..ops.bricks2d import sm_weights
+                wts = [t.contiguous() for t in sm_weights(w, side)]
+                y = torch.zeros(rows, cx * cout, dtype=dt, device=dev)
+                err = first.doda_banded_conv_sm(
+                    *args, *(t.data_ptr() for t in wts), y.data_ptr(), rows,
+                    cin, sl * cout, side if first_sided else 0, 0, stream)
+                if err:
+                    raise RuntimeError(f'sm {rows}: error {err}')
+                torch.cuda.synchronize(dev)
+                digests['first_float32'] = _sha(y)
+        line = {'card': card, 'csrc': str(csrc), 'kernel': 'sm',
+                'brick': side, 'shape': [rows, cin, cout], 'sha256': digests}
+        print(json.dumps(line), flush=True)
+        out.append(line)
+    return out
+
+
 def main(argv=None) -> list:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument('--csrc', type=Path, default=_build.CSRC)
     ap.add_argument('--brick', type=int, choices=(2, 4), default=4)
+    ap.add_argument('--kernel', choices=('fused', 'sm'), default='fused')
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit('fused_digest: needs a CUDA device')
     side = args.brick
+    if args.kernel == 'sm':
+        return sm_digests(args.csrc.resolve(), side,
+                          card_label(torch.device('cuda')))
     fn = fused_entry(args.csrc.resolve(), side)
     dev = torch.device('cuda')
     b_caps = default_brick_caps(synth.BRICK_CAP, 7) if side == 4 \

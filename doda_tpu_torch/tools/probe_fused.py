@@ -80,7 +80,7 @@ def _build_variant(variant):
     name = variant[0]
     fn = build_variant('banded_conv_fused', variant).doda_banded_conv_fused
     fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_longlong] \
-        + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 4
+        + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 4
     fn.restype = ctypes.c_int
     return name, fn, variant in PRO_VARIANTS
 
@@ -130,7 +130,8 @@ def main():
 
             def run():
                 err = fn(x2.data_ptr(), nbr.data_ptr(), w.data_ptr(),
-                         out.data_ptr(), rows, cin, cout, 1, *ptrs, stream)
+                         out.data_ptr(), rows, cin, cout, 1, 4, *ptrs,
+                         stream)
                 if err:
                     raise RuntimeError(f'{name}: CUDA error {err}')
             t = ms(run)

@@ -75,7 +75,7 @@ def level_rows(levels, convs, scenes: int) -> list:
             elif route == 'assembled':
                 w = roofline.assembled_work(rows, cin, cout, side=side)
             else:
-                w = roofline.sm_taps_work(rows, cin, cout)
+                w = roofline.sm_taps_work(rows, cin, cout, side)
             routes[route] = routes.get(route, 0) + 1
             i = roofline.ideal_work(cells, cin, cout)
             for acc, got in ((work, w), (ideal, i)):

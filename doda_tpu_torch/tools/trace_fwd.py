@@ -13,9 +13,8 @@ for the forward and 32, K2 at levels 0 and 1, for the train step;
 ``--fuse-norm`` turns on the fused norm + ReLU engine, whose block convs
 run K1's prologue variant, a bucket of its own; ``--remat`` is the train
 step's memory policy, ``build_model``'s ``remat``; ``--brick 2`` builds
-the net and its plans in bricks of side 2 under ``synth.BRICK_CAPS_SIDE2``,
-where the default ``--sm-max-cin`` is 0 with ``--train`` too, since K2 is
-built for side 4) twice to warm up, times
+the net and its plans in bricks of side 2 under ``synth.BRICK_CAPS_SIDE2``)
+twice to warm up, times
 three calls on the host clock, then profiles one with
 ``torch.profiler``. Prints one JSON line: the call's wall
 time, the device's busy share of it, device time per bucket of kernels, and
@@ -45,7 +44,7 @@ BUCKETS = (
     ('banded_conv_fused (K1, fused)', r'fused_tc'),
     ('banded_conv_narrow (K1, input conv)', r'narrow_tc'),
     ('banded_conv (K1, assembled)', r'banded_tc|banded_f32'),
-    ('banded_conv_sm (K2, both versions)', r'sm_taps_tc|sm_tc|sm_f32'),
+    ('banded_conv_sm (K2, both versions)', r'sm_taps_tc|sm_f32'),
     ('gemm (down/up/1x1/head)', r'gemm|cutlass|xmma|cublas|sm90_|nvjet'),
     ('sort / search', r'sort|radix|searchsorted|Scan|scan'),
     ('index / gather / scatter', r'index|gather|scatter|Indexing'),
@@ -90,7 +89,7 @@ def main(argv=None):
     synth.capacity_audit(batch, b_caps, args.brick)
     batch = batch.to('cuda')
     sm_max_cin = args.sm_max_cin if args.sm_max_cin is not None else (
-        32 if args.train and args.brick == 4 else 0)
+        32 if args.train else 0)
     model = model_fn.build_model(cfg, sm_max_cin=sm_max_cin,
                                  train=args.train, fuse_norm=args.fuse_norm,
                                  remat=args.remat, brick=args.brick)

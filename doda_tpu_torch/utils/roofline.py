@@ -14,10 +14,10 @@ type. Where the work depends on the data (a halo cell of an absent
 neighbour brick is read by no tap), the count is what the given rulebook
 needs.
 
-The K1 models take the brick side (``side``, 4 by default): at side s a
-brick has s^3 cells and an (s+2)^3 halo, and the first version's planes
-and banded weights are (s+2) x (s+2)^2 cells and 3 x (s+2)^2 x s^2 cells.
-The side-2 bound is the same function's work counted at that side.
+The K1 and K2 models take the brick side (``side``, 4 by default): at
+side s a brick has s^3 cells and an (s+2)^3 halo, and the first version's
+planes and banded weights are (s+2) x (s+2)^2 cells and 3 x (s+2)^2 x s^2
+cells. The side-2 bound is the same function's work counted at that side.
 """
 
 from __future__ import annotations
@@ -137,28 +137,33 @@ def assembled_work(rows: int, cin: int, cout: int, dtype=torch.bfloat16,
             **bound(moved, ops, peak)}
 
 
-def sm_taps_work(rows: int, cin: int, cout: int) -> dict:
-    """K2's second version, bf16: the 216 halo cells a brick needs (x 64,
-    gyz 80, gxm and gxp 36 each; no padding cell), the output and the
-    raster weights, once; every tap of every row."""
-    moved = (rows * HALO * cin + rows * CELLS * cout
+def sm_taps_work(rows: int, cin: int, cout: int, side: int = 4) -> dict:
+    """K2's second version, bf16, on bricks of side s: the (s+2)^3 halo
+    cells a brick needs (216 at side 4: x 64, gyz 80, gxm and gxp 36 each;
+    64 at side 2; no padding cell), the s^3 output cells and the raster
+    weights, once; every tap of every row."""
+    cells = side ** 3
+    moved = (rows * (side + 2) ** 3 * cin + rows * cells * cout
              + TAPS * cin * cout) * 2
-    flops = 2 * rows * CELLS * TAPS * cin * cout
+    flops = 2 * rows * cells * TAPS * cin * cout
     return {'bytes': moved, 'flops': flops, 'executed_flops': flops,
             **bound(moved, flops)}
 
 
-def sm_first_work(rows: int, cin: int, cout: int) -> dict:
-    """K2's first version, bf16, over its own operands as laid out: x
-    (64), gyz (96), gxm and gxp (40 each) cells a row, the ``sm_weights``
-    (wc, wh, wx: 3200·cin·cout) and the output; the operations of every
-    tap."""
-    moved = (rows * 240 * cin + 3200 * cin * cout
-             + rows * CELLS * cout) * 2
-    flops = 2 * rows * CELLS * TAPS * cin * cout
+def sm_first_work(rows: int, cin: int, cout: int, side: int = 4) -> dict:
+    """K2's first version, float32, on bricks of side s: the bytes of
+    ``sm_taps_work`` in float32 (the (s+2)^3 halo cells a brick, the s^3
+    output cells and the raster weights, once; the operand layout's
+    padding cells take part in no tap), and the operations of every tap on
+    the CUDA cores. ``executed_flops``: the whole band, (s+2)^2 + 4 cells a
+    tap and slice."""
+    from ..ops.banded_conv_sm import sm_widths
+    taps = sm_taps_work(rows, cin, cout, side)
+    moved, flops = 2 * taps['bytes'], taps['flops']
+    xpad, sl = sm_widths(side)[2], side * side
     return {'bytes': moved, 'flops': flops,
-            'executed_flops': 2 * rows * 4 * 120 * cin * 16 * cout,
-            **bound(moved, flops)}
+            'executed_flops': 2 * rows * side * 3 * xpad * cin * sl * cout,
+            **bound(moved, flops, PEAK_F32)}
 
 
 def ideal_work(cells: int, cin: int, cout: int) -> dict:

@@ -15,8 +15,8 @@
 * a 3-level net at sides 2 and 4 on the same weights: float32 logits and
   one train step's gradients;
 * K2's plain paths at side 2 against the shell-gather oracle;
-* the raises: an odd side, and a kernel route at a side it is not built
-  for;
+* the raises: an odd side, and a kernel at a side it is not built for;
+  K2's route accepted at side 2;
 * ``tools/test.py`` at ``--brick 2`` against ``--brick 4`` on tiny rooms.
 """
 
@@ -394,9 +394,9 @@ def test_side2_k2_plain_paths_equal_the_oracle():
 
 def test_side_raises():
     """An odd side is refused everywhere it can be asked for, and a kernel
-    route asked for at a side it is not built for raises naming the side
-    (K1's kernels: sides 2 and 4; K2: side 4), never running the plain
-    version on the card."""
+    asked for at a side it is not built for raises naming the side (K1's
+    and K2's kernels: sides 2 and 4), never running the plain version on
+    the card; K2's route is taken at side 2."""
     for side in (3, 1, 0):
         with pytest.raises(ValueError, match='side'):
             tbricks.geometry(side)
@@ -416,18 +416,16 @@ def test_side_raises():
                            nbr, torch.zeros(27, 3, 8, device='meta',
                                             dtype=bf), bf)
     assert banded_conv_fused.launches == banded_conv_narrow.launches == 0
-    with pytest.raises(ValueError, match='side 2'):      # K2 at side 2
-        banded_conv_sm_taps(torch.zeros(4, 8 * 16, device='meta', dtype=bf),
-                            *(torch.zeros(4, n * 16, device='meta', dtype=bf)
-                              for n in (32, 20, 20)),
+    with pytest.raises(ValueError, match='side 6'):      # K2 at side 6
+        banded_conv_sm_taps(*(torch.zeros(4, n * 16, device='meta', dtype=bf)
+                              for n in (216, 192, 68, 68)),
                             torch.zeros(27, 16, 8, device='meta', dtype=bf),
                             bf)
     assert banded_conv_sm_taps.launches == 0
-    for fn in (lambda: tb2d.uses_sm(16, 16, 32, side=2),
-               lambda: tb2d.subm_route(16, 16, bf, 32, side=2),
-               lambda: _net(2, sm_max_cin=32)):
-        with pytest.raises(ValueError, match='side 2'):
-            fn()
+    # K2 at side 2 is accepted: the route, the rule and the net
+    assert tb2d.uses_sm(16, 16, 32, side=2) is True
+    assert tb2d.subm_route(16, 16, bf, 32, side=2) == 'sm'
+    assert _net(2, sm_max_cin=32).sm_levels == (0, 1)
     assert tb2d.subm_route(16, 16, bf, 0, side=2) == 'fused'
     assert tb2d.subm_route(3, 16, bf, 0, side=2) == 'narrow'
     # a plan of another side than the net's

@@ -419,9 +419,9 @@ def test_sm_route_kernel_by_dtype(sparse_grid, monkeypatch, dtype):
         calls['first'] += 1
         return banded_conv_sm(*args)
 
-    def sm_weights(wr):
+    def sm_weights(wr, *side):
         calls['sm_weights'] += 1
-        return real_sm_weights(wr)
+        return real_sm_weights(wr, *side)
 
     monkeypatch.setattr(tb2d, 'banded_conv_sm_taps', taps)
     monkeypatch.setattr(tb2d, 'banded_conv_sm', first)
