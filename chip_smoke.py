@@ -8,13 +8,19 @@ Phases, each printing one line:
   2. build: every CUDA source of doda_tpu_torch/csrc, compiled with nvcc,
      and the host library of the data path (native/src/host_ops.cc, g++)
   3. plan: the bench batch's level plan on the card equals the CPU's
-     kernels: each kernel's wrapper (K1 banded_conv, its fused version
-     banded_conv_fused, its narrow-input version banded_conv_narrow, K2
-     banded_conv_sm on float32 operands, refusing bf16 ones, and its
-     second version banded_conv_sm_taps) on the card vs its plain
-     version, at the main
-     paths' widths (K2's second version also on row-strided operands, a
-     ragged tile and no rows); the fused K1 on the real plan's
+     kernels: each kernel's wrapper (K1 banded_conv on bf16 operands,
+     refusing float32 ones, its fused version banded_conv_fused, its
+     narrow-input version banded_conv_narrow, its float32 kernel
+     banded_conv_f32, and K2 banded_conv_sm_taps on bf16 and on float32
+     operands; the deleted first version's banded_conv_sm raises on the
+     card) on the card vs its plain version, at the main
+     paths' widths (K2 also on row-strided operands, a
+     ragged tile and no rows); the float32 kernels (K1 at every level's
+     bench rulebook, the input conv 3 -> 16 and the widest conv 192 ->
+     96, on synthetic rulebooks of ragged rows, odd widths and no rows;
+     K2 at every shape the rule sends it) to float32 output within 1e-5 of
+     max|ref| and bf16 within one bf16 step, bit-equal on a repeated call;
+     the fused K1 on the real plan's
      rulebooks (levels 0, 1, 5, 6) and on a synthetic one (ragged rows,
      absent faces with present diagonals, no rows), also against the
      assembled K1; the fused K1's prologue variant on the real rulebooks
@@ -31,10 +37,11 @@ Phases, each printing one line:
      serves bench-shaped batches (4 scenes, ~150k points each) through
      ``make_eval_step``: launch counts (52 fused K1 + 1 narrow K1, from
      the parameter shapes), scenes/sec, peak memory, float32
-     logits kernel vs plain path, bf16 predictions kernel vs plain path
-  5. train: the same net in train mode with ``sm_max_cin=32`` (K2's
-     second version at levels 0 and 1, the fused K1 elsewhere; float32
-     steps run K2's first version) takes three bf16 SGD steps on 2 bench
+     logits kernel vs plain path (53 launches of K1's float32 kernel, no
+     halo planes), bf16 predictions kernel vs plain path
+  5. train: the same net in train mode with ``sm_max_cin=32`` (K2 at
+     levels 0 and 1, the fused K1 elsewhere; a float32 step runs K2's and
+     K1's float32 kernels) takes three bf16 SGD steps on 2 bench
      scenes through ``make_train_step``: launch counts of both kernels,
      forward and backward, against the selection rule; loss finite, every
      parameter and running statistic moved; steps/sec, trained scenes/sec,
@@ -72,14 +79,15 @@ Phases, each printing one line:
      each level's active voxels equal side 4's, integer for integer); every
      K1 kernel built for side 2 against its plain version on the side-2
      rulebooks (the fused K1 at every level, the prologue variant at
-     levels 0-1, the narrow K1 at the input conv, the first version at
-     float32), timed beside its side-2 bound, its plain version, cuDNN
+     levels 0-1, the narrow K1 at the input conv, the float32 K1 at every
+     level, the input conv and the widest conv), timed beside its side-2
+     bound, its plain version, cuDNN
      ``conv3d`` over the oracle's side-2 halo and the same kernel at side
-     4; K2 at side 2 likewise (its second version on bf16 operands to
-     float32, 1e-5 of max|ref|, and bf16, 1.6e-2, its first on float32
-     operands, 1e-5, at every level's p -> p and the sm_max_cin=32 step's
-     other shapes; the second version timed at every level beside the
-     side-2 fused K1 and K2 at side 4, the first at level 0); the eval
+     4; K2 at side 2 likewise (bf16 operands to float32, 1e-5 of
+     max|ref|, and bf16, 1.6e-2; float32 operands, its float32 kernel, as
+     phase kernels holds it, at every level's p -> p and the
+     sm_max_cin=32 step's other shapes; bf16 timed at every level beside
+     the side-2 fused K1 and K2 at side 4, float32 at level 0); the eval
      forward at both sides (bf16 predictions >= 99%, float32
      logits to 1e-3, launches against ``subm_routes``, scenes/sec in
      turns, device time by bucket, launches and peak), the ``fuse_norm``
@@ -144,17 +152,21 @@ Phases, each printing one line:
      --launcher pytorch`` at WORLD_SIZE=1 for one step
  15. timing: each kernel at the level-0 shape beside its bound, its plain
      version and, where there is one, a PyTorch library call computing the
-     same function; K1 in both versions, with the plane gather alone, and
+     same function; K1 in both bf16 versions, with the plane gather alone,
+     and
      its prologue variant beside the unfused sequence it replaces (norm
      apply + ReLU + mask + K1), at the level-0 and level-1 shapes on the
      real rulebooks; K1's narrow-input version at the input conv beside
      the first version over its planes (alone and with the plane gather),
      the fused K1 on x2 zero-padded to cin = 8 (padding pass included) and
-     cuDNN conv3d over the oracle's halo; K2 in both versions at the
-     level-0 and level-1 shapes (the second in bf16, the first in
-     float32); K1's and K2's library time is phase engines' conv3d
-Then a JSON line of the kernels (K2 at side 2 in two rows of its own,
-from phase brick) and, last, {"ok": true, "device": ...}.
+     cuDNN conv3d over the oracle's halo; K2 at the level-0 and level-1
+     shapes in bf16 and float32; K1's float32 kernel at levels 0 and 1
+     beside its float32 bound, its plain version, float32 cuDNN conv3d
+     over the oracle's halo (TF32 off) and the bf16 fused K1 of the same
+     call; K1's and K2's bf16 library time is phase engines' conv3d
+Then a JSON line of the kernels (rows of their own for K1 and K2 in
+float32, and for K2 in bf16 and both float32 kernels at side 2, from
+phase brick) and, last, {"ok": true, "device": ...}.
 Any failure raises, and the script exits non-zero without that last line.
 """
 
@@ -217,7 +229,7 @@ def phase_build():
         host.result()                               # path
     log('build', sources=names + ['native/src/host_ops.cc'],
         seconds=round(time.perf_counter() - t0, 3),
-        ptxas={n: _build.resources(n) for n in names})
+        ptxas={n: _build.kernel_resources(n) for n in names})
 
 
 def phase_plan(batch, b_caps):
@@ -269,6 +281,34 @@ K1_BENCH_SHAPES = ((0, 16, 16), (0, 32, 16), (1, 32, 32), (1, 64, 32),
 # ragged B included
 K2_SHAPES = ((4099, 16, 16), (4096, 32, 16), (2048, 16, 32), (2048, 32, 32),
              (1000, 32, 64), (512, 112, 112))
+# the float32 kernels (K1's banded_conv_f32, K2's sm_taps_f32), (output
+# dtype, tolerance relative to max|ref|): float32 output, float32 FMAs
+# summed in another order than the plain version's matmuls; bf16 output,
+# one rounding of the result (at most one bf16 step, 2^-7 of max|ref|)
+F32_CHECKS = ((torch.float32, 1e-5), (torch.bfloat16, 2.0 ** -7))
+# (level, cin, cout) of the float32 K1's checks on the bench rulebooks (at
+# side 4 in phase kernels, side 2 in phase brick): every level's block
+# conv p -> p, the 2p -> p tails of levels 0 and 1, the dx of the level-0
+# tail (16 -> 32), the input conv 3 -> 16 and the widest conv 192 -> 96
+F32_K1_SHAPES = tuple((lvl, 16 * (lvl + 1), 16 * (lvl + 1))
+                      for lvl in range(7)) + (
+    (0, 32, 16), (0, 16, 32), (1, 64, 32), (0, 3, 16), (5, 192, 96))
+
+
+def check_f32(worst, key, fn, ref_fn):
+    """A float32 kernel call ``fn(out_dtype)`` against its plain version
+    ``ref_fn(out_dtype)`` (``F32_CHECKS``), and bit-equal on a repeated
+    call (a fixed order of summation, no atomics)."""
+    for dt, bound in F32_CHECKS:
+        got = fn(dt)
+        torch.cuda.synchronize()
+        ref = ref_fn(torch.float32)
+        worst[f'{key}/{str(dt)[6:]}'] = _close(got, ref, True, bound,
+                                               f'{key} {dt}')
+        again = fn(dt)
+        torch.cuda.synchronize()
+        assert torch.equal(got, again), f'{key} {dt}: not bit-equal again'
+    return got
 
 
 def plain_path():
@@ -278,13 +318,12 @@ def plain_path():
     from doda_tpu_torch.ops import bricks2d
     from doda_tpu_torch.ops.banded_conv import (banded_conv_fused_plain,
                                                 banded_conv_plain)
-    from doda_tpu_torch.ops.banded_conv_sm import (banded_conv_sm_plain,
-                                                   banded_conv_sm_taps_plain)
+    from doda_tpu_torch.ops.banded_conv_sm import banded_conv_sm_taps_plain
     stack = ExitStack()
     for name, fn in (('banded_conv', banded_conv_plain),
                      ('banded_conv_fused', banded_conv_fused_plain),
                      ('banded_conv_narrow', banded_conv_fused_plain),
-                     ('banded_conv_sm', banded_conv_sm_plain),
+                     ('banded_conv_f32', banded_conv_fused_plain),
                      ('banded_conv_sm_taps', banded_conv_sm_taps_plain)):
         stack.enter_context(patch.object(bricks2d, name, fn))
     return stack
@@ -348,10 +387,11 @@ def check_fused_pro(worst, key, x2, nbr, w, occ, g):
 def phase_kernels(levels):
     from doda_tpu_torch.ops import bricks2d
     from doda_tpu_torch.ops.banded_conv import (banded_conv,
+                                                banded_conv_f32,
                                                 banded_conv_fused,
+                                                banded_conv_fused_plain,
                                                 banded_conv_plain)
     from doda_tpu_torch.ops.banded_conv_sm import (banded_conv_sm,
-                                                   banded_conv_sm_plain,
                                                    banded_conv_sm_taps,
                                                    banded_conv_sm_taps_plain)
     from doda_tpu_torch.utils import synth
@@ -426,41 +466,87 @@ def phase_kernels(levels):
     assert empty.shape == (0, 64 * 16)
     assert banded_conv_narrow.launches == before    # nothing to launch
 
+    # K1's first version, bf16 operands (its float32 path is deleted: a
+    # float32 call raises, naming banded_conv_f32)
     for b, cin, cout in ((1000, 3, 16), (4096, 16, 16), (4099, 32, 16),
                          (2048, 112, 112), (512, 192, 96)):
         rows6 = torch.randn(b, 6, 36 * cin, device='cuda', generator=g)
         w = torch.randn(27, cin, cout, device='cuda', generator=g)
         wb = bricks2d.banded_weights(w / (27 * cin) ** 0.5)
-        for dt, rel, bound in CHECKS:
+        for dt, rel, bound in CHECKS[1:]:
             got = banded_conv(rows6.to(dt), wb.to(dt), dt)
             torch.cuda.synchronize()
             ref = banded_conv_plain(rows6.to(dt), wb.to(dt), dt)
             worst[f'K1/{b}x{cin}x{cout}/{str(dt)[6:]}'] = _close(
                 got, ref, rel, bound, f'banded_conv {b},{cin},{cout} {dt}')
-
-    # K2's first version (float32 operands) at every shape the rule can
-    # send it, ragged B included; bf16 operands are the second version's
-    # and the first refuses them, naming it
-    f32, (_, rel, bound) = torch.float32, CHECKS[0]
-    for b, cin, cout in K2_SHAPES:
-        ops = [torch.randn(b, cells * cin, device='cuda', generator=g)
-               for cells in (64, 96, 40, 40)]
-        w = torch.randn(27, cin, cout, device='cuda', generator=g)
-        args = ops + list(bricks2d.sm_weights(w / (27 * cin) ** 0.5))
-        got = banded_conv_sm(*args, f32)
-        torch.cuda.synchronize()
-        ref = banded_conv_sm_plain(*args, f32)
-        worst[f'K2/{b}x{cin}x{cout}/float32'] = _close(
-            got, ref, rel, bound, f'banded_conv_sm {b},{cin},{cout} float32')
-    assert banded_conv_sm(*(t[:0] for t in args[:4]), *args[4:],
-                          f32).shape == (0, 64 * 112)
-    before = banded_conv_sm.launches
+    f32 = torch.float32
+    before = banded_conv.launches
     try:
-        banded_conv_sm(*(t.to(bf) for t in args), bf)
-        raise AssertionError('banded_conv_sm ran bf16 operands')
+        banded_conv(rows6, wb, f32)
+        raise AssertionError('banded_conv ran float32 operands')
+    except ValueError as e:
+        assert 'banded_conv_f32' in str(e), e
+    assert banded_conv.launches == before
+
+    # K1 in float32 (banded_conv_f32) on the bench batch's own rulebooks:
+    # every level's block conv, the tails, the input conv and the widest
+    # conv, on activations masked to the level's active cells; float32
+    # and bf16 output, bit-equal on a repeated call
+    for lvl, cin, cout in F32_K1_SHAPES:
+        lv = levels[lvl]
+        rows = lv.nbr.shape[0]
+        x2 = (torch.randn(rows, 64, cin, device='cuda', generator=g)
+              * lv.occ[..., None]).reshape(rows, -1)
+        w = torch.randn(27, cin, cout, device='cuda', generator=g) \
+            / (27 * cin) ** 0.5
+        check_f32(worst, f'K1f32/level{lvl}/{rows}x{cin}x{cout}',
+                  lambda dt: banded_conv_f32(x2, lv.nbr, w, dt),
+                  lambda dt: banded_conv_fused_plain(x2, lv.nbr, w, dt))
+    # ... and on synthetic rulebooks: ragged rows, absent faces beside
+    # present diagonals, odd channel counts, several cout blocks, no rows
+    for rows, grid, cin, cout in ((4099, 20, 16, 16), (1001, 12, 5, 13),
+                                  (1001, 12, 40, 24), (777, 12, 192, 96),
+                                  (3, 4, 16, 32)):
+        nbr = synth.synth_rulebook(rows, grid, seed=rows)
+        x2 = torch.randn(rows, 64 * cin, device='cuda', generator=g)
+        w = torch.randn(27, cin, cout, device='cuda', generator=g) \
+            / (27 * cin) ** 0.5
+        check_f32(worst, f'K1f32/synthetic/{rows}x{cin}x{cout}',
+                  lambda dt: banded_conv_f32(x2, nbr, w, dt),
+                  lambda dt: banded_conv_fused_plain(x2, nbr, w, dt))
+    before = banded_conv_f32.launches
+    assert banded_conv_f32(x2[:0], nbr[:0], w, f32).shape == (0, 64 * 32)
+    assert banded_conv_f32.launches == before       # nothing to launch
+
+    # K2's float32 kernel (banded_conv_sm_taps on float32 operands) at
+    # every shape the rule can send it, ragged B, less than a tile, a half
+    # cout block and two weight groups, operands as column slices of one
+    # gathered buffer; the first version's wrapper raises on the card,
+    # naming it
+    for b, cin, cout in K2_SHAPES + ((7, 32, 32), (1000, 16, 24),
+                                     (333, 144, 24)):
+        x = torch.randn(b, 64 * cin, device='cuda', generator=g)
+        buf = torch.randn(b, 176 * cin, device='cuda', generator=g)
+        halo = (buf[:, :96 * cin], buf[:, 96 * cin:136 * cin],
+                buf[:, 136 * cin:])
+        w = torch.randn(27, cin, cout, device='cuda', generator=g) \
+            / (27 * cin) ** 0.5
+        got = check_f32(
+            worst, f'K2f32/{b}x{cin}x{cout}',
+            lambda dt: banded_conv_sm_taps(x, *halo, w, dt),
+            lambda dt: banded_conv_sm_taps_plain(x, *halo, w, dt))
+        again = banded_conv_sm_taps(x, *(t.contiguous() for t in halo), w,
+                                    torch.bfloat16)
+        assert torch.equal(again, got), f'K2f32 {b}: strided != contiguous'
+    before = banded_conv_sm_taps.f32_launches
+    assert banded_conv_sm_taps(x[:0], *(t[:0] for t in halo), w,
+                               f32).shape == (0, 64 * cout)
+    assert banded_conv_sm_taps.f32_launches == before
+    try:
+        banded_conv_sm(x, *halo, *bricks2d.sm_weights(w), f32)
+        raise AssertionError('banded_conv_sm ran on the card')
     except ValueError as e:
         assert 'banded_conv_sm_taps' in str(e), e
-    assert banded_conv_sm.launches == before
 
     # K2's second version at the same shapes, on less than one tile, with a
     # half-filled last cout block, and at a cin that takes two weight
@@ -533,8 +619,11 @@ def phase_kernels(levels):
 
 
 def phase_forward(cfg, batch, b_caps, card):
+    """The bf16 eval forward on the kernels (launches, scenes/sec, peak);
+    the float32 forward on the kernels (every subm conv on K1's float32
+    kernel, launches by route against ``subm_routes``) against the plain
+    path. Returns the bf16 forward's launches and the float32 one's."""
     from doda_tpu_torch.models import model_fn
-    from doda_tpu_torch.ops.banded_conv_sm import banded_conv_sm
     from doda_tpu_torch.utils import synth
     n_valid = int(batch.valid.sum())
     batch = batch.to('cuda')
@@ -549,7 +638,8 @@ def phase_forward(cfg, batch, b_caps, card):
     # the rule on the parameter shapes: the cin = 3 input conv on the
     # narrow K1, all others on the fused K1
     want = model.subm_routes()
-    assert want == {'sm': 0, 'fused': 52, 'narrow': 1, 'assembled': 0}, want
+    assert want == {'sm': 0, 'fused': 52, 'narrow': 1, 'f32': 0,
+                    'assembled': 0}, want
     step(batch)                                     # warm-up (set-up)
     torch.cuda.synchronize()
 
@@ -557,7 +647,6 @@ def phase_forward(cfg, batch, b_caps, card):
     out = step(batch)
     torch.cuda.synchronize()
     launches = _cli_launches()
-    assert banded_conv_sm.launches == 0
     assert launches == want, launches
     logits = out['output']
     assert logits.shape == (synth.BATCH, synth.N_CAP, 20)
@@ -575,9 +664,17 @@ def phase_forward(cfg, batch, b_caps, card):
     assert _cli_launches() == {k: 4 * v for k, v in want.items()}
     peak = torch.cuda.max_memory_allocated()
 
-    # float32: kernel path vs plain path, same weights and batch
-    _, step32 = run(torch.float32, sd)
+    # float32: kernel path vs plain path, same weights and batch; every
+    # subm conv on K1's float32 kernel, none on halo planes
+    model32, step32 = run(torch.float32, sd)
+    want32 = model32.subm_routes()
+    assert want32 == {'sm': 0, 'fused': 0, 'narrow': 0, 'f32': 53,
+                      'assembled': 0}, want32
+    _cli_reset()
     lk = step32(batch)['output']
+    torch.cuda.synchronize()
+    launches32 = _cli_launches()
+    assert launches32 == want32, launches32
     with plain_path():
         lp = step32(batch)['output']
         preds_p = step(batch)['preds']
@@ -590,17 +687,18 @@ def phase_forward(cfg, batch, b_caps, card):
         scenes_per_sec=3 * synth.BATCH / dt, seconds_per_forward=dt / 3,
         peak_memory_gib=peak / 2 ** 30, f32_logit_max_abs_err=err32,
         f32_logit_max_abs=lp.abs().max().item(), bf16_pred_agreement=agree,
+        f32_launches_per_forward=launches32,
         valid_points=n_valid, b_caps=list(b_caps))
-    return launches
+    return launches, launches32
 
 
 def phase_train(cfg, b_caps, card):
     """Three bf16 train steps of the flagship on 2 bench scenes, then one
     float32 step on the kernel path against the plain path."""
     from doda_tpu_torch.models import model_fn
-    from doda_tpu_torch.ops.banded_conv import banded_conv_fused
-    from doda_tpu_torch.ops.banded_conv_sm import (banded_conv_sm,
-                                                   banded_conv_sm_taps)
+    from doda_tpu_torch.ops.banded_conv import (banded_conv_f32,
+                                                banded_conv_fused)
+    from doda_tpu_torch.ops.banded_conv_sm import banded_conv_sm_taps
     from doda_tpu_torch.utils import optim, synth
     batch = synth.make_batch(seed=0, batch=synth.TRAIN_BATCH)
     synth.capacity_audit(batch, b_caps)
@@ -621,17 +719,17 @@ def phase_train(cfg, b_caps, card):
     # kernel runs one forward conv and one dx conv on the flipped shape,
     # except the input conv, whose input needs no gradient
     fwd_want, bwd_want = model.subm_routes(), model.subm_routes(True)
-    assert fwd_want == {'sm': 15, 'fused': 37, 'narrow': 1,
+    assert fwd_want == {'sm': 15, 'fused': 37, 'narrow': 1, 'f32': 0,
                         'assembled': 0}, fwd_want
-    assert bwd_want == {'sm': 16, 'fused': 36, 'narrow': 0,
+    assert bwd_want == {'sm': 16, 'fused': 36, 'narrow': 0, 'f32': 0,
                         'assembled': 0}, bwd_want
     want = {k: fwd_want[k] + bwd_want[k] for k in fwd_want}
     reset = _cli_reset
 
     def counts():
-        # bf16 'sm' convs run K2's second version; its first version runs
-        # only on float32 operands and must not appear here
-        assert banded_conv_sm.launches == 0, banded_conv_sm.launches
+        # bf16 steps launch no float32 kernel
+        assert banded_conv_sm_taps.f32_launches == 0
+        assert banded_conv_f32.launches == 0
         assert banded_conv_fused.pro_launches == 0
         return _cli_launches()
 
@@ -678,7 +776,7 @@ def phase_train(cfg, b_caps, card):
     dt0 = time.perf_counter() - t0
     peak0 = torch.cuda.max_memory_allocated()
     assert counts() == {'sm': 0, 'fused': steps * 104, 'narrow': steps,
-                        'assembled': 0}, counts()
+                        'f32': 0, 'assembled': 0}, counts()
     assert all(math.isfinite(float(v)) for v in losses0)
     log('train_k2_or_fused', card=card, batch=synth.TRAIN_BATCH,
         steps_per_sec_sm_max_cin_32=steps / dt,
@@ -690,13 +788,19 @@ def phase_train(cfg, b_caps, card):
     torch.cuda.empty_cache()
 
     # float32: one step from identical weights, kernel path vs plain path;
-    # the 'sm' convs run K2's first version (exact float32 CUDA cores)
+    # the 'sm' convs run K2's float32 kernel, the others K1's (exact
+    # float32 FMAs on the CUDA cores): launches by route as subm_routes
+    # counts them, none of the bf16 kernels
     model_k, step_k = trainer(torch.float32, sd)
+    want32 = {k: v + model_k.subm_routes(True)[k]
+              for k, v in model_k.subm_routes().items()}
+    assert want32 == {'sm': 31, 'fused': 0, 'narrow': 0, 'f32': 74,
+                      'assembled': 0}, want32
     reset()
     loss_k = float(step_k(batch, lr)['loss'])
-    f32_sm = banded_conv_sm.launches
-    assert f32_sm == want['sm'] and banded_conv_sm_taps.launches == 0, (
-        f32_sm, banded_conv_sm_taps.launches)
+    f32_ran = _cli_launches()
+    assert f32_ran == want32, f32_ran
+    assert banded_conv_sm_taps.f32_launches == want32['sm']
     grads_k = {n: p.grad.clone() for n, p in model_k.named_parameters()}
     del model_k, step_k
     model_p, step_p = trainer(torch.float32, sd)
@@ -716,8 +820,8 @@ def phase_train(cfg, b_caps, card):
         trained_scenes_per_sec=steps * synth.TRAIN_BATCH / dt,
         seconds_per_step=dt / steps, peak_memory_gib=peak / 2 ** 30,
         losses=losses, lr=lr, f32_loss_kernel=loss_k, f32_loss_plain=loss_p,
-        f32_worst_gradient_err=worst, f32_step_sm_first_version=f32_sm)
-    return ran, f32_sm
+        f32_worst_gradient_err=worst, f32_launches_per_step=f32_ran)
+    return ran, f32_ran
 
 
 def _profile(fn):
@@ -763,8 +867,7 @@ def phase_fuse_norm(cfg, batch, b_caps, card):
     steps both ways, the bf16 steps' gradient error against the float32
     unfused step). Returns the launches of each route in the counted runs."""
     from doda_tpu_torch.models import model_fn
-    from doda_tpu_torch.ops.banded_conv_sm import (banded_conv_sm,
-                                                   banded_conv_sm_taps)
+    from doda_tpu_torch.ops.banded_conv_sm import banded_conv_sm_taps
     from doda_tpu_torch.utils import optim, synth
     t_phase = time.perf_counter()
     bf, f32 = torch.bfloat16, torch.float32
@@ -773,7 +876,8 @@ def phase_fuse_norm(cfg, batch, b_caps, card):
     sd = synth.seeded_state_dict(model_fn.build_model(cfg), seed=0)
 
     def counts():
-        assert banded_conv_sm.launches == banded_conv_sm_taps.launches == 0
+        assert banded_conv_sm_taps.launches == 0
+        assert banded_conv_sm_taps.f32_launches == 0
         return _launches()
 
     def evaluator(dtype, fuse):
@@ -784,8 +888,8 @@ def phase_fuse_norm(cfg, batch, b_caps, card):
     model_f, step_f = evaluator(bf, True)
     model_u, step_u = evaluator(bf, False)
     want = model_f.subm_routes()
-    assert want == {'sm': 0, 'fused': 0, 'narrow': 1, 'assembled': 0,
-                    'prologue': 52}, want
+    assert want == {'sm': 0, 'fused': 0, 'narrow': 1, 'f32': 0,
+                    'assembled': 0, 'prologue': 52}, want
     step_f(batch)                                   # warm-up (set-up)
     step_u(batch)
     torch.cuda.synchronize()
@@ -800,7 +904,7 @@ def phase_fuse_norm(cfg, batch, b_caps, card):
     torch.cuda.synchronize()
     launched['eval_forward_unfused'] = counts()
     assert launched['eval_forward_unfused'] == {
-        'sm': 0, 'fused': 52, 'narrow': 1, 'assembled': 0,
+        'sm': 0, 'fused': 52, 'narrow': 1, 'f32': 0, 'assembled': 0,
         'prologue': 0}, launched
     logits = out_f['output']
     assert logits.shape == (synth.BATCH, synth.N_CAP, 20)
@@ -863,9 +967,9 @@ def phase_fuse_norm(cfg, batch, b_caps, card):
     torch.cuda.empty_cache()
     _cli_reset()
     _, _, loss_f32, grads_f32 = first_step(f32, True)
-    launched['train_f32_fused'] = counts()   # float32: the pro_full routes
+    launched['train_f32_fused'] = counts()   # float32: pro_full, then 'f32'
     assert launched['train_f32_fused'] == {
-        'sm': 0, 'fused': 0, 'narrow': 0, 'assembled': 105,
+        'sm': 0, 'fused': 0, 'narrow': 0, 'f32': 105, 'assembled': 0,
         'prologue': 0}, launched
     assert abs(loss_f32 - loss_u32) <= 1e-4 * abs(loss_u32), (loss_f32,
                                                              loss_u32)
@@ -881,7 +985,8 @@ def phase_fuse_norm(cfg, batch, b_caps, card):
         rule = model.subm_routes()
         rule_bwd = model.subm_routes(backward=True)
         rule = {k: steps * (rule.get(k, 0) + rule_bwd.get(k, 0))
-                for k in ('sm', 'fused', 'narrow', 'assembled', 'prologue')}
+                for k in ('sm', 'fused', 'narrow', 'f32', 'assembled',
+                          'prologue')}
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         _cli_reset()
@@ -959,8 +1064,9 @@ def _routes_match(ran, want):
 def engine_k1_checks(levels, slab_levels, batch, plan):
     """K1 against references that do not share its halo tables, float32,
     at levels 0 and 1 of the bench batch's real rulebooks: the oracle and
-    the slab conv against ``subm_conv3_2d`` on the kernel path (K1's first
-    version in float32), the fused K1 (bf16 operands, float32 output)
+    the slab conv against ``subm_conv3_2d`` on the kernel path (K1's
+    float32 kernel, ``banded_conv_f32``), the fused K1 (bf16 operands,
+    float32 output)
     against the oracle on the same rounded operands, ``subm_conv3_v2``
     against K1 too, and the voxel-level
     ``sparse.subm_conv`` on scene 0's voxel table (its rulebook from
@@ -969,7 +1075,8 @@ def engine_k1_checks(levels, slab_levels, batch, plan):
     oracle's assembled bf16 halo, the library call of K1's function."""
     import torch.nn.functional as F
     from doda_tpu_torch.ops import bricks, bricks2d, slabs, sparse
-    from doda_tpu_torch.ops.banded_conv import banded_conv, banded_conv_fused
+    from doda_tpu_torch.ops.banded_conv import (banded_conv_f32,
+                                                banded_conv_fused)
     from doda_tpu_torch.ops.coords import (CoordTable, lookup_packed,
                                            unique_coords)
     g = torch.Generator(device='cuda').manual_seed(4)
@@ -994,10 +1101,10 @@ def engine_k1_checks(levels, slab_levels, batch, plan):
         w = torch.randn(27, cin, cin, device='cuda', generator=g)
         w = w / (27 * cin) ** 0.5
         x2 = x3.reshape(rows, -1)
-        before = banded_conv.launches
+        before = banded_conv_f32.launches
         k1 = bricks2d.subm_conv3_2d(x2, lv.occ, lv.halo, w, f32, lv.sm, 0,
                                     lv.nbr)
-        assert banded_conv.launches == before + 1     # the kernel path
+        assert banded_conv_f32.launches == before + 1  # the kernel path
         oracle = bricks.subm_conv3(x3, lv.occ, lv.nbr, w, f32)
         key = f'level{lvl}/{rows}x{cin}x{cin}'
         errs[f'oracle-vs-K1/{key}'] = _close(
@@ -1347,40 +1454,52 @@ def _side_timings(lv, cin, cout, side, g, plain=False, library=False,
     return out
 
 
-def _first_timings(lv, side, g, plain=False, library=False):
-    """K1's first version at float32 (its main-path dtype), 16 -> 16 on
-    one level's rulebook at ``side``: ms over 20 launches on
-    ``_assemble_p6``'s planes, bound (float32 on the CUDA cores), and
-    where asked its plain version's ms and float32 ``conv3d`` over the
-    oracle's halo."""
+def _f32_timings(lv, side, g, cin=16, cout=16):
+    """K1's float32 kernel (``banded_conv_f32``) at (cin -> cout) on one
+    level's rulebook at ``side``, on activations masked to its active
+    cells: ms over 20 launches, its float32 bound (operations on the CUDA
+    cores, the taps the present halo cells need), its plain version's ms
+    over 3, float32 cuDNN ``conv3d`` over the oracle's halo (TF32 off,
+    assembly not timed) and the bf16 fused K1 on the same activations
+    rounded to bf16."""
     import torch.nn.functional as F
-    from doda_tpu_torch.ops import bricks, bricks2d
-    from doda_tpu_torch.ops.banded_conv import banded_conv, banded_conv_plain
+    from doda_tpu_torch.ops import bricks
+    from doda_tpu_torch.ops.banded_conv import (banded_conv_f32,
+                                                banded_conv_fused,
+                                                banded_conv_fused_plain,
+                                                f32_smem_bytes)
     from doda_tpu_torch.utils import roofline
-    f32 = torch.float32
+    f32, bf = torch.float32, torch.bfloat16
     rows, cells = lv.occ.shape
-    x2 = (torch.randn(rows, cells, 16, device='cuda', generator=g)
+    x2 = (torch.randn(rows, cells, cin, device='cuda', generator=g)
           * lv.occ[..., None]).reshape(rows, -1)
-    w = torch.randn(27, 16, 16, device='cuda', generator=g) / 432 ** 0.5
-    rows6 = bricks2d._assemble_p6(x2, lv.halo, f32)
-    wb = bricks2d.banded_weights(w, side)
-    work = roofline.assembled_work(rows, 16, 16, f32, int((wb != 0).sum()),
-                                   side)
-    out = {'side': side, 'shape': [rows, 16, 16], 'dtype': 'float32',
-           'ms': cuda_ms(lambda: banded_conv(rows6, wb, f32), 20),
-           'bound_ms': work['bound_ms'], 'bound_by': work['bound_by']}
+    w = torch.randn(27, cin, cout, device='cuda', generator=g) \
+        / (27 * cin) ** 0.5
+    work = roofline.fused_work(rows, cin, cout,
+                               roofline.present_reads(lv.halo), side, f32)
+    got = banded_conv_f32(x2, lv.nbr, w, f32)
+    ref = banded_conv_fused_plain(x2, lv.nbr, w, f32)
+    err = _close(got, ref, True, F32_CHECKS[0][1], 'banded_conv_f32 timed')
+    del got, ref
+    out = {'side': side, 'shape': [rows, cin, cout], 'dtype': 'float32',
+           'ms': cuda_ms(lambda: banded_conv_f32(x2, lv.nbr, w, f32), 20),
+           'bound_ms': work['bound_ms'], 'bound_by': work['bound_by'],
+           'flops': work['flops'], 'bytes': work['bytes'],
+           'max_abs_err': err,
+           'plain_ms': cuda_ms(
+               lambda: banded_conv_fused_plain(x2, lv.nbr, w, f32), 3),
+           'dynamic_smem_bytes': f32_smem_bytes(cin, cout, side)}
     out['x_bound'] = out['ms'] / out['bound_ms']
-    if plain:
-        out['plain_ms'] = cuda_ms(lambda: banded_conv_plain(rows6, wb, f32),
-                                  3)
-    del rows6
-    if library:
-        hin = bricks.shell_halo(x2.reshape(rows, cells, 16), lv.nbr,
-                                f32).permute(0, 4, 1, 2, 3)
-        wc = w.reshape(3, 3, 3, 16, 16).permute(4, 3, 0, 1, 2).contiguous(
-            memory_format=torch.channels_last_3d)
-        out['library_ms'] = cuda_ms(lambda: F.conv3d(hin, wc), 10)
-        del hin
+    xb, wb = x2.to(bf), w.to(bf)
+    out['fused_bf16_ms'] = cuda_ms(
+        lambda: banded_conv_fused(xb, lv.nbr, wb, bf), 20)
+    del xb, wb
+    hin = bricks.shell_halo(x2.reshape(rows, cells, cin), lv.nbr,
+                            f32).permute(0, 4, 1, 2, 3)
+    wc = w.reshape(3, 3, 3, cin, cout).permute(4, 3, 0, 1, 2).contiguous(
+        memory_format=torch.channels_last_3d)
+    out['library_ms'] = cuda_ms(lambda: F.conv3d(hin, wc), 10)
+    del hin
     return out
 
 
@@ -1402,7 +1521,8 @@ def _sm_operands(lv, cin, cout, side, g, dtype):
 def _sm_timings(lv, cin, cout, side, g, plain=False):
     """K2's second version at one (cin -> cout) on one level's rulebook at
     ``side``, bf16: ms over 20 launches, its bound (``utils/roofline.py``
-    at that side) and, where asked, its plain version's ms over 3."""
+    at that side, the taps the rulebook's present halo cells need) and,
+    where asked, its plain version's ms over 3."""
     from doda_tpu_torch.ops.banded_conv_sm import (banded_conv_sm_taps,
                                                    banded_conv_sm_taps_plain,
                                                    sm_taps_smem_bytes)
@@ -1410,7 +1530,8 @@ def _sm_timings(lv, cin, cout, side, g, plain=False):
     bf = torch.bfloat16
     ops, w = _sm_operands(lv, cin, cout, side, g, bf)
     rows = lv.occ.shape[0]
-    work = roofline.sm_taps_work(rows, cin, cout, side)
+    work = roofline.sm_taps_work(rows, cin, cout, side,
+                                 reads=roofline.present_reads(lv.halo))
     out = {'side': side, 'shape': [rows, cin, cout],
            'ms': cuda_ms(lambda: banded_conv_sm_taps(*ops, w, bf), 20),
            'bound_ms': work['bound_ms'], 'bound_by': work['bound_by'],
@@ -1422,25 +1543,32 @@ def _sm_timings(lv, cin, cout, side, g, plain=False):
     return out
 
 
-def _sm_first_timings(lv, side, g):
-    """K2's first version at float32 (its main-path dtype), 16 -> 16 on
-    one level's rulebook at ``side``: ms over 10 launches, its bound
-    (float32 on the CUDA cores) and its plain version's ms over 3."""
-    from doda_tpu_torch.ops import bricks2d
-    from doda_tpu_torch.ops.banded_conv_sm import (banded_conv_sm,
-                                                   banded_conv_sm_plain)
+def _sm_f32_timings(lv, side, g, cin=16, cout=16):
+    """K2's float32 kernel (``banded_conv_sm_taps`` on float32 operands)
+    at (cin -> cout) on one level's rulebook at ``side``: ms over 20
+    launches, its float32 bound (operations on the CUDA cores, the taps
+    the rulebook's present halo cells need, as K1 float32's) and its plain
+    version's ms over 3."""
+    from doda_tpu_torch.ops.banded_conv_sm import (banded_conv_sm_taps,
+                                                   banded_conv_sm_taps_plain,
+                                                   sm_taps_smem_bytes)
     from doda_tpu_torch.utils import roofline
     f32 = torch.float32
-    ops, w = _sm_operands(lv, 16, 16, side, g, f32)
-    wts = bricks2d.sm_weights(w, side)
+    ops, w = _sm_operands(lv, cin, cout, side, g, f32)
     rows = lv.occ.shape[0]
-    work = roofline.sm_first_work(rows, 16, 16, side)
-    out = {'side': side, 'shape': [rows, 16, 16], 'dtype': 'float32',
-           'ms': cuda_ms(lambda: banded_conv_sm(*ops, *wts, f32), 10),
+    work = roofline.sm_taps_work(rows, cin, cout, side, f32,
+                                 roofline.present_reads(lv.halo))
+    err = _close(banded_conv_sm_taps(*ops, w, f32),
+                 banded_conv_sm_taps_plain(*ops, w, f32), True,
+                 F32_CHECKS[0][1], 'K2 float32 timed')
+    out = {'side': side, 'shape': [rows, cin, cout], 'dtype': 'float32',
+           'ms': cuda_ms(lambda: banded_conv_sm_taps(*ops, w, f32), 20),
            'bound_ms': work['bound_ms'], 'bound_by': work['bound_by'],
-           'executed_flops': work['executed_flops'],
-           'plain_ms': cuda_ms(lambda: banded_conv_sm_plain(*ops, *wts, f32),
-                               3)}
+           'flops': work['flops'], 'bytes': work['bytes'],
+           'max_abs_err': err,
+           'plain_ms': cuda_ms(
+               lambda: banded_conv_sm_taps_plain(*ops, w, f32), 3),
+           'dynamic_smem_bytes': sm_taps_smem_bytes(cin, side, f32)}
     out['x_bound'] = out['ms'] / out['bound_ms']
     return out
 
@@ -1453,7 +1581,7 @@ def phase_brick(cfg, batch, b_caps, card):
     side 4's, integer for integer); each K1 kernel at side 2 against its
     plain version on the side-2 bench rulebooks (the fused K1 at every
     level, its prologue variant at levels 0-1, the narrow K1 at the input
-    conv, the first version at float32, level 0), and timed beside its
+    conv, the float32 K1 at every level), and timed beside its
     side-2 bound, its plain version, cuDNN ``conv3d`` over the oracle's
     side-2 halo and the same kernel at side 4; then the model at both
     sides: the bf16 eval forward (predictions >= 99%, launches by route
@@ -1466,14 +1594,10 @@ def phase_brick(cfg, batch, b_caps, card):
     readings for the kernels line."""
     from doda_tpu_torch.models import model_fn
     from doda_tpu_torch.models.unet import build_level_plan, flatten_plan
-    from doda_tpu_torch.ops import bricks2d
-    from doda_tpu_torch.ops.banded_conv import (banded_conv,
+    from doda_tpu_torch.ops.banded_conv import (banded_conv_f32,
                                                 banded_conv_fused,
-                                                banded_conv_fused_plain,
-                                                banded_conv_plain)
-    from doda_tpu_torch.ops.banded_conv_sm import (banded_conv_sm,
-                                                   banded_conv_sm_plain,
-                                                   banded_conv_sm_taps,
+                                                banded_conv_fused_plain)
+    from doda_tpu_torch.ops.banded_conv_sm import (banded_conv_sm_taps,
                                                    banded_conv_sm_taps_plain)
     from doda_tpu_torch.utils import optim, synth
     t_phase = time.perf_counter()
@@ -1537,48 +1661,46 @@ def phase_brick(cfg, batch, b_caps, card):
           * lv2[0].occ[..., None]).reshape(-1, 24).to(bf)
     w = (torch.randn(27, 3, 16, device='cuda', generator=g) / 9).to(bf)
     check_fused(worst, 'L0/3x16', x2, lv2[0].nbr, w, narrow=True)
-    x2 = (torch.randn(lv2[0].nbr.shape[0], 8, 16, device='cuda', generator=g)
-          * lv2[0].occ[..., None]).reshape(-1, 128)
-    w = torch.randn(27, 16, 16, device='cuda', generator=g) / 432 ** 0.5
-    rows6 = bricks2d._assemble_p6(x2, lv2[0].halo, f32)
-    wb = bricks2d.banded_weights(w, 2)
-    got = banded_conv(rows6, wb, f32)
-    torch.cuda.synchronize()
-    _, rel, bound = CHECKS[0]
-    worst['K1a/L0/16x16/float32'] = _close(
-        got, banded_conv_plain(rows6, wb, f32), rel, bound,
-        'side-2 first-version K1 float32')
-    del x2, w, rows6, wb, got
+    # K1's float32 kernel at side 2 on every level's side-2 rulebook
+    for lvl, cin, cout in F32_K1_SHAPES:
+        lv = lv2[lvl]
+        rows = lv.nbr.shape[0]
+        x2 = (torch.randn(rows, 8, cin, device='cuda', generator=g)
+              * lv.occ[..., None]).reshape(rows, -1)
+        w = torch.randn(27, cin, cout, device='cuda', generator=g) \
+            / (27 * cin) ** 0.5
+        got = check_f32(worst, f'K1f32/L{lvl}/{cin}x{cout}',
+                        lambda dt: banded_conv_f32(x2, lv.nbr, w, dt),
+                        lambda dt: banded_conv_fused_plain(x2, lv.nbr, w,
+                                                           dt))
+        assert got.shape == (rows, 8 * cout)
+    del x2, w, got
     torch.cuda.empty_cache()
 
-    # K2 at side 2 against its plain versions: the second version on bf16
-    # operands to float32 and bf16, the first on float32 operands
+    # K2 at side 2 against its plain version: bf16 operands to float32 and
+    # bf16, float32 operands (its float32 kernel) to float32 and bf16
     for lvl, cin, cout in BRICK_K2_SHAPES:
         for op_dt in (bf, f32):
             ops, w = _sm_operands(lv2[lvl], cin, cout, 2, g, op_dt)
             if op_dt == bf:
-                runs = [(f'K2/L{lvl}/{cin}x{cout}/{str(dt)[6:]}', dt,
-                         bound, lambda dt=dt: banded_conv_sm_taps(
-                             *ops, w, dt), lambda dt=dt:
-                         banded_conv_sm_taps_plain(*ops, w, dt))
-                        for dt, bound in K2_SIDE2_CHECKS]
+                for dt, bound in K2_SIDE2_CHECKS:
+                    got = banded_conv_sm_taps(*ops, w, dt)
+                    torch.cuda.synchronize()
+                    key = f'K2/L{lvl}/{cin}x{cout}/{str(dt)[6:]}'
+                    worst[key] = _close(
+                        got, banded_conv_sm_taps_plain(*ops, w, dt), True,
+                        bound, f'side-2 {key}')
             else:
-                wts = bricks2d.sm_weights(w, 2)
-                runs = [(f'K2first/L{lvl}/{cin}x{cout}/float32', f32,
-                         K2_SIDE2_CHECKS[0][1],
-                         lambda: banded_conv_sm(*ops, *wts, f32),
-                         lambda: banded_conv_sm_plain(*ops, *wts, f32))]
-            for key, dt, bound, kernel, plain in runs:
-                got = kernel()
-                torch.cuda.synchronize()
-                assert got.shape == (lv2[lvl].occ.shape[0], 8 * cout)
-                worst[key] = _close(got, plain(), True, bound,
-                                    f'side-2 {key}')
+                got = check_f32(
+                    worst, f'K2f32/L{lvl}/{cin}x{cout}',
+                    lambda dt: banded_conv_sm_taps(*ops, w, dt),
+                    lambda dt: banded_conv_sm_taps_plain(*ops, w, dt))
+            assert got.shape == (lv2[lvl].occ.shape[0], 8 * cout)
             del ops, w, got
     torch.cuda.empty_cache()
 
     # the kernels timed at side 2 beside side 4, in this call
-    timing = {'fused': [], 'narrow': [], 'first': []}
+    timing = {'fused': [], 'narrow': [], 'f32': []}
     for lvl in range(7):
         p = 16 * (lvl + 1)
         for s, lv in ((4, lv4), (2, lv2)):
@@ -1589,11 +1711,10 @@ def phase_brick(cfg, batch, b_caps, card):
     for s, lv in ((4, lv4), (2, lv2)):
         timing['narrow'].append(_side_timings(lv[0], 3, 16, s, g,
                                               plain=True, library=True))
-        timing['first'].append(_first_timings(lv[0], s, g, plain=s == 2,
-                                              library=True))
+        timing['f32'].append(_f32_timings(lv[0], s, g))
         torch.cuda.empty_cache()
-    # K2: the second version at every level, the first at level 0 (float32)
-    timing['sm'], timing['sm_first'] = [], []
+    # K2: bf16 at every level, float32 at level 0
+    timing['sm'], timing['sm_f32'] = [], []
     for lvl in range(7):
         p = 16 * (lvl + 1)
         for s, lv in ((4, lv4), (2, lv2)):
@@ -1601,7 +1722,7 @@ def phase_brick(cfg, batch, b_caps, card):
                 lv[lvl], p, p, s, g, plain=lvl == 0)))
         torch.cuda.empty_cache()
     for s, lv in ((4, lv4), (2, lv2)):
-        timing['sm_first'].append(_sm_first_timings(lv[0], s, g))
+        timing['sm_f32'].append(_sm_f32_timings(lv[0], s, g))
         torch.cuda.empty_cache()
     del levels, lv2, lv4
     torch.cuda.empty_cache()
@@ -1639,7 +1760,8 @@ def phase_brick(cfg, batch, b_caps, card):
         preds[s] = out['preds']
         steps[s] = step
     assert launched['eval_bf16_side2'] == {
-        'sm': 0, 'fused': 52, 'narrow': 1, 'assembled': 0, 'prologue': 0}
+        'sm': 0, 'fused': 52, 'narrow': 1, 'f32': 0, 'assembled': 0,
+        'prologue': 0}
     agree = (preds[2] == preds[4])[valid].float().mean().item()
     assert agree >= 0.99, f'bf16 preds side 2 vs 4 agree on {agree}'
     seconds = {4: [], 2: []}                        # in turns: 4, 2, 2, 4
@@ -1664,7 +1786,8 @@ def phase_brick(cfg, batch, b_caps, card):
     step(batch)
     out = counted('eval_bf16_fuse_norm_side2', model, lambda: step(batch))
     assert launched['eval_bf16_fuse_norm_side2'] == {
-        'sm': 0, 'fused': 0, 'narrow': 1, 'assembled': 0, 'prologue': 52}
+        'sm': 0, 'fused': 0, 'narrow': 1, 'f32': 0, 'assembled': 0,
+        'prologue': 52}
     agree_fuse = (out['preds'] == preds[2])[valid].float().mean().item()
     assert agree_fuse >= 0.99, f'side-2 fuse_norm preds agree {agree_fuse}'
     del model, step, out
@@ -1674,7 +1797,8 @@ def phase_brick(cfg, batch, b_caps, card):
     step(batch)
     out = counted('eval_bf16_side2_sm32', model, lambda: step(batch))
     assert launched['eval_bf16_side2_sm32'] == {
-        'sm': 15, 'fused': 37, 'narrow': 1, 'assembled': 0, 'prologue': 0}
+        'sm': 15, 'fused': 37, 'narrow': 1, 'f32': 0, 'assembled': 0,
+        'prologue': 0}
     agree_sm = (out['preds'] == preds[2])[valid].float().mean().item()
     assert agree_sm >= 0.99, f'side-2 sm_max_cin=32 preds agree {agree_sm}'
     del model, step, out, preds
@@ -1713,7 +1837,8 @@ def phase_brick(cfg, batch, b_caps, card):
     def rule(model, n):
         fwd, bwd = model.subm_routes(), model.subm_routes(backward=True)
         return {k: n * (fwd.get(k, 0) + bwd.get(k, 0))
-                for k in ('sm', 'fused', 'narrow', 'assembled', 'prologue')}
+                for k in ('sm', 'fused', 'narrow', 'f32', 'assembled',
+                          'prologue')}
 
     first = {}
     for s in (4, 2):
@@ -1725,8 +1850,9 @@ def phase_brick(cfg, batch, b_caps, card):
                            for n, p in model.named_parameters()})
         del model, step
         torch.cuda.empty_cache()
-    assert launched['train_f32_side2']['assembled'] == 105
-    # K2 at side 2: the float32 step with sm_max_cin=32 (its first version)
+    assert launched['train_f32_side2']['f32'] == 105
+    assert launched['eval_f32_side2']['f32'] == 53
+    # K2 at side 2: the float32 step with sm_max_cin=32 (its float32 kernel)
     model, step = trainer(f32, 2, SM_MAX_CIN)
     loss = float(counted('train_f32_side2_sm32', model,
                          lambda: step(tbatch, lr), rule(model, 1))['loss'])
@@ -1771,7 +1897,7 @@ def phase_brick(cfg, batch, b_caps, card):
         torch.cuda.empty_cache()
     model_r['train'] = {'batch': synth.TRAIN_BATCH, 'lr': lr, **train}
     timing['sm_err'] = {'taps': worst['K2/L0/16x16/bfloat16'],
-                        'first': worst['K2first/L0/16x16/float32']}
+                        'f32': worst['K2f32/L0/16x16/float32']}
     log('brick', card=card, plan=plan, kernel_max_abs_err=worst,
         kernel_timing=timing, **model_r, launches=launched,
         phase_seconds=time.perf_counter() - t_phase)
@@ -1810,7 +1936,8 @@ def _remat_run(cfg, sd, remat, step_of, steps, fuse_norm=False):
     step, terms = step_of(model, opt)
     fwd, bwd = model.subm_routes(), model.subm_routes(True)
     rule = {k: terms * (fwd.get(k, 0) + bwd.get(k, 0))
-            for k in ('fused', 'prologue', 'narrow', 'assembled', 'sm')}
+            for k in ('fused', 'prologue', 'narrow', 'f32', 'assembled',
+                      'sm')}
     _cli_reset()
     torch.cuda.reset_peak_memory_stats()
     with deterministic():
@@ -2078,28 +2205,31 @@ DEVICE_AUG = ['DATA_CONFIG.DATA_AUG.device', 'True',
 
 
 def _cli_launches():
-    """The launch counters of every kernel, by route."""
+    """The launch counters of every kernel, by route: 'sm' counts K2 in
+    both dtypes, 'f32' K1 in float32."""
     from doda_tpu_torch.ops.banded_conv import (banded_conv,
+                                                banded_conv_f32,
                                                 banded_conv_fused,
                                                 banded_conv_narrow)
-    from doda_tpu_torch.ops.banded_conv_sm import (banded_conv_sm,
-                                                   banded_conv_sm_taps)
-    return {'sm': banded_conv_sm_taps.launches + banded_conv_sm.launches,
+    from doda_tpu_torch.ops.banded_conv_sm import banded_conv_sm_taps
+    return {'sm': banded_conv_sm_taps.launches
+            + banded_conv_sm_taps.f32_launches,
             'fused': banded_conv_fused.launches,
             'narrow': banded_conv_narrow.launches,
+            'f32': banded_conv_f32.launches,
             'assembled': banded_conv.launches}
 
 
 def _cli_reset():
     """Every kernel's launch counters to 0."""
     from doda_tpu_torch.ops.banded_conv import (banded_conv,
+                                                banded_conv_f32,
                                                 banded_conv_fused,
                                                 banded_conv_narrow)
-    from doda_tpu_torch.ops.banded_conv_sm import (banded_conv_sm,
-                                                   banded_conv_sm_taps)
+    from doda_tpu_torch.ops.banded_conv_sm import banded_conv_sm_taps
     banded_conv.launches = banded_conv_fused.launches = 0
-    banded_conv_narrow.launches = 0
-    banded_conv_sm.launches = banded_conv_sm_taps.launches = 0
+    banded_conv_narrow.launches = banded_conv_f32.launches = 0
+    banded_conv_sm_taps.launches = banded_conv_sm_taps.f32_launches = 0
     banded_conv_fused.pro_launches = 0
 
 
@@ -2136,7 +2266,8 @@ def cli_rooms(tmp):
     flagship = model_fn.build_model(
         cfg_from_yaml_file(CFG_DA, CfgNode()), device='cpu')
     fwd, bwd = flagship.subm_routes(), flagship.subm_routes(True)
-    assert fwd == {'sm': 0, 'fused': 52, 'narrow': 1, 'assembled': 0}, fwd
+    assert fwd == {'sm': 0, 'fused': 52, 'narrow': 1, 'f32': 0,
+                   'assembled': 0}, fwd
     return {
         'tmp': tmp,
         'roots': ['DATA_CONFIG.DATA_ROOT', str(tmp / '3dfront/density1250'),
@@ -2849,17 +2980,13 @@ def time_narrow(nbr, halo, occ, g):
 
 
 def time_k2(b, cin, cout, g):
-    """K2 in both versions at (B, cin, cout) on random operands laid out as
-    the path lays them (x contiguous, gyz/gxm/gxp column slices of one
-    gathered buffer): the second version at bf16, its plain version and
-    bound; the first at float32, its main-path dtype (the float32 'sm'
-    convs), its plain version and bound (float32 on the CUDA cores). Every
-    cell is present, so every tap is needed
-    (``doda_tpu_torch/utils/roofline.py``)."""
-    from doda_tpu_torch.ops import bricks2d
-    from doda_tpu_torch.ops.banded_conv_sm import (banded_conv_sm,
-                                                   banded_conv_sm_plain,
-                                                   banded_conv_sm_taps,
+    """K2 at (B, cin, cout) on random operands laid out as the path lays
+    them (x contiguous, gyz/gxm/gxp column slices of one gathered buffer):
+    bf16 (``sm_taps_tc``), its plain version and bound; float32
+    (``sm_taps_f32``, the float32 'sm' convs), its plain version and
+    bound (float32 on the CUDA cores). Every cell is present, so every tap
+    is needed (``doda_tpu_torch/utils/roofline.py``)."""
+    from doda_tpu_torch.ops.banded_conv_sm import (banded_conv_sm_taps,
                                                    banded_conv_sm_taps_plain,
                                                    sm_taps_smem_bytes)
     from doda_tpu_torch.utils import roofline
@@ -2883,33 +3010,33 @@ def time_k2(b, cin, cout, g):
             **roofline.sm_taps_work(b, cin, cout),
             'dynamic_smem_bytes': sm_taps_smem_bytes(cin)}
     del opsb, bufb
-    wts = bricks2d.sm_weights(w)
-    sm_weights_ms = cuda_ms(lambda: bricks2d.sm_weights(w), 10)
-    got = banded_conv_sm(*ops, *wts, f32)
-    ref = banded_conv_sm_plain(*ops, *wts, f32)
-    first_err = _close(got, ref, False, CHECKS[0][2],
-                       f'banded_conv_sm float32 at {b}x{cin}')
+    got = banded_conv_sm_taps(*ops, w, f32)
+    ref = banded_conv_sm_taps_plain(*ops, w, f32)
+    f32_err = _close(got, ref, True, F32_CHECKS[0][1],
+                     f'banded_conv_sm_taps float32 at {b}x{cin}')
     del got, ref
-    work = roofline.sm_first_work(b, cin, cout, 4)
-    first = {'dtype': 'float32',
-             'ms': cuda_ms(lambda: banded_conv_sm(*ops, *wts, f32), 10),
-             'plain_ms': cuda_ms(
-                 lambda: banded_conv_sm_plain(*ops, *wts, f32), 3),
-             'max_abs_err': first_err, 'bound_ms': work['bound_ms'],
-             'bound_by': work['bound_by'],
-             'executed_flops': work['executed_flops'],
-             'sm_weights_ms': sm_weights_ms}
-    return {'shape': [b, cin, cout], 'taps': taps, 'first': first}
+    work = roofline.sm_taps_work(b, cin, cout, 4, f32)
+    f32_taps = {'dtype': 'float32',
+                'ms': cuda_ms(lambda: banded_conv_sm_taps(*ops, w, f32), 20),
+                'plain_ms': cuda_ms(
+                    lambda: banded_conv_sm_taps_plain(*ops, w, f32), 3),
+                'max_abs_err': f32_err, 'bound_ms': work['bound_ms'],
+                'bound_by': work['bound_by'], 'flops': work['flops'],
+                'bytes': work['bytes'],
+                'dynamic_smem_bytes': sm_taps_smem_bytes(cin, 4, f32)}
+    return {'shape': [b, cin, cout], 'taps': taps, 'f32': f32_taps}
 
 
-def phase_timing(levels, launches, fuse_launches, library, engine_launches):
-    """Each kernel at the level-0 bench shape, bf16, and at the level-1
-    shape. ``launches`` maps a route to its (eval forward, train steps)
-    counts, and 'sm_f32' to K2's first version's launches in the float32
-    train step; ``fuse_launches`` and ``engine_launches`` the launches by
-    route of each counted run of phases fuse_norm and engines; ``library``
-    phase engines' ``F.conv3d`` readings over the oracle's halo, the
-    library call of the subm conv that K1 and K2 compute."""
+def phase_timing(levels, launches, fuse_launches, library, engine_launches,
+                 f32_runs):
+    """Each kernel at the level-0 bench shape, and at the level-1 shape:
+    the bf16 ones and the float32 ones. ``launches`` maps a route to its
+    (eval forward, train steps) counts; ``fuse_launches`` and
+    ``engine_launches`` the launches by route of each counted run of
+    phases fuse_norm and engines; ``f32_runs`` the launches by route of
+    every counted float32 run at side 4 (the float32 kernels' rows);
+    ``library`` phase engines' ``F.conv3d`` readings over the oracle's
+    halo, the library call of the subm conv that K1 and K2 compute."""
     from doda_tpu_torch.ops import _build
     from doda_tpu_torch.utils import synth
     b, cin, cout = synth.BATCH * synth.BRICK_CAP, 16, 16
@@ -2987,9 +3114,7 @@ def phase_timing(levels, launches, fuse_launches, library, engine_launches):
                    'assembled_bound_ms': l1['assembled']['bound_ms'],
                    'library_ms': l1['assembled']['library_ms']}})
 
-    # K2: one row, both versions. The row's own numbers are the second
-    # version's, which runs every bf16 'sm' conv; the first version's, which
-    # runs the float32 ones, stand under 'first_version'
+    # K2: the bf16 kernel's row (its float32 kernel has a row of its own)
     k0 = time_k2(b, 16, 16, g)
     k1 = time_k2(levels[1].nbr.shape[0], 32, 32, g)
     for name, t in (('level 0', k0), ('level 1', k1)):
@@ -3011,18 +3136,11 @@ def phase_timing(levels, launches, fuse_launches, library, engine_launches):
         'library': lib,
         'executed_flops': t0['executed_flops'],
         'dynamic_smem_bytes': t0['dynamic_smem_bytes'],
-        **_build.resources('banded_conv_sm_taps'),
-        'first_version': {**k0['first'],
-                          'source': 'doda_tpu_torch/csrc/banded_conv_sm.cu',
-                          'launches_f32_train_step': launches['sm_f32'],
-                          **_build.resources('banded_conv_sm')},
+        **_build.resources('banded_conv_sm_taps', 'sm_taps_tc'),
         'level1': {'shape': k1['shape'], 'ms': k1['taps']['ms'],
                    'bound_ms': k1['taps']['bound_ms'],
                    'bound_by': k1['taps']['bound_by'],
-                   'plain_ms': k1['taps']['plain_ms'],
-                   'first_version_float32_ms': k1['first']['ms'],
-                   'first_version_float32_bound_ms':
-                       k1['first']['bound_ms']}})
+                   'plain_ms': k1['taps']['plain_ms']}})
 
     # K1's narrow-input version: a row of its own (its own source), and
     # its readings beside the fused version's in K1's row
@@ -3049,6 +3167,55 @@ def phase_timing(levels, launches, fuse_launches, library, engine_launches):
     rows[0]['narrow'] = {k: n0[k] for k in (
         'shape', 'ms', 'bound_ms', 'bound_by', 'plain_ms', 'padded_fused_ms',
         'library_ms', 'first_version_ms', 'first_version_with_gather_ms')}
+
+    # K1 in float32 (csrc/subm_conv_f32.cu): every float32 conv that K2
+    # does not take, forward and dx, beside its float32 bound, its plain
+    # version, float32 conv3d over the oracle's halo and the bf16 fused K1
+    # of the same call
+    f0 = _f32_timings(levels[0], 4, g)
+    f1 = _f32_timings(levels[1], 4, g, 32, 32)
+    for name, t in (('level 0', f0), ('level 1', f1)):
+        log('timing', kernel='banded_conv_f32', at=name, **t)
+    by_run = {run: n['f32'] for run, n in f32_runs.items() if n['f32']}
+    f32_lib = ("torch.nn.functional.conv3d in float32 (TF32 off) over the "
+               "shell-gather oracle's (rows, 6, 6, 6, cin) float32 halo, "
+               'channels-last (assembly not timed)')
+    rows.append({
+        'name': 'banded_conv_f32', 'route': 'cuda',
+        'source': 'doda_tpu_torch/csrc/subm_conv_f32.cu',
+        'replaces': 'doda_tpu/ops/pallas_banded.py:71 on float32 operands '
+                    '(with doda_tpu/ops/bricks2d.py::_assemble_p6)',
+        'launches': sum(by_run.values()), 'launches_by_run': by_run,
+        **{k: f0[k] for k in ('max_abs_err', 'ms', 'plain_ms', 'bound_ms',
+                              'bound_by', 'library_ms', 'dtype', 'shape',
+                              'flops', 'bytes', 'x_bound', 'fused_bf16_ms',
+                              'dynamic_smem_bytes')},
+        'library': f32_lib, **_build.resources('subm_conv_f32'),
+        'level1': {k: f1[k] for k in ('shape', 'ms', 'plain_ms', 'bound_ms',
+                                      'bound_by', 'library_ms',
+                                      'fused_bf16_ms')}})
+    # K2 in float32 (sm_taps_f32): the float32 'sm' convs
+    s0 = k0['f32']
+    by_run = {run: n['sm'] for run, n in f32_runs.items() if n['sm']}
+    log('timing', kernel='banded_conv_sm_taps float32', at='level 0', **s0)
+    rows.append({
+        'name': 'banded_conv_sm_taps float32', 'route': 'cuda',
+        'source': 'doda_tpu_torch/csrc/banded_conv_sm_taps.cu (sm_taps_f32)',
+        'replaces': 'doda_tpu/ops/pallas_sm.py:83 on float32 operands',
+        'launches': sum(by_run.values()), 'launches_by_run': by_run,
+        **{k: s0[k] for k in ('max_abs_err', 'ms', 'plain_ms', 'bound_ms',
+                              'bound_by', 'dtype', 'flops', 'bytes',
+                              'dynamic_smem_bytes')},
+        'shape': k0['shape'],
+        # the same subm conv at the same shape in float32: K1 float32's
+        # conv3d reading over the oracle's halo (level 0, 16 -> 16), and
+        # the bf16 fused K1 of that reading
+        'library_ms': f0['library_ms'], 'library': f32_lib,
+        'fused_bf16_ms': f0['fused_bf16_ms'],
+        **_build.resources('banded_conv_sm_taps', 'sm_taps_f32'),
+        'level1': {'shape': k1['shape'], 'ms': k1['f32']['ms'],
+                   'bound_ms': k1['f32']['bound_ms'],
+                   'plain_ms': k1['f32']['plain_ms']}})
     return rows
 
 
@@ -3056,12 +3223,16 @@ def add_brick_phase(rows, launched, timing):
     """Phase brick's launches (``launches_brick_phase``, by run) into the
     kernel rows, and its readings at side 2 beside side 4's: the fused K1
     (every level; level 0 with its plain version and ``conv3d``), its
-    prologue variant, the first version (float32) and the narrow K1. K2 at
-    side 2 gets two rows of its own, appended: its second version (bf16,
-    every level, beside the side-2 fused K1 and K2 at side 4 of the same
-    call) and its first version (float32). Their library call is cuDNN
-    ``conv3d`` over the oracle's side-2 halo at the same shape, from the
-    K1 readings of the phase (bf16, and float32 for the first version)."""
+    prologue variant and the narrow K1. Three rows of their own at side 2
+    are appended: K2 in bf16 (every level, beside the side-2 fused K1 and
+    K2 at side 4 of the same call), K1 in float32 and K2 in float32 (level
+    0, beside side 4). Their library call is cuDNN ``conv3d`` over the
+    oracle's side-2 halo at the same shape, from the K1 readings of the
+    phase (bf16, and float32 for the float32 kernels). The float32 runs at
+    side 4 count in the side-4 float32 rows (``f32_runs`` of
+    ``phase_timing``)."""
+    from doda_tpu_torch.ops import _build
+
     def total(route, runs=None):
         return sum(n[route] for run, n in launched.items()
                    if runs is None or run in runs)
@@ -3075,18 +3246,17 @@ def add_brick_phase(rows, launched, timing):
         two['side2_over_side4'] = two['ms'] / four['ms']
         return two
 
-    k1, k2, narrow = rows
+    k1, k2, narrow = rows[:3]
     fused_l0 = pair(timing['fused'], 0)
     pro = fused_l0.pop('prologue')
     pro4 = next(r for r in timing['fused']
                 if r['side'] == 4 and r['level'] == 0)['prologue']
-    first = pair(timing['first'])
     for row, n, reading in (
             (k1, total('fused') + total('prologue'), fused_l0),
             (k1['prologue'], total('prologue'),
              {**pro, 'side4_ms': pro4['ms'],
               'side2_over_side4': pro['ms'] / pro4['ms']}),
-            (k1['assembled'], total('assembled'), first),
+            (k1['assembled'], total('assembled'), None),
             (k2, 0, None),
             (narrow, total('narrow'), pair(timing['narrow']))):
         row['launches_brick_phase'] = n
@@ -3097,12 +3267,9 @@ def add_brick_phase(rows, launched, timing):
     k1['brick2']['levels'] = [
         {k: v for k, v in pair(timing['fused'], lvl).items()
          if k != 'prologue'} for lvl in range(7)]
-    # K2's first version at side 4 has its float32 conv3d from here too
-    k2['first_version']['library_ms'] = next(
-        r for r in timing['first'] if r['side'] == 4)['library_ms']
 
-    # K2 at side 2: the bf16 runs launch the second version, the float32
-    # runs the first
+    # K2 at side 2: the bf16 runs launch sm_taps_tc, the float32 step
+    # sm_taps_f32 (the row after next)
     sm_runs = [run for run, n in launched.items() if n['sm']]
     taps_runs = [run for run in sm_runs if 'bf16' in run]
     fused2 = {r['level']: r for r in timing['fused'] if r['side'] == 2}
@@ -3130,27 +3297,47 @@ def add_brick_phase(rows, launched, timing):
         'shape': l0['shape'], 'side4_ms': l0['side4_ms'],
         'fused_k1_side2_ms': l0['fused_k1_side2_ms'],
         'dynamic_smem_bytes': l0['dynamic_smem_bytes'],
+        **_build.resources('banded_conv_sm_taps', 'sm_taps_tc'),
         'levels': sm_levels})
-    f2 = pair(timing['sm_first'])
-    k1_first2 = next(r for r in timing['first'] if r['side'] == 2)
-    f32_runs = [run for run in sm_runs if 'f32' in run]
+    # the float32 kernels at side 2: every float32 run at side 2 launches
+    # K1's, the sm_max_cin=32 step K2's
+    f32_runs = [run for run in launched if 'f32' in run and 'side2' in run]
+    k1f2, k2f2 = pair(timing['f32']), pair(timing['sm_f32'])
+    f32_lib = ("torch.nn.functional.conv3d in float32 (TF32 off) over the "
+               "shell-gather oracle's assembled side-2 (rows, 4, 4, 4, cin) "
+               'float32 halo, channels-last (phase brick)')
     rows.append({
-        'name': 'banded_conv_sm first version at side 2', 'route': 'cuda',
-        'source': 'doda_tpu_torch/csrc/banded_conv_sm.cu (S = 2)',
-        'replaces': 'doda_tpu/ops/pallas_sm.py:83 under DODA_BRICK=2 '
-                    '(float32 operands)',
-        'launches': total('sm', f32_runs),
-        'launches_by_run': {run: launched[run]['sm'] for run in f32_runs},
-        'max_abs_err': err['first'], 'ms': f2['ms'],
-        'plain_ms': f2['plain_ms'], 'bound_ms': f2['bound_ms'],
-        'bound_by': f2['bound_by'],
-        'library_ms': k1_first2['library_ms'],
-        'library': "torch.nn.functional.conv3d over the shell-gather "
-                   "oracle's assembled side-2 float32 halo (phase brick)",
-        'dtype': 'float32', 'shape': f2['shape'],
-        'side4_ms': f2['side4_ms'], 'side4_bound_ms': f2['side4_bound_ms'],
-        'executed_flops': f2['executed_flops']})
-    assert len(taps_runs) == 2 and len(f32_runs) == 1, sm_runs
+        'name': 'banded_conv_f32 at side 2', 'route': 'cuda',
+        'source': 'doda_tpu_torch/csrc/subm_conv_f32.cu (S = 2)',
+        'replaces': 'doda_tpu/ops/pallas_banded.py:71 on float32 operands '
+                    'under DODA_BRICK=2',
+        'launches': total('f32', f32_runs),
+        'launches_by_run': {run: launched[run]['f32'] for run in f32_runs},
+        **{k: k1f2[k] for k in ('max_abs_err', 'ms', 'plain_ms', 'bound_ms',
+                                'bound_by', 'library_ms', 'dtype', 'shape',
+                                'side4_ms', 'side4_bound_ms',
+                                'side2_over_side4', 'fused_bf16_ms',
+                                'dynamic_smem_bytes')},
+        'library': f32_lib, **_build.resources('subm_conv_f32')})
+    sm_f32_runs = [run for run in f32_runs if launched[run]['sm']]
+    rows.append({
+        'name': 'banded_conv_sm_taps float32 at side 2', 'route': 'cuda',
+        'source': 'doda_tpu_torch/csrc/banded_conv_sm_taps.cu '
+                  '(sm_taps_f32, S = 2)',
+        'replaces': 'doda_tpu/ops/pallas_sm.py:83 on float32 operands '
+                    'under DODA_BRICK=2',
+        'launches': total('sm', sm_f32_runs),
+        'launches_by_run': {run: launched[run]['sm'] for run in sm_f32_runs},
+        'max_abs_err': err['f32'],
+        **{k: k2f2[k] for k in ('ms', 'plain_ms', 'bound_ms', 'bound_by',
+                                'dtype', 'shape', 'side4_ms',
+                                'side4_bound_ms', 'side2_over_side4',
+                                'dynamic_smem_bytes')},
+        'library_ms': k1f2['library_ms'], 'library': f32_lib,
+        'fused_bf16_ms': k1f2['fused_bf16_ms'],
+        **_build.resources('banded_conv_sm_taps', 'sm_taps_f32')})
+    assert len(taps_runs) == 2 and sm_f32_runs == ['train_f32_side2_sm32'], (
+        sm_runs, f32_runs)
 
 
 def main():
@@ -3175,8 +3362,8 @@ def main():
     levels = phase_plan(batch, b_caps)
     phase_kernels(levels)
 
-    fwd = phase_forward(cfg, batch, b_caps, card)
-    train, f32_sm = phase_train(cfg, b_caps, card)
+    fwd, fwd32 = phase_forward(cfg, batch, b_caps, card)
+    train, train32 = phase_train(cfg, b_caps, card)
     fuse_launches = phase_fuse_norm(cfg, batch, b_caps, card)
     library, engine_launches = phase_engines(cfg, batch, b_caps, card,
                                              levels)
@@ -3193,16 +3380,28 @@ def main():
         cli.update(phase_ddp(card, ctx, cfg, b_caps))
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    rows = phase_timing(levels, {**{k: (fwd[k], train[k]) for k in fwd},
-                                 'sm_f32': f32_sm}, fuse_launches, library,
-                        engine_launches)
+    # every counted float32 run at side 4 launches the float32 kernels:
+    # their rows' launches
+    f32_runs = {'eval_f32_forward': fwd32,
+                'train_f32_sm_max_cin_32': train32,
+                **{f'fuse_norm_{k}': v for k, v in fuse_launches.items()
+                   if 'f32' in k},
+                **{f'engines_{k}': v for k, v in engine_launches.items()
+                   if 'f32' in k},
+                **{f'brick_{k}': v for k, v in brick_launches.items()
+                   if 'f32' in k and 'side4' in k}}
+    rows = phase_timing(levels, {k: (fwd[k], train[k]) for k in fwd},
+                        fuse_launches, library, engine_launches, f32_runs)
     # each CLI run's launches, counted in the cli phases, join each
-    # kernel's
+    # kernel's (the CLIs run bf16 at sm_max_cin=0: no float32 kernel, no
+    # 'assembled' and no 'sm' conv)
     for row, route in ((rows[0], 'fused'), (rows[0]['assembled'],
                                             'assembled'), (rows[1], 'sm'),
-                       (rows[2], 'narrow')):
+                       (rows[2], 'narrow'), (rows[3], 'f32'),
+                       (rows[4], 'sm')):
         row['launches_cli'] = {run: n[route] for run, n in cli.items()}
         row['launches'] += sum(row['launches_cli'].values())
+    assert not any(n['f32'] or n['sm'] for n in cli.values()), cli
     # phase remat's steps (the replays included) join K1's rows
     k1 = rows[0]
     k1['launches_remat_phase'] = (remat_launches['fused']
@@ -3216,12 +3415,14 @@ def main():
     # phase brick's runs at sides 4 and 2 join each kernel's row, with the
     # side-2 readings beside the side-4 ones of the same call
     add_brick_phase(rows, brick_launches, brick_timing)
-    assert remat_launches['sm'] == 0, remat_launches
+    assert remat_launches['sm'] == remat_launches['f32'] == 0, remat_launches
     for r in rows:       # every kernel of the paths really ran on them
         assert r['launches'] > 0, r['name']
-    assert rows[0]['assembled']['launches'] > 0
     assert rows[0]['prologue']['launches'] > 0
-    assert rows[1]['first_version']['launches_f32_train_step'] > 0
+    # no conv of the flagship takes the assembled route since float32 took
+    # banded_conv_f32: the assembled K1 (bf16 only) is checked in phase
+    # kernels and launched on no path
+    assert rows[0]['assembled']['launches'] == 0, rows[0]['assembled']
     log('run', card=card, seconds=time.perf_counter() - start)
     print(json.dumps({'kernels': rows}), flush=True)
     print(json.dumps({'ok': True, 'device': {

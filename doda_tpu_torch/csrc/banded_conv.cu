@@ -24,15 +24,17 @@
 // bytes and this kernel, which computes the full band, is bound by tensor-core
 // throughput first. bf16 operands go through WMMA 16x16x16 tensor-core tiles
 // with the next K tile prefetched into registers while the current one is
-// multiplied; float32 operands take an exact CUDA-core path (the tests and
-// the float32 checks of the model need full float32).
+// multiplied. It takes bf16 operands only: its float32 CUDA-core path was
+// deleted once float32 convs took subm_conv_f32.cu, from the activation and
+// the rulebook.
 //
-// This is K1's first version. It stays for the cin = 3 input conv, float32
-// operands and the contract test against the Pallas kernel. Every other
-// conv runs the second version, banded_conv_fused.cu, which assembles the
-// halo inside the kernel from the activation and the rulebook and
-// multiplies the taps only, so neither the planes nor the placed zeros of
-// wb exist there.
+// This is K1's first version. It stays for bf16 convs of widths that the
+// fused and narrow versions refuse (cin or cout not a multiple of 8 with
+// cin > 7) and the contract test against the Pallas kernel. Every other
+// bf16 conv runs the second version, banded_conv_fused.cu, or the narrow
+// one, subm_conv_narrow.cu, which assemble the halo inside the kernel from
+// the activation and the rulebook and multiply the taps only, so neither
+// the planes nor the placed zeros of wb exist there.
 //
 // The brick side S (the JAX package's DODA_BRICK) is a template parameter
 // of the row map, instantiated for 4 (above) and 2: rows (B, S+2, K) with
@@ -202,70 +204,6 @@ banded_tc(const bf16* __restrict__ rows, const bf16* __restrict__ wb,
   }
 }
 
-// ------------------------------------------------------------- float32 ----
-constexpr int S_BM = 64, S_BN = 64, S_BK = 16, S_THREADS = 256;
-
-template <typename OutT, int S>
-__global__ void __launch_bounds__(S_THREADS)
-banded_f32(const float* __restrict__ rows, const float* __restrict__ wb,
-           OutT* __restrict__ out, int64_t M, int K, int N) {
-  __shared__ float as[S_BK][S_BM + 4];
-  __shared__ float bs[S_BK][S_BN + 4];
-  const int KT = 3 * K;
-  const int n_tiles = (N + S_BN - 1) / S_BN;
-  const int n0 = (int)(blockIdx.x % n_tiles) * S_BN;
-  const int64_t m0 = (int64_t)(blockIdx.x / n_tiles) * S_BM;
-  const int tid = threadIdx.x;
-  const int tx = tid & 15, ty = tid >> 4;   // 4x4 outputs per thread
-
-  int64_t a_base[4];
-  bool a_ok[4];
-#pragma unroll
-  for (int c = 0; c < 4; ++c) {
-    int64_t r = m0 + ((tid + c * S_THREADS) >> 4);
-    a_ok[c] = r < M;
-    a_base[c] = a_ok[c] ? row_base<S>(r, K) : 0;
-  }
-  float acc[4][4] = {};
-  for (int k0 = 0; k0 < KT; k0 += S_BK) {
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      int e = tid + c * S_THREADS;
-      int row = e >> 4, kk = e & 15;
-      as[kk][row] = (a_ok[c] && k0 + kk < KT) ? rows[a_base[c] + k0 + kk]
-                                               : 0.0f;
-      int kr = e >> 6, col = e & 63;
-      bs[kr][col] = (k0 + kr < KT && n0 + col < N)
-                        ? wb[(int64_t)(k0 + kr) * N + n0 + col]
-                        : 0.0f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < S_BK; ++kk) {
-      float a[4], b[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = as[kk][ty * 4 + i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) b[j] = bs[kk][tx * 4 + j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    int64_t gr = m0 + ty * 4 + i;
-    if (gr >= M) continue;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      int gc = n0 + tx * 4 + j;
-      if (gc < N) out[gr * N + gc] = from_float<OutT>(acc[i][j]);
-    }
-  }
-}
-
 template <int BM, int BN>
 int64_t grid_size(int64_t M, int N) {
   return ((M + BM - 1) / BM) * ((N + BN - 1) / BN);
@@ -273,46 +211,34 @@ int64_t grid_size(int64_t M, int N) {
 
 template <int S>
 int launch(const void* rows, const void* wb, void* out, long long B, int K,
-           int N, int in_dtype, int out_dtype, cudaStream_t s) {
+           int N, int out_dtype, cudaStream_t s) {
   const int64_t M = S * (int64_t)B;
-  if (in_dtype == 1) {
-    const int64_t grid = grid_size<TC_BM, TC_BN>(M, N);
-    if (grid > 0x7fffffff) return (int)cudaErrorInvalidConfiguration;
-    const int vec_a = (K % 8 == 0) && (reinterpret_cast<uintptr_t>(rows) % 16 == 0);
-    const bf16* r = static_cast<const bf16*>(rows);
-    const bf16* w = static_cast<const bf16*>(wb);
-    if (out_dtype == 1)
-      banded_tc<bf16, S><<<(unsigned)grid, TC_THREADS, 0, s>>>(
-          r, w, static_cast<bf16*>(out), M, K, N, vec_a);
-    else
-      banded_tc<float, S><<<(unsigned)grid, TC_THREADS, 0, s>>>(
-          r, w, static_cast<float*>(out), M, K, N, vec_a);
-  } else {
-    const int64_t grid = grid_size<S_BM, S_BN>(M, N);
-    if (grid > 0x7fffffff) return (int)cudaErrorInvalidConfiguration;
-    const float* r = static_cast<const float*>(rows);
-    const float* w = static_cast<const float*>(wb);
-    if (out_dtype == 1)
-      banded_f32<bf16, S><<<(unsigned)grid, S_THREADS, 0, s>>>(
-          r, w, static_cast<bf16*>(out), M, K, N);
-    else
-      banded_f32<float, S><<<(unsigned)grid, S_THREADS, 0, s>>>(
-          r, w, static_cast<float*>(out), M, K, N);
-  }
+  const int64_t grid = grid_size<TC_BM, TC_BN>(M, N);
+  if (grid > 0x7fffffff) return (int)cudaErrorInvalidConfiguration;
+  const int vec_a = (K % 8 == 0) && (reinterpret_cast<uintptr_t>(rows) % 16 == 0);
+  const bf16* r = static_cast<const bf16*>(rows);
+  const bf16* w = static_cast<const bf16*>(wb);
+  if (out_dtype == 1)
+    banded_tc<bf16, S><<<(unsigned)grid, TC_THREADS, 0, s>>>(
+        r, w, static_cast<bf16*>(out), M, K, N, vec_a);
+  else
+    banded_tc<float, S><<<(unsigned)grid, TC_THREADS, 0, s>>>(
+        r, w, static_cast<float*>(out), M, K, N, vec_a);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// dtype codes: 0 = float32, 1 = bfloat16; side: the brick side, 2 or 4.
-// Returns cudaGetLastError().
+// dtype codes: 0 = float32, 1 = bfloat16; in_dtype must be 1 (float32
+// operands take subm_conv_f32.cu); side: the brick side, 2 or 4. Returns
+// cudaGetLastError().
 extern "C" int doda_banded_conv(const void* rows, const void* wb, void* out,
                                 long long B, int K, int N, int side,
                                 int in_dtype, int out_dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (B <= 0 || K <= 0 || N <= 0 || N % 8 || (side != 2 && side != 4) ||
-      (in_dtype != 0 && in_dtype != 1) || (out_dtype != 0 && out_dtype != 1))
+      in_dtype != 1 || (out_dtype != 0 && out_dtype != 1))
     return (int)cudaErrorInvalidValue;
-  return side == 4 ? launch<4>(rows, wb, out, B, K, N, in_dtype, out_dtype, s)
-                   : launch<2>(rows, wb, out, B, K, N, in_dtype, out_dtype, s);
+  return side == 4 ? launch<4>(rows, wb, out, B, K, N, out_dtype, s)
+                   : launch<2>(rows, wb, out, B, K, N, out_dtype, s);
 }

@@ -2,11 +2,12 @@
 // non-zero taps only, from raster weights, on brick tiles streamed by TMA.
 //
 // Replaces the TPU kernel doda_tpu/ops/pallas_sm.py::banded_conv_sm. The
-// operands are those of the first version (banded_conv_sm.cu): a brick's
-// own activation x (B, 64*cin) and its halo, gyz (B, 96*cin: per x-slice the
-// 20 in-plane halo cells in bricks2d._H_LIST order, padded to 24) and the
-// x-halo planes gxm / gxp (B, 40*cin: 6x6 rasters padded to 40). With raster
-// weights w (27, cin, cout) bf16 it writes, unmasked, float32-accumulated,
+// operands are those of the first version (banded_conv_sm.cu, deleted): a
+// brick's own activation x (B, 64*cin) and its halo, gyz (B, 96*cin: per
+// x-slice the 20 in-plane halo cells in bricks2d._H_LIST order, padded to
+// 24) and the x-halo planes gxm / gxp (B, 40*cin: 6x6 rasters padded to
+// 40). With raster weights w (27, cin, cout) bf16 it writes, unmasked,
+// float32-accumulated,
 //
 //     out[b, o, :] = sum over taps t of src_b[tap_source(o, t)] @ w[t]
 //
@@ -76,6 +77,31 @@
 // four blocks resident an SM. At side 2 a brick reads 64 halo cells and writes 8: 0.755 GB at B =
 // 327680, cin = cout = 16, 0.225 ms at 3.35 TB/s against 3.6e10 FLOPs
 // (0.037 ms); bytes bound it there too.
+//
+// The float32 kernel, sm_taps_f32 (doda_banded_conv_sm_taps_f32), replaces
+// the same TPU kernel on float32 operands and raster weights w (27, cin,
+// cout) float32, for the float32 'sm' convs; it replaced the first version
+// (banded_conv_sm.cu, deleted), which multiplied the whole band with a
+// 64x64 SGEMM tile. Every product and sum is a float32 FMA on the CUDA
+// cores (TF32 would fail the float32 checks), in a fixed order. What bounds
+// it on an H100: float32 operations, 1.45e11 FLOPs at B = 163840, cin =
+// cout = 16 (2.2 ms at 67 TFLOP/s) against 2.9 GB of float32 halo and
+// output (0.88 ms at 3.35 TB/s). Its design keeps the tiles of 16 bricks,
+// the ring of units, the producer warp and its TMA boxes, the tap table and
+// Layout<S>: a float32 unit of 8 channels is the 32 bytes of a bf16 unit of
+// 16, so a unit is the same 18 KB and a box (cells, 16 bricks, 8 channels).
+// The consumers multiply on the CUDA cores instead: a lane owns one brick
+// (lane % 16) and one group of 8 couts (lane / 16), CW cells x 8 couts of
+// float32 accumulators (64 at side 4, 32 at side 2). For each channel quad
+// and dy it loads its rows' source cells once as float4s and feeds the dz
+// taps of every output cell that reads them; each (tap, channel)'s 8 couts
+// are two float4 loads at one address a half warp. The 32-byte TMA swizzle
+// is kept: a brick's row of a source cell is 32 bytes, so without it the 8
+// bricks of a quarter warp's float4 loads would meet on 4 bank groups; with
+// it they take 8. The weights of a block's 16 couts are float32 rows of 64
+// bytes (27.6 KB at cin = 16, 55 KB at 32) in weight groups by the same
+// rule; the outputs go straight from the registers, 32 bytes of a cell a
+// lane (no staging).
 //
 // Tensor maps come from cuTensorMapEncodeTiled, reached through
 // cudaGetDriverEntryPoint, so the library links the CUDA runtime only.
@@ -564,6 +590,279 @@ __global__ void __launch_bounds__(Geo<S>::THREADS, 1)
   }
 }
 
+// ----------------------------------------------------------------- float32
+// sm_taps_f32, the float32 kernel (see the header): the tiles, units, ring
+// and tap table above, float32 FMAs on the CUDA cores in place of the MMAs.
+constexpr int CKF = 8;                    // float32 channels a unit: 32 bytes
+constexpr int WPITCH_F = NC * 4;          // bytes a float32 weight row: 64
+
+struct ParamsF {
+  CUtensorMap map[4];  // x, gyz, gxm, gxp viewed as (cells, B, cin), float32
+  const float* w;      // (27, cin, cout)
+  void* out;           // (B, S^3*cout)
+  long long rows;
+  long long ntiles;
+  int cin, cout;
+  int nk;              // channel chunks of CKF
+  int gk;              // channel chunks a weight group (nk: one group)
+  int stages;          // units in the ring
+};
+
+// The block's couts of float32 weight group k0 / gk into w_s: rows (tap,
+// channel of the group) of WPITCH_F bytes, 16 couts, zero past cout.
+__device__ __forceinline__ void load_weights_f32(const ParamsF& p,
+                                                 unsigned char* w_s, int n0,
+                                                 int k0, int t0,
+                                                 int nthreads) {
+  const int wc = p.gk * CKF;
+  for (int row = t0; row < 27 * wc; row += nthreads) {
+    const int t = row / wc, ch = k0 * CKF + row % wc;
+    if (ch >= p.cin) continue;
+    const float* g = p.w + ((long long)t * p.cin + ch) * p.cout + n0;
+#pragma unroll
+    for (int u = 0; u < NC / 4; ++u) {
+      float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      if (n0 + u * 4 < p.cout) v = *reinterpret_cast<const float4*>(g + u * 4);
+      *reinterpret_cast<float4*>(w_s + row * WPITCH_F + u * 16) = v;
+    }
+  }
+}
+
+// The byte offsets in a staged unit of the source cells that the y-rows
+// of a consumer warp read, one table a block in shared memory: entry
+// [plane kind][yh][dy][ry][hz] (plane kind 1 an x-plane, 0 a centre plane;
+// dy = 0..2 for -1..1; hz = 0..S+1 for -1..S) is the slot of source cell
+// (Y0 + ry + dy - 1, hz - 1), Y0 = yh * RY, from the tap table: an output
+// cell of the rows that reads it through a tap, of slice 1 at dx = 0 for
+// a centre plane or slice 0 at dx = -1 for an x-plane, as in plane_mma.
+// A table in place of unrolled constants keeps one loop body of ~800
+// instructions for every warp; four unrolled bodies, one per (plane kind,
+// yh), did not fit the instruction cache beside each other.
+template <int S>
+__host__ __device__ constexpr int slot_entries() {
+  return 2 * Geo<S>::YSPLIT * 3 * Geo<S>::RY * (S + 2);
+}
+template <int S>
+__device__ __forceinline__ int slot_entry(int e) {
+  using G = Geo<S>;
+  const int hz = e % (S + 2) - 1;
+  e /= S + 2;
+  const int ry = e % G::RY;
+  e /= G::RY;
+  const int dy = e % 3 - 1;
+  e /= 3;
+  const int y0 = (e % G::YSPLIT) * G::RY;
+  const bool xplane = e / G::YSPLIT;
+  const int hy = y0 + ry + dy;
+  const int cy = hy < y0 ? y0 : (hy >= y0 + G::RY ? y0 + G::RY - 1 : hy);
+  const int cz = hz < 0 ? 0 : (hz > S - 1 ? S - 1 : hz);
+  const int oc = (xplane ? 0 : G::SL) + cy * S + cz;
+  const int t = (xplane ? 0 : 9) + (hy - cy + 1) * 3 + (hz - cz + 1);
+  return staged_slot<S>(tap_source<S>(oc, t)) * G::SLOT_B;
+}
+
+// One unit's float32 products for the RY y-rows of one output slice and
+// one channel quad (a float4 of a source cell of the lane's brick): for
+// each dy the rows' S+2 source cells are loaded once (their offsets from
+// ``slots``, the warp's part of the table) and feed the dz taps of every
+// output cell that reads them; each (tap, channel)'s 8 couts of the lane's
+// cout group are two float4 loads, one address for each half warp. wbase
+// points at tap (dx, -1, -1) of the quad; tap_b is the bytes between two
+// taps' rows.
+template <int S>
+__device__ __forceinline__ void unit_fma(float (&acc)[Geo<S>::CW][8],
+                                         const unsigned char* abase,
+                                         const unsigned char* wbase,
+                                         int tap_b, const int* slots) {
+  using G = Geo<S>;
+#pragma unroll 1
+  for (int dy = 0; dy < 3; ++dy) {
+    const int* row = slots + dy * G::RY * (S + 2);
+    float4 a[G::RY][S + 2];
+#pragma unroll
+    for (int ry = 0; ry < G::RY; ++ry)
+#pragma unroll
+      for (int hz = 0; hz < S + 2; ++hz)
+        a[ry][hz] = *reinterpret_cast<const float4*>(
+            abase + row[ry * (S + 2) + hz]);
+    const unsigned char* wd = wbase + dy * 3 * tap_b;
+#pragma unroll
+    for (int dz = 0; dz < 3; ++dz) {
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const unsigned char* wr = wd + dz * tap_b + c * WPITCH_F;
+        const float4 w0 = *reinterpret_cast<const float4*>(wr);
+        const float4 w1 = *reinterpret_cast<const float4*>(wr + 16);
+        const float wv[8] = {w0.x, w0.y, w0.z, w0.w, w1.x, w1.y, w1.z, w1.w};
+#pragma unroll
+        for (int ry = 0; ry < G::RY; ++ry)
+#pragma unroll
+          for (int z = 0; z < S; ++z) {
+            const float4& v = a[ry][z + dz];
+            const float av = c == 0 ? v.x : c == 1 ? v.y : c == 2 ? v.z : v.w;
+            float* o = acc[ry * S + z];
+#pragma unroll
+            for (int j = 0; j < 8; ++j) o[j] = fmaf(av, wv[j], o[j]);
+          }
+      }
+    }
+  }
+}
+
+__device__ __forceinline__ void put8(float* o, const float (&v)[8]) {
+  *reinterpret_cast<float4*>(o) = make_float4(v[0], v[1], v[2], v[3]);
+  *reinterpret_cast<float4*>(o + 4) = make_float4(v[4], v[5], v[6], v[7]);
+}
+__device__ __forceinline__ void put8(bf16* o, const float (&v)[8]) {
+  uint4 u;
+  uint32_t* q = reinterpret_cast<uint32_t*>(&u);
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const __nv_bfloat162 h = __floats2bfloat162_rn(v[2 * j], v[2 * j + 1]);
+    q[j] = *reinterpret_cast<const uint32_t*>(&h);
+  }
+  *reinterpret_cast<uint4*>(o) = u;
+}
+
+// TMA loads of float32 unit (channel chunk kc of CKF, plane pl) of the
+// tile at brick c1: the boxes of issue_unit, half the channels each
+template <int S>
+__device__ __forceinline__ void issue_unit_f32(const ParamsF& p, uint32_t dst,
+                                               uint32_t bar, int kc, int pl,
+                                               int c1) {
+  using G = Geo<S>;
+  const int ch = kc * CKF;
+  if (pl == 0 || pl == S + 1) {
+    tma_load3(dst, &p.map[pl == 0 ? 2 : 3], bar, ch, c1, 0);
+  } else {
+    tma_load3(dst, &p.map[0], bar, ch, c1, (pl - 1) * G::SL);
+    tma_load3(dst + G::SL * G::SLOT_B, &p.map[1], bar, ch, c1,
+              (pl - 1) * G::RUN);
+  }
+}
+
+// A block as sm_taps_tc's: 16 couts (blockIdx.y), CWARPS consumer warps
+// (YSPLIT an output slice) and one producer warp, persistent over tiles.
+// A consumer lane owns one brick of the tile (lane % 16) and one cout
+// group of 8 (lane / 16): CW cells x 8 couts of accumulators.
+template <int S, typename OutT, bool GROUPED>
+__global__ void __launch_bounds__(Geo<S>::THREADS, 1)
+    sm_taps_f32(const __grid_constant__ ParamsF p) {
+  using G = Geo<S>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  const uint32_t full0 = smem_u32(smem);              // [MAX_STAGES] x 8 B
+  const uint32_t empty0 = full0 + 8 * MAX_STAGES;
+  unsigned char* stage0 = smem + HEAD_B;
+  unsigned char* w_s = stage0 + p.stages * G::UNIT_B;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int n0 = blockIdx.y * NC;
+
+  // the slot table, after the mbarriers in the head
+  int* slot_s = reinterpret_cast<int*>(smem + 16 * MAX_STAGES);
+  static_assert(16 * MAX_STAGES + 4 * slot_entries<S>() <= HEAD_B, "");
+
+  if (!GROUPED) load_weights_f32(p, w_s, n0, 0, tid, G::THREADS);
+  for (int e = tid; e < slot_entries<S>(); e += G::THREADS)
+    slot_s[e] = slot_entry<S>(e);
+  if (tid == 0) {
+    for (int s = 0; s < p.stages; ++s) {
+      mbar_init(full0 + 8 * s, 1);
+      mbar_init(empty0 + 8 * s, G::CWARPS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const long long my_tiles =
+      (p.ntiles - blockIdx.x + gridDim.x - 1) / gridDim.x;
+  const int per_tile = (S + 2) * p.nk;
+  const long long nunits = my_tiles * per_tile;
+
+  if (warp == G::CWARPS) {  // the producer
+    if (lane == 0) {
+      for (long long u = 0; u < nunits; ++u) {
+        const int s = (int)(u % p.stages);
+        mbar_wait(empty0 + 8 * s, (uint32_t)(((u / p.stages) & 1) ^ 1));
+        const long long i = u / per_tile;
+        const int rem = (int)(u - i * per_tile);
+        const int kc = rem / (S + 2), pl = rem - kc * (S + 2);
+        const uint32_t bar = full0 + 8 * s;
+        mbar_expect_tx(bar, G::UNIT_B);
+        issue_unit_f32<S>(p, smem_u32(stage0 + s * G::UNIT_B), bar, kc, pl,
+                          (int)((blockIdx.x + i * gridDim.x) * G::TB));
+      }
+    }
+    return;
+  }
+
+  // a consumer: y-rows yh*RY .. of output slice xr; the lane's brick r and
+  // cout group gq. Brick r's 32-byte row of a source cell holds its two
+  // channel quads, swapped where the TMA's 32-byte swizzle sets bit 7 of
+  // the offset (bricks 4-7, 12-15): the 8 lanes of a quarter warp then
+  // read 8 distinct 16-byte bank groups.
+  const int xr = warp & (S - 1), yh = warp >> G::SHIFT;
+  const int r = lane & 15, gq = lane >> 4;
+  const int sw = (r >> 2) & 1;
+  const int a_q0 = r * 32 + (sw << 4), a_q1 = r * 32 + ((sw ^ 1) << 4);
+  const int wc = p.gk * CKF;      // channels of the resident weight rows
+  const int tap_b = wc * WPITCH_F;
+
+  float acc[G::CW][8];
+#pragma unroll
+  for (int c = 0; c < G::CW; ++c)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[c][j] = 0.0f;
+
+  for (long long u = 0; u < nunits; ++u) {
+    const int s = (int)(u % p.stages);
+    const long long i = u / per_tile;
+    const int rem = (int)(u - i * per_tile);
+    const int kc = rem / (S + 2), pl = rem - kc * (S + 2);
+    const int dx = pl - 1 - xr;
+    const int kg = GROUPED ? kc % p.gk : kc;  // chunk within its group
+    if (GROUPED && kg == 0 && pl == 0) {
+      // a new weight group: every consumer is done with the last one
+      consumers_sync<S>();
+      load_weights_f32(p, w_s, n0, kc, tid, G::CWARPS * 32);
+      consumers_sync<S>();
+    }
+    mbar_wait(full0 + 8 * s, (uint32_t)((u / p.stages) & 1));
+    if (-1 <= dx && dx <= 1) {
+      const unsigned char* stg = stage0 + s * G::UNIT_B;
+      const unsigned char* wb =
+          w_s + ((dx + 1) * 9 * wc + kg * CKF) * WPITCH_F + gq * 32;
+      const int xplane = pl == 0 || pl == S + 1;
+      const int* slots =
+          slot_s + (xplane * G::YSPLIT + yh) * 3 * G::RY * (S + 2);
+#pragma unroll 1
+      for (int q = 0; q < 2; ++q)
+        unit_fma<S>(acc, stg + (q ? a_q1 : a_q0), wb + q * 4 * WPITCH_F,
+                    tap_b, slots);
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty0 + 8 * s);
+
+    if (kc == p.nk - 1 && pl == xr + 2) {  // the slice's last unit of a tile
+      const long long brick = (blockIdx.x + i * gridDim.x) * G::TB + r;
+      const int n = n0 + gq * 8;
+      if (brick < p.rows && n < p.cout) {
+        const int cell0 = xr * G::SL + yh * G::CW;
+#pragma unroll
+        for (int c = 0; c < G::CW; ++c)
+          put8(static_cast<OutT*>(p.out) +
+                   (brick * G::CELLS + cell0 + c) * p.cout + n,
+               acc[c]);
+      }
+#pragma unroll
+      for (int c = 0; c < G::CW; ++c)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[c][j] = 0.0f;
+    }
+  }
+}
+
 // ------------------------------------------------------------------- host
 typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
                                 void*, const cuuint64_t*, const cuuint64_t*,
@@ -591,18 +890,25 @@ EncodeTiled encode_tiled() {
 }
 
 // (cells, B, cin) view of an operand with row stride ld elements; a box is
-// (box_cells, tb bricks, 16 channels), 32-byte swizzled
+// (box_cells, tb bricks, 32 bytes of channels: 16 bf16 or, with f32, 8
+// float32), 32-byte swizzled
 CUresult make_map(EncodeTiled enc, CUtensorMap* map, const void* base,
                   long long ld, long long rows, int cin, int cells,
-                  int box_cells, int tb) {
+                  int box_cells, int tb, bool f32 = false) {
+  const cuuint64_t esize = f32 ? 4 : 2;
   const cuuint64_t dims[3] = {(cuuint64_t)cin, (cuuint64_t)rows,
                               (cuuint64_t)cells};
-  const cuuint64_t strides[2] = {(cuuint64_t)ld * 2, (cuuint64_t)cin * 2};
-  const cuuint32_t box[3] = {CK, (cuuint32_t)tb, (cuuint32_t)box_cells};
+  const cuuint64_t strides[2] = {(cuuint64_t)ld * esize,
+                                 (cuuint64_t)cin * esize};
+  const cuuint32_t box[3] = {(cuuint32_t)(f32 ? CKF : CK), (cuuint32_t)tb,
+                             (cuuint32_t)box_cells};
   const cuuint32_t one[3] = {1, 1, 1};
-  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base),
-             dims, strides, box, one, CU_TENSOR_MAP_INTERLEAVE_NONE,
-             CU_TENSOR_MAP_SWIZZLE_32B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+  return enc(map,
+             f32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+             3, const_cast<void*>(base), dims, strides, box, one,
+             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_32B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
 }
 
@@ -689,6 +995,85 @@ int run(const void* const (&base)[4], const long long (&ld)[4],
                         : launch<S, float>(p, smem_bytes, s);
 }
 
+// The float32 kernel's weight groups, ring and shared memory: plan's
+// rule with float32 weight chunks (8 channels, 13.8 KB) and no output
+// staging.
+template <int S>
+bool plan_f32(int cin, ParamsF* p, int* smem_bytes) {
+  using G = Geo<S>;
+  p->nk = cin / CKF;
+  const int fixed_b = 2 * HEAD_B;
+  const int chunk_w_b = 27 * CKF * WPITCH_F;
+  const int gmax = (MAX_SMEM_B - fixed_b - 2 * G::UNIT_B) / chunk_w_b;
+  const int groups = (p->nk + gmax - 1) / gmax;
+  p->gk = (p->nk + groups - 1) / groups;
+  const int w_b = p->gk * chunk_w_b;
+  int free_b = 0;
+  for (int blocks = G::BLOCKS; blocks >= 1; --blocks) {
+    const int room = SM_SMEM_B / blocks - 1024;
+    free_b = (room < MAX_SMEM_B ? room : MAX_SMEM_B) - fixed_b - w_b;
+    if (free_b >= 2 * G::UNIT_B) break;
+  }
+  p->stages = free_b / G::UNIT_B < MAX_STAGES ? free_b / G::UNIT_B
+                                              : MAX_STAGES;
+  *smem_bytes = fixed_b + p->stages * G::UNIT_B + w_b;
+  return p->stages >= 2;
+}
+
+template <int S, typename OutT>
+int launch_f32(const ParamsF& p, int smem_bytes, cudaStream_t s) {
+  using G = Geo<S>;
+  auto kern = p.gk < p.nk ? sm_taps_f32<S, OutT, true>
+                          : sm_taps_f32<S, OutT, false>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, MAX_SMEM_B);
+  if (e != cudaSuccess) return (int)e;
+  int dev = 0, sms = 0, per_sm = 0;
+  if ((e = cudaGetDevice(&dev)) != cudaSuccess) return (int)e;
+  if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                  dev)) != cudaSuccess)
+    return (int)e;
+  if ((e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+           &per_sm, kern, G::THREADS, smem_bytes)) != cudaSuccess)
+    return (int)e;
+  if (per_sm < 1) return (int)cudaErrorLaunchOutOfResources;
+  const int ny = (p.cout + NC - 1) / NC;
+  long long gx = (long long)per_sm * sms / ny;  // one resident wave
+  if (gx < 1) gx = 1;
+  if (gx > p.ntiles) gx = p.ntiles;
+  kern<<<dim3((unsigned)gx, (unsigned)ny), G::THREADS, smem_bytes, s>>>(p);
+  return (int)cudaGetLastError();
+}
+
+// The float32 tensor maps, tiles and launch of one call at side S.
+template <int S>
+int run_f32(const void* const (&base)[4], const long long (&ld)[4],
+            const void* w, void* out, long long rows, int cin, int cout,
+            int out_dtype, cudaStream_t s) {
+  using G = Geo<S>;
+  if (rows > 0x7fffffffLL - G::TB) return (int)cudaErrorInvalidValue;
+  ParamsF p;
+  int smem_bytes = 0;
+  if (!plan_f32<S>(cin, &p, &smem_bytes)) return (int)cudaErrorInvalidValue;
+  EncodeTiled enc = encode_tiled();
+  if (enc == nullptr) return (int)cudaErrorNotSupported;
+  const int cells[4] = {G::CELLS, S * G::RUN, G::XPAD, G::XPAD};
+  const int boxes[4] = {G::SL, G::PLANE - G::SL, G::PLANE, G::PLANE};
+  for (int k = 0; k < 4; ++k) {
+    CUresult r = make_map(enc, &p.map[k], base[k], ld[k], rows, cin,
+                          cells[k], boxes[k], G::TB, true);
+    if (r != CUDA_SUCCESS) return 1000 + (int)r;
+  }
+  p.w = static_cast<const float*>(w);
+  p.out = out;
+  p.rows = rows;
+  p.ntiles = (rows + G::TB - 1) / G::TB;
+  p.cin = cin;
+  p.cout = cout;
+  return out_dtype == 1 ? launch_f32<S, bf16>(p, smem_bytes, s)
+                        : launch_f32<S, float>(p, smem_bytes, s);
+}
+
 }  // namespace
 
 // 1 if the kernel is built for bricks of `side`, else 0.
@@ -724,4 +1109,33 @@ extern "C" int doda_banded_conv_sm_taps(
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return side == 4 ? run<4>(base, ld, w, out, rows, cin, cout, out_dtype, s)
                    : run<2>(base, ld, w, out, rows, cin, cout, out_dtype, s);
+}
+
+// Dynamic shared memory of a float32 launch at cin on bricks of `side`,
+// bytes; -1 if refused.
+extern "C" int doda_banded_conv_sm_taps_f32_smem(int cin, int side) {
+  if (cin <= 0 || cin % 16 || (side != 2 && side != 4)) return -1;
+  ParamsF p;
+  int smem_bytes = 0;
+  const bool ok = side == 4 ? plan_f32<4>(cin, &p, &smem_bytes)
+                            : plan_f32<2>(cin, &p, &smem_bytes);
+  return ok ? smem_bytes : -1;
+}
+
+// The float32 kernel: operands and weights float32 with row strides ld* in
+// elements, otherwise as doda_banded_conv_sm_taps.
+extern "C" int doda_banded_conv_sm_taps_f32(
+    const void* x, long long ldx, const void* gyz, long long ldg,
+    const void* gxm, long long ldm, const void* gxp, long long ldp,
+    const void* w, void* out, long long rows, int cin, int cout, int side,
+    int out_dtype, void* stream) {
+  if (rows <= 0 || cin <= 0 || cin % 16 || cout <= 0 || cout % 8 ||
+      (side != 2 && side != 4) || (out_dtype != 0 && out_dtype != 1))
+    return (int)cudaErrorInvalidValue;
+  const void* const base[4] = {x, gyz, gxm, gxp};
+  const long long ld[4] = {ldx, ldg, ldm, ldp};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return side == 4
+             ? run_f32<4>(base, ld, w, out, rows, cin, cout, out_dtype, s)
+             : run_f32<2>(base, ld, w, out, rows, cin, cout, out_dtype, s);
 }

@@ -20,11 +20,13 @@ parameter tree so that ``utils/convert.py`` is a tree walk.
 ``sm_max_cin`` picks the subm-conv kernel per conv (``bricks2d.uses_sm``):
 0 sends every conv to K1 ``banded_conv``; 32, the JAX package's
 ``DODA_SM=shallow``, sends the convs with cin <= 32 (levels 0 and 1 of the
-mid-16 flagship) to K2 ``banded_conv_sm``. The convs left to K1 run its
-fused version (``banded_conv_fused``, from the activation and the level's
-rulebook) in bf16 wherever cin and cout are multiples of 8, its
+mid-16 flagship) to K2 ``banded_conv_sm_taps``. The convs left to K1 run
+its fused version (``banded_conv_fused``, from the activation and the
+level's rulebook) in bf16 wherever cin and cout are multiples of 8, its
 narrow-input version (``banded_conv_narrow``) on the bf16 cin = 3 input
-conv, and the assembled version otherwise (``bricks2d.subm_route``). In
+conv, its float32 version (``banded_conv_f32``, from the activation and
+the rulebook too) on every float32 conv, and the assembled version on the
+bf16 widths that neither bf16 kernel takes (``bricks2d.subm_route``). In
 train mode (``model.train()``) the norms use batch statistics and every
 conv carries its own backward (``ops/bricks2d.py``).
 
@@ -563,7 +565,8 @@ class SparseConvNet(nn.Module):
         level adds none on '2d' (its product comes back from the kept
         outputs), but a call of another engine's conv function, which
         runs again around its kept products."""
-        counts = {'sm': 0, 'fused': 0, 'narrow': 0, 'assembled': 0}
+        counts = {'sm': 0, 'fused': 0, 'narrow': 0, 'f32': 0,
+                  'assembled': 0}
         if self.fuse_norm:
             counts['prologue'] = 0
         if self.conv_engine != '2d':

@@ -90,17 +90,39 @@ def build_host(src: Path, name: str) -> Path:
                      salt=native.encode())
 
 
-def resources(name: str) -> dict:
-    """What ptxas reported for ``csrc/<name>.cu``: the most registers,
-    static shared memory and spill bytes of any of its kernels."""
+def kernel_resources(name: str) -> dict:
+    """ptxas's report (``-Xptxas -v``) on ``csrc/<name>.cu`` by kernel: the
+    mangled name of each entry function -> its registers, static shared
+    memory and spill bytes."""
     log = build(name).with_suffix('.ptxas.txt').read_text()
+    out = {}
+    for part in log.split("Compiling entry function '")[1:]:
+        kern = part.split("'", 1)[0]
 
-    def most(pattern):
-        return max((int(v) for v in re.findall(pattern, log)), default=0)
+        def first(pattern):
+            found = re.search(pattern, part)
+            return int(found.group(1)) if found else 0
 
-    return {'registers': most(r'Used (\d+) registers'),
-            'static_smem_bytes': most(r'(\d+) bytes smem'),
-            'spill_bytes': most(r'(\d+) bytes spill stores')}
+        out[kern] = {'registers': first(r'Used (\d+) registers'),
+                     'static_smem_bytes': first(r'(\d+) bytes smem'),
+                     'spill_bytes': first(r'(\d+) bytes spill stores')}
+    return out
+
+
+def resources(name: str, kernel: str | None = None) -> dict:
+    """What ptxas reported for ``csrc/<name>.cu``: the most registers,
+    static shared memory and spill bytes of its kernels whose mangled
+    name holds ``kernel`` (all of them where it is None), and the kernel
+    that spills most (``spill_kernel``, None where none spills)."""
+    found = {k: v for k, v in kernel_resources(name).items()
+             if kernel is None or kernel in k}
+    if not found:
+        raise ValueError(f'ptxas reported no kernel {kernel!r} in {name}.cu')
+    most = {key: max(v[key] for v in found.values())
+            for key in ('registers', 'static_smem_bytes', 'spill_bytes')}
+    spill = max(found, key=lambda k: found[k]['spill_bytes'])
+    most['spill_kernel'] = spill if most['spill_bytes'] else None
+    return most
 
 
 @functools.lru_cache(maxsize=None)

@@ -7,7 +7,8 @@ banded weights wb (3, 36*cin, 16*cout) it computes
     out[:, x*16*cout:(x+1)*16*cout] = sum_{j<3} rows6[:, x + j] @ wb[j]
 
 for x = 0..3, unmasked, accumulating in float32. On CUDA tensors this is
-the hand-written kernel of ``csrc/banded_conv.cu``; on CPU tensors it is
+the hand-written kernel of ``csrc/banded_conv.cu``, for bf16 operands (a
+float32 call raises, naming ``banded_conv_f32``); on CPU tensors it is
 ``banded_conv_plain``. There is no other path.
 
 ``banded_conv_fused`` is the kernel's second version
@@ -23,6 +24,12 @@ from the activation and the rulebook for an input of 1 to 7 channels (the
 cin = 3 input conv), whose cells are not whole 16-byte units: it stages
 each brick's halo through registers and multiplies the taps of an implicit
 im2col tile. Its plain version is the fused version's.
+
+``banded_conv_f32`` (``csrc/subm_conv_f32.cu``) is the same conv from the
+activation and the rulebook on float32 operands, for every cin and cout:
+the taps only, from the raster weights, as float32 FMAs on the CUDA cores
+(no TF32), so no float32 conv reads halo planes. Its plain version is the
+fused version's.
 
 With ``pro=(scale, bias, occw)`` the fused version is the prologue variant
 of the fused norm + ReLU engine: the conv reads
@@ -91,9 +98,11 @@ def _check(rows6: torch.Tensor, wb: torch.Tensor, out_dtype) -> None:
     if rows6.device.type != 'cuda' or wb.device != rows6.device:
         raise ValueError(f'banded_conv: rows6 on {rows6.device} and wb on '
                          f'{wb.device}; both must be on one CUDA device')
-    if rows6.dtype not in _DTYPE_CODES or wb.dtype != rows6.dtype:
+    if rows6.dtype != torch.bfloat16 or wb.dtype != rows6.dtype:
         raise ValueError(f'banded_conv: operands {rows6.dtype}/{wb.dtype}; '
-                         'both must be float32 or bfloat16')
+                         'the kernel takes bfloat16 (float32 convs run '
+                         'banded_conv_f32 from the activation and the '
+                         'rulebook)')
     if out_dtype not in _DTYPE_CODES:
         raise ValueError(f'banded_conv: out_dtype {out_dtype} unsupported')
     if rows6.dim() != 3 or wb.dim() != 3 \
@@ -197,16 +206,17 @@ def fused_smem_bytes(cin: int, cout: int, pro: bool = False,
                                                     side)
 
 
-def _check_cuda(name, x2, nbr, w, out_dtype) -> None:
-    """What a kernel from the activation and the rulebook takes: bf16
-    operands and the rulebook on one CUDA device, contiguous."""
+def _check_cuda(name, x2, nbr, w, out_dtype,
+                dtype=torch.bfloat16) -> None:
+    """What a kernel from the activation and the rulebook takes: operands
+    of ``dtype`` and the rulebook on one CUDA device, contiguous."""
     if x2.device.type != 'cuda' or nbr.device != x2.device \
             or w.device != x2.device:
         raise ValueError(f'{name}: x2 on {x2.device}, nbr on {nbr.device}, '
                          f'w on {w.device}; all must be on one CUDA device')
-    if x2.dtype != torch.bfloat16 or w.dtype != torch.bfloat16:
+    if x2.dtype != dtype or w.dtype != dtype:
         raise ValueError(f'{name}: operands {x2.dtype}/{w.dtype}; both '
-                         'must be bfloat16')
+                         f'must be {str(dtype)[6:]}')
     if out_dtype not in _DTYPE_CODES:
         raise ValueError(f'{name}: out_dtype {out_dtype} unsupported')
     if not (x2.is_contiguous() and nbr.is_contiguous()
@@ -290,6 +300,69 @@ def banded_conv_fused(x2: torch.Tensor, nbr: torch.Tensor, w: torch.Tensor,
 
 banded_conv_fused.launches = 0
 banded_conv_fused.pro_launches = 0
+
+
+# ---------------------------------------------------------------------------
+# float32: activation + rulebook in, conv out, on the CUDA cores
+# ---------------------------------------------------------------------------
+
+@functools.lru_cache(maxsize=None)
+def _f32_lib():
+    lib = _build.load('subm_conv_f32')
+    lib.doda_subm_conv_f32.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_void_p]
+    lib.doda_subm_conv_f32.restype = ctypes.c_int
+    lib.doda_subm_conv_f32_smem.argtypes = [ctypes.c_int] * 3
+    lib.doda_subm_conv_f32_smem.restype = ctypes.c_int
+    return lib
+
+
+def f32_smem_bytes(cin: int, cout: int, side: int = 4) -> int:
+    """Dynamic shared memory of one ``banded_conv_f32`` launch at (cin,
+    cout) on bricks of ``side``."""
+    return _f32_lib().doda_subm_conv_f32_smem(cin, cout, side)
+
+
+def _check_f32(x2, nbr, w, out_dtype) -> None:
+    name = 'banded_conv_f32'
+    _check_nbr(name, x2, nbr)
+    if w.dim() != 3 or w.shape[0] != 27 or w.shape[1] == 0 \
+            or w.shape[2] == 0 or x2.shape[1] % w.shape[1]:
+        raise ValueError(f'{name}: x2 {tuple(x2.shape)} and w '
+                         f'{tuple(w.shape)}; need (rows, cells*cin) and '
+                         '(27, cin, cout)')
+    _check_cuda(name, x2, nbr, w, out_dtype, torch.float32)
+
+
+def banded_conv_f32(x2: torch.Tensor, nbr: torch.Tensor, w: torch.Tensor,
+                    out_dtype) -> torch.Tensor:
+    """x2 (rows, cells*cin) float32, nbr (rows, 27) int32 with null id ==
+    rows, w (27, cin, cout) float32 -> (rows, cells*cout), unmasked (cells
+    = s^3 for bricks of side s), for any cin and cout: the fused version's
+    function in float32."""
+    if all(t.device.type == 'cpu' for t in (x2, nbr, w)):
+        return banded_conv_fused_plain(x2, nbr, w, out_dtype)
+    _check_f32(x2, nbr, w, out_dtype)
+    rows, cin, cout = x2.shape[0], w.shape[1], w.shape[2]
+    side = kernel_side('banded_conv_f32', x2.shape[1] // cin)
+    out = torch.empty((rows, side ** 3 * cout), dtype=out_dtype,
+                      device=x2.device)
+    if rows == 0:
+        return out
+    err = _f32_lib().doda_subm_conv_f32(
+        x2.data_ptr(), nbr.data_ptr(), w.data_ptr(), out.data_ptr(), rows,
+        cin, cout, _DTYPE_CODES[out_dtype], side,
+        torch.cuda.current_stream(x2.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError('banded_conv_f32: kernel launch failed with CUDA '
+                           f'error {err}')
+    banded_conv_f32.launches += 1
+    return out
+
+
+banded_conv_f32.launches = 0
 
 
 # ---------------------------------------------------------------------------

@@ -18,8 +18,8 @@ raster of cells (36*C lanes), and output slice x is
 K2 (``banded_conv_sm``) computes the same conv "source-major", from the
 brick's own activation plus only the halo cells around it
 (``_assemble_sm``), so the four centre planes never reach device memory;
-in bf16 it runs its second version, ``banded_conv_sm_taps``, which takes
-the raster weights and multiplies only the taps (no ``sm_weights``).
+it runs as ``banded_conv_sm_taps``, which takes the raster weights and
+multiplies only the taps (no ``sm_weights``), in bf16 and in float32.
 ``subm_conv3_2d`` picks the kernel per conv from ``sm_max_cin``
 (``uses_sm``), the counterpart of the JAX package's ``DODA_SM`` switch.
 Every other bf16 conv with channel counts in multiples of 8
@@ -28,8 +28,11 @@ takes the activation and the rulebook and assembles the halo inside the
 kernel: no planes, no banded weights. A bf16 conv of 1 to 7 input
 channels (``uses_narrow``: the cin = 3 input conv) runs its narrow-input
 version, ``banded_conv_narrow``, from the activation and the rulebook
-too. The assembled route below remains for float32 operands, the shapes
-neither kernel takes and the dW product.
+too. Every float32 conv that K2 does not take, of any width, runs
+``banded_conv_f32`` (the route 'f32'), from the activation and the
+rulebook as well, on the CUDA cores. The assembled route below remains
+for bf16 shapes that neither bf16 kernel takes, and its planes for the dW
+product.
 
 Assembly differs from the JAX package by design. There, TPU gathers want
 wide rows, so the planes are stitched from lane slices of boundary-cell
@@ -72,9 +75,9 @@ from typing import Optional
 import numpy as np
 import torch
 
-from .banded_conv import (NARROW_MAX_CIN, banded_conv, banded_conv_fused,
-                          banded_conv_narrow, occ_words)
-from .banded_conv_sm import banded_conv_sm, banded_conv_sm_taps
+from .banded_conv import (NARROW_MAX_CIN, banded_conv, banded_conv_f32,
+                          banded_conv_fused, banded_conv_narrow, occ_words)
+from .banded_conv_sm import banded_conv_sm_taps
 from .bricks import BRICK, geometry, side_of
 
 H = BRICK + 2
@@ -348,7 +351,7 @@ def uses_fused(cin: int, cout: int, dtype) -> bool:
     its fused version: bf16 operands whose cells are whole 16-byte units
     (cin % 8 == 0) and whose outputs are whole n8 tiles (cout % 8 == 0).
     That is every conv of the flagship but the cin = 3 input conv; float32
-    operands keep the exact CUDA-core path of the assembled route."""
+    operands take the route 'f32' (``subm_route``)."""
     return dtype == torch.bfloat16 and cin % 8 == 0 and cout % 8 == 0
 
 
@@ -364,14 +367,18 @@ def uses_narrow(cin: int, cout: int, dtype) -> bool:
 def subm_route(cin: int, cout: int, dtype, sm_max_cin: int,
                side: int = BRICK) -> str:
     """The kernel a (cin -> cout) subm conv runs at brick side ``side``:
-    'sm' (K2), 'fused' (K1 from activation and rulebook), 'narrow' (the
-    same for cin < 8) or 'assembled' (K1 on halo planes). The routes are
-    the same at every side; each kernel's wrapper refuses a side it is
-    not built for."""
+    'sm' (K2, bf16 or float32), 'f32' (K1 in float32 from activation and
+    rulebook, any width), 'fused' (K1 in bf16 from activation and
+    rulebook), 'narrow' (the same for cin < 8) or 'assembled' (K1 on halo
+    planes: bf16 widths that neither takes). The routes are the same at
+    every side; each kernel's wrapper refuses a side it is not built
+    for."""
     if uses_sm(cin, cout, sm_max_cin, side):
         return 'sm'
     if uses_fused(cin, cout, dtype):
         return 'fused'
+    if dtype == torch.float32:
+        return 'f32'
     return 'narrow' if uses_narrow(cin, cout, dtype) else 'assembled'
 
 
@@ -407,14 +414,14 @@ def _subm_raw(x2, halo, sm, weights, compute_dtype, sm_max_cin, nbr=None,
                              f'(sm_max_cin={sm_max_cin}) but the level has '
                              'no sm_index table')
         ops = _assemble_sm(x2, sm, compute_dtype, side)
-        if compute_dtype == torch.bfloat16:
-            # K2's second version: raster weights, the taps only
-            return banded_conv_sm_taps(*ops, w.contiguous(), x2.dtype)
-        return banded_conv_sm(*ops, *sm_weights(w, side), x2.dtype)
-    if route in ('fused', 'narrow') and nbr is None:
+        return banded_conv_sm_taps(*ops, w.contiguous(), x2.dtype)
+    if route in ('fused', 'narrow', 'f32') and nbr is None:
         raise ValueError(f'subm conv {cin}->{cout} in {compute_dtype} '
                          f'selects the {route} K1 but was given no '
                          'rulebook (nbr)')
+    if route == 'f32':
+        return banded_conv_f32(x2.to(compute_dtype).contiguous(), nbr,
+                               w.contiguous(), out_dtype)
     if route == 'narrow':
         return banded_conv_narrow(x2.to(compute_dtype), nbr, w.contiguous(),
                                   out_dtype)
@@ -551,8 +558,8 @@ def subm_conv3_2d(x2: torch.Tensor, occ: torch.Tensor, halo: torch.Tensor,
     sm      (rows, 176) from ``sm_index``, needed where ``uses_sm`` picks
             K2 for this conv or for its backward's flipped shape
     nbr     (rows, 27) int32 rulebook, null id == rows, needed where
-            ``uses_fused`` or ``uses_narrow`` picks a K1 that takes it
-            (forward or flipped shape)
+            ``subm_route`` picks a K1 that takes it: 'fused', 'narrow'
+            or 'f32' (forward or flipped shape)
     returns (rows, 64*cout) in x2.dtype, masked to active cells
     """
     return _SubmConv.apply(x2, weights, occ, halo, sm, compute_dtype,

@@ -2,6 +2,7 @@
 
     python -m doda_tpu_torch.tools.bench_conv [--reps 20] [--levels 0-6]
                                               [--brick 4|2]
+                                              [--dtype bfloat16|float32]
                                               [--device cuda|cpu]
 
 from the repo root; the counterpart of the JAX package's root
@@ -33,6 +34,19 @@ Routes, each where it applies (bf16 unless said):
   conv3d     cuDNN ``F.conv3d`` over the shell-gather oracle's assembled
              halo (``bricks.shell_halo``, built once): one library call of
              the same function
+With ``--dtype float32`` (the port's checking precision; TF32 off) the
+routes are the float32 ones:
+  f32        K1 in float32, ``banded_conv_f32`` (every cin and cout)
+  sm         K2 in float32, ``banded_conv_sm_taps`` on float32 operands
+             (cin % 16 == 0)
+  route_k1, route_k2  the whole subm conv product as the model runs it,
+             ``bricks2d._subm_raw`` at ``sm_max_cin`` 0 and 32, its
+             assembly included (route_k2 where cin % 16 == 0)
+  plain      ``banded_conv_fused_plain`` in float32
+  conv3d     cuDNN ``F.conv3d`` in float32 over the oracle's halo
+Each bound is ``utils/roofline.py``'s at float32 (operations on the CUDA
+cores). Every kernel's operations, K2's included, are the taps that the
+level's present halo cells need.
 Each route runs once to warm up, then ``reps`` times back to back between
 two CUDA events (the JAX tool's unrolled chain: eager PyTorch elides no
 application, so no data dependency is needed). Prints one JSON line a
@@ -55,9 +69,10 @@ import torch.nn.functional as F
 
 from ..models.unet import build_level_plan, default_brick_caps, flatten_plan
 from ..ops import bricks, bricks2d
-from ..ops.banded_conv import (banded_conv, banded_conv_fused,
-                               banded_conv_fused_plain, banded_conv_narrow,
-                               banded_conv_plain, occ_words)
+from ..ops.banded_conv import (banded_conv, banded_conv_f32,
+                               banded_conv_fused, banded_conv_fused_plain,
+                               banded_conv_narrow, banded_conv_plain,
+                               occ_words)
 from ..ops.banded_conv_sm import banded_conv_sm_taps
 from ..utils import roofline, synth
 from ..utils.device import card_label, resolve_device
@@ -108,8 +123,62 @@ def combos(levels: str) -> list:
             for lvl in range(int(lo), int(hi or lo) + 1)]
 
 
+def _conv3d(x2, lv, w, cin, cout, dtype, reps):
+    """cuDNN ``F.conv3d`` over the shell-gather oracle's halo, one
+    reading."""
+    dev = lv.occ.device
+    rows, cells = lv.occ.shape
+    halo = bricks.shell_halo(x2.reshape(rows, cells, cin), lv.nbr, dtype)
+    hin = halo.permute(0, 4, 1, 2, 3)
+    wc = w.reshape(3, 3, 3, cin, cout).permute(4, 3, 0, 1, 2).contiguous(
+        memory_format=torch.channels_last_3d)
+    return {'route': 'conv3d',
+            'ms': timed_ms(lambda: F.conv3d(hin, wc), reps, dev),
+            'bound_ms': None, 'bound_by': None,
+            'call': "F.conv3d over the shell-gather oracle's halo"}
+
+
+def f32_readings(lv, cin: int, cout: int, reps: int, gen) -> list:
+    """The float32 routes at (cin -> cout) over the flat level ``lv``."""
+    f32 = torch.float32
+    dev = lv.occ.device
+    rows, cells = lv.occ.shape
+    side = bricks.side_of(cells)
+    x3 = torch.randn(rows, cells, cin, device=dev, generator=gen)
+    x2 = torch.where(lv.occ[..., None], x3, 0).reshape(rows, -1)
+    w = torch.randn(27, cin, cout, device=dev, generator=gen) \
+        / (27 * cin) ** 0.5
+    reads = roofline.present_reads(lv.halo)
+    k1_work = roofline.fused_work(rows, cin, cout, reads, side, f32)
+    k2_work = roofline.sm_taps_work(rows, cin, cout, side, f32, reads)
+    k2_ok = cin % 16 == 0 and cout % 8 == 0
+    sm = bricks2d.sm_index(lv.nbr, side) if k2_ok else None
+    out = []
+
+    def add(name, fn, work):
+        out.append({'route': name, 'ms': timed_ms(fn, reps, dev),
+                    **{k: work[k] for k in ('bound_ms', 'bound_by', 'bytes',
+                                            'flops')}})
+
+    add('f32', lambda: banded_conv_f32(x2, lv.nbr, w, f32), k1_work)
+    add('route_k1', lambda: bricks2d._subm_raw(
+        x2, lv.halo, sm, w, f32, 0, lv.nbr), k1_work)
+    if k2_ok:
+        ops = bricks2d._assemble_sm(x2, sm, f32, side)
+        add('sm', lambda: banded_conv_sm_taps(*ops, w, f32), k2_work)
+        add('route_k2', lambda: bricks2d._subm_raw(
+            x2, lv.halo, sm, w, f32, 32, lv.nbr), k2_work)
+        del ops
+    add('plain', lambda: banded_conv_fused_plain(x2, lv.nbr, w, f32),
+        k1_work)
+    out.append(_conv3d(x2, lv, w, cin, cout, f32, reps))
+    return out
+
+
 def readings(lv, cin: int, cout: int, dtype, reps: int, gen) -> list:
     """One dict a route at (cin -> cout) over the flat level ``lv``."""
+    if dtype == torch.float32:
+        return f32_readings(lv, cin, cout, reps, gen)
     dev = lv.occ.device
     rows, cells = lv.occ.shape
     side = bricks.side_of(cells)
@@ -166,16 +235,9 @@ def readings(lv, cin: int, cout: int, dtype, reps: int, gen) -> list:
         ops = bricks2d._assemble_sm(x2, bricks2d.sm_index(lv.nbr, side),
                                     dtype, side)
         add('sm', lambda: banded_conv_sm_taps(*ops, w, dtype),
-            roofline.sm_taps_work(rows, cin, cout, side))
+            roofline.sm_taps_work(rows, cin, cout, side, reads=reads))
         del ops
-    halo = bricks.shell_halo(x2.reshape(rows, cells, cin), lv.nbr, dtype)
-    hin = halo.permute(0, 4, 1, 2, 3)
-    wc = w.reshape(3, 3, 3, cin, cout).permute(4, 3, 0, 1, 2).contiguous(
-        memory_format=torch.channels_last_3d)
-    out.append({'route': 'conv3d',
-                'ms': timed_ms(lambda: F.conv3d(hin, wc), reps, dev),
-                'bound_ms': None, 'bound_by': None,
-                'call': "F.conv3d over the shell-gather oracle's halo"})
+    out.append(_conv3d(x2, lv, w, cin, cout, dtype, reps))
     return out
 
 
@@ -194,6 +256,9 @@ def main(argv=None) -> list:
     ap.add_argument('--brick-cap', type=int, default=None,
                     help='level-0 brick cap (default: the bench caps of '
                          'the side)')
+    ap.add_argument('--dtype', choices=('bfloat16', 'float32'),
+                    default='bfloat16',
+                    help='the routes of this dtype (default bfloat16)')
     args = ap.parse_args(argv)
     dev = resolve_device(args.device)
     if dev.type == 'cuda':
@@ -208,18 +273,20 @@ def main(argv=None) -> list:
         plan = build_level_plan(batch.coords, batch.valid, b_caps, dev,
                                 brick=args.brick)
         levels, _ = flatten_plan(plan)
+    dtype = getattr(torch, args.dtype)
     if todo[0][0] == 0:
-        todo += [(0, *INPUT_CONV, torch.float32), (0, *INPUT_CONV)]
+        todo += [(0, *INPUT_CONV, torch.float32)] + (
+            [(0, *INPUT_CONV)] if dtype == torch.bfloat16 else [])
     card = card_label(dev)
     gen = torch.Generator(device=dev).manual_seed(0)
     results = []
     with torch.no_grad():
         for lvl, cin, cout, *dt in todo:
-            dtype = dt[0] if dt else torch.bfloat16
-            for r in readings(levels[lvl], cin, cout, dtype, args.reps, gen):
+            dt = dt[0] if dt else dtype
+            for r in readings(levels[lvl], cin, cout, dt, args.reps, gen):
                 r = {'card': card, 'brick': args.brick, 'level': lvl, 'rows':
                      levels[lvl].occ.shape[0], 'cin': cin, 'cout': cout,
-                     'dtype': str(dtype).replace('torch.', ''),
+                     'dtype': str(dt).replace('torch.', ''),
                      'reps': args.reps, 'clock': 'cuda events'
                      if dev.type == 'cuda' else 'host', **r}
                 print(json.dumps(r), flush=True)

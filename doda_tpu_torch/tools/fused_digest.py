@@ -10,10 +10,11 @@ from the repo root, on the card. ``--kernel fused`` (the default) builds
 to compare) and runs it without the prologue on seeded bf16 operands at
 ``chip_smoke.py``'s shapes: the bench batch's real rulebooks at levels 0,
 1, 5 and 6 and three synthetic ones, each to float32 and to bf16.
-``--kernel sm`` builds K2's two sources and runs them at the shapes of
-``chip_smoke.py``'s phase kernels: the second version
-(``banded_conv_sm_taps.cu``) on seeded bf16 operands to float32 and to
-bf16, the first (``banded_conv_sm.cu``) on float32 operands to float32.
+``--kernel sm`` builds K2's source and runs it at the shapes of
+``chip_smoke.py``'s phase kernels: ``banded_conv_sm_taps.cu`` on seeded
+bf16 operands to float32 and to bf16 and, where the source has its
+float32 kernel (``sm_taps_f32``), on float32 operands to float32 and to
+bf16.
 Both in bricks of side ``--brick`` (4, or 2 for a source built for it).
 Prints one JSON line a shape with the sha256 of each output's bytes and
 the card's name and power limit; two builds that print the same digests
@@ -92,22 +93,20 @@ def _sha(t) -> str:
 
 
 def sm_digests(csrc: Path, side: int, card: str) -> list:
-    """K2's two versions at phase kernels' shapes (``SM_SHAPES``)."""
+    """K2's bf16 and float32 kernels at phase kernels' shapes
+    (``SM_SHAPES``)."""
     taps, taps_sided = _lib(csrc, 'banded_conv_sm_taps', side)
-    first, first_sided = _lib(csrc, 'banded_conv_sm', side)
     ops_t = [ctypes.c_void_p, ctypes.c_longlong] * 4
     taps.doda_banded_conv_sm_taps.argtypes = ops_t + [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong] + [
         ctypes.c_int] * (4 if taps_sided else 3) + [ctypes.c_void_p]
-    # the first version's fourth int: the side, or before it was an
-    # argument the operands' dtype code (0: float32), at the same place
-    first.doda_banded_conv_sm.argtypes = ops_t + [ctypes.c_void_p] * 4 + [
-        ctypes.c_longlong] + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    taps_f32 = getattr(taps, 'doda_banded_conv_sm_taps_f32', None)
+    if taps_f32 is not None:
+        taps_f32.argtypes = taps.doda_banded_conv_sm_taps.argtypes
     dev = torch.device('cuda')
     stream = torch.cuda.current_stream(dev).cuda_stream
     g = torch.Generator(device=dev).manual_seed(1)
     cx, cg, cp = sm_widths(side)
-    sl = side * side
     out = []
     for rows, cin, cout in SM_SHAPES:
         x = torch.randn(rows, cx * cin, device=dev, generator=g)
@@ -130,17 +129,16 @@ def sm_digests(csrc: Path, side: int, card: str) -> list:
                         raise RuntimeError(f'sm_taps {rows}: error {err}')
                     torch.cuda.synchronize(dev)
                     digests[f'taps_{str(odt)[6:]}'] = _sha(y)
-            elif cin <= 112:
-                from ..ops.bricks2d import sm_weights
-                wts = [t.contiguous() for t in sm_weights(w, side)]
-                y = torch.zeros(rows, cx * cout, dtype=dt, device=dev)
-                err = first.doda_banded_conv_sm(
-                    *args, *(t.data_ptr() for t in wts), y.data_ptr(), rows,
-                    cin, sl * cout, side if first_sided else 0, 0, stream)
-                if err:
-                    raise RuntimeError(f'sm {rows}: error {err}')
-                torch.cuda.synchronize(dev)
-                digests['first_float32'] = _sha(y)
+                continue
+            if taps_f32 is not None:
+                for code, odt in ((0, torch.float32), (1, torch.bfloat16)):
+                    y = torch.zeros(rows, cx * cout, dtype=odt, device=dev)
+                    err = taps_f32(*args, w.data_ptr(), y.data_ptr(), rows,
+                                   cin, cout, side, code, stream)
+                    if err:
+                        raise RuntimeError(f'sm_taps_f32 {rows}: error {err}')
+                    torch.cuda.synchronize(dev)
+                    digests[f'taps_f32_{str(odt)[6:]}'] = _sha(y)
         line = {'card': card, 'csrc': str(csrc), 'kernel': 'sm',
                 'brick': side, 'shape': [rows, cin, cout], 'sha256': digests}
         print(json.dumps(line), flush=True)

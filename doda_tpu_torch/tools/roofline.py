@@ -1,6 +1,7 @@
 """Bytes, operations and bounds of the subm convs of one bench forward.
 
     python -m doda_tpu_torch.tools.roofline [--device cuda|cpu] [--brick 4|2]
+                                            [--dtype bfloat16|float32]
 
 from the repo root; the counterpart of the JAX package's root
 ``tools/roofline.py``, which models that package's TPU engine. This one
@@ -11,8 +12,10 @@ scenes of ``utils/synth.py::make_batch``, brick caps
 per level of the flagship (cfgs/scannet/spconv.yaml): its rows (scenes x
 brick cap), occupied bricks, active cells and cell occupancy, its width
 and subm convs (9, 8, 8, 8, 8, 8, 4 for the flagship), and, for the
-kernel route each conv launches in bf16 (``bricks2d.subm_route``), the
-bytes moved, the operations the level's rulebook needs and the bound; then
+kernel route each conv launches in bf16 (``bricks2d.subm_route``; with
+``--dtype float32`` the float32 routes, 'f32' and 'sm', at 4-byte
+operands and the CUDA cores' peak), the bytes moved, the operations the
+level's rulebook needs and the bound; then
 an idealized occupied-cell conv's floor (each active cell read once and
 written once, every tap of every active cell). A last line holds the
 totals of one forward's subm convs. Nothing here is measured: the card's
@@ -42,16 +45,17 @@ from .bench_conv import bench_caps
 
 
 def level_convs(model) -> list:
-    """Per level, the (cin, cout, route) of each subm conv of ``model``,
-    from its parameter shapes, as ``SparseConvNet.subm_routes`` counts
-    them."""
+    """Per level, the (cin, cout, route, dtype) of each subm conv of
+    ``model``, from its parameter shapes, as ``SparseConvNet.subm_routes``
+    counts them."""
     convs = [[] for _ in range(model.num_levels)]
     for name, p in model.named_parameters():
         if p.dim() == 3 and p.shape[0] == 27:
             _, cin, cout = p.shape
             convs[name.split('.').count('u')].append(
                 (cin, cout, subm_route(cin, cout, model.dtype,
-                                       model.sm_max_cin, model.brick)))
+                                       model.sm_max_cin, model.brick),
+                 model.dtype))
     return convs
 
 
@@ -67,15 +71,15 @@ def level_rows(levels, convs, scenes: int) -> list:
         work = {'bytes': 0, 'flops': 0, 'bound_ms': 0.0}
         ideal = dict(work)
         routes = {}
-        for cin, cout, route in level_conv:
-            if route == 'fused':
-                w = roofline.fused_work(rows, cin, cout, reads, side)
+        for cin, cout, route, dtype in level_conv:
+            if route in ('fused', 'f32'):
+                w = roofline.fused_work(rows, cin, cout, reads, side, dtype)
             elif route == 'narrow':
                 w = roofline.narrow_work(rows, cin, cout, reads, side)
             elif route == 'assembled':
                 w = roofline.assembled_work(rows, cin, cout, side=side)
             else:
-                w = roofline.sm_taps_work(rows, cin, cout, side)
+                w = roofline.sm_taps_work(rows, cin, cout, side, dtype, reads)
             routes[route] = routes.get(route, 0) + 1
             i = roofline.ideal_work(cells, cin, cout)
             for acc, got in ((work, w), (ideal, i)):
@@ -105,12 +109,16 @@ def main(argv=None) -> list:
                     help='level-0 brick cap (default: the bench caps of '
                          'the side)')
     ap.add_argument('--levels', type=int, default=7)
+    ap.add_argument('--dtype', choices=('bfloat16', 'float32'),
+                    default='bfloat16',
+                    help="the net's compute dtype (default bfloat16)")
     args = ap.parse_args(argv)
     dev = resolve_device(args.device)
 
     cfg = cfg_from_yaml_file('cfgs/scannet/spconv.yaml', CfgNode())
     cfg.MODEL.BACKBONE.num_levels = args.levels
-    model = model_fn.build_model(cfg, device='cpu', brick=args.brick)
+    model = model_fn.build_model(cfg, device='cpu', brick=args.brick,
+                                 dtype=getattr(torch, args.dtype))
     b_caps = bench_caps(args.brick, args.brick_cap, args.levels)
     batch = synth.bench_batch(args.batch, args.points, b_caps,
                               brick=args.brick)
@@ -121,7 +129,8 @@ def main(argv=None) -> list:
         table = level_rows(levels, level_convs(model), args.batch)
     card = card_label(dev)
     for row in table:
-        print(json.dumps({'card': card, **row}), flush=True)
+        print(json.dumps({'card': card, 'dtype': args.dtype, **row}),
+              flush=True)
     total = {k: float(np.sum([r[k] for r in table])) for k in (
         'bytes', 'flops', 'bound_ms', 'ideal_bytes', 'ideal_flops',
         'ideal_ms')}

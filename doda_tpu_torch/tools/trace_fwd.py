@@ -4,9 +4,12 @@ device time.
     python -m doda_tpu_torch.tools.trace_fwd [--train] [--sm-max-cin N]
                                              [--fuse-norm] [--remat P]
                                              [--brick 4|2] [--trace PATH]
+                                             [--dtype bfloat16|float32]
 
 from the repo root. Builds the flagship (cfgs/scannet/spconv.yaml) with
-seeded weights in bf16, runs ``make_eval_step`` on 4 bench scenes (with
+seeded weights in bf16 (``--dtype float32``: in float32, the port's
+checking precision, every subm conv on the float32 kernels; TF32 is off
+either way), runs ``make_eval_step`` on 4 bench scenes (with
 ``--train``: ``make_train_step`` on 2 scenes, SGD as in the YAML;
 ``--sm-max-cin`` picks the subm-conv kernels, by default 0, K1 everywhere,
 for the forward and 32, K2 at levels 0 and 1, for the train step;
@@ -43,8 +46,9 @@ BUCKETS = (
     ('banded_conv_fused prologue (K1, fused norm)', r'fused_tc.*(true|Lb1E)'),
     ('banded_conv_fused (K1, fused)', r'fused_tc'),
     ('banded_conv_narrow (K1, input conv)', r'narrow_tc'),
-    ('banded_conv (K1, assembled)', r'banded_tc|banded_f32'),
-    ('banded_conv_sm (K2, both versions)', r'sm_taps_tc|sm_f32'),
+    ('banded_conv_f32 (K1, float32)', r'subm_f32'),
+    ('banded_conv (K1, assembled)', r'banded_tc'),
+    ('banded_conv_sm_taps (K2)', r'sm_taps_tc|sm_taps_f32'),
     ('gemm (down/up/1x1/head)', r'gemm|cutlass|xmma|cublas|sm90_|nvjet'),
     ('sort / search', r'sort|radix|searchsorted|Scan|scan'),
     ('index / gather / scatter', r'index|gather|scatter|Indexing'),
@@ -75,6 +79,9 @@ def main(argv=None):
     ap.add_argument('--brick', type=int, choices=(2, 4), default=4,
                     help='brick side (default 4)')
     ap.add_argument('--trace', help='write a Chrome trace to this path')
+    ap.add_argument('--dtype', choices=('bfloat16', 'float32'),
+                    default='bfloat16',
+                    help="the net's compute dtype (default bfloat16)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit('trace_fwd: needs a CUDA device')
@@ -92,7 +99,8 @@ def main(argv=None):
         32 if args.train else 0)
     model = model_fn.build_model(cfg, sm_max_cin=sm_max_cin,
                                  train=args.train, fuse_norm=args.fuse_norm,
-                                 remat=args.remat, brick=args.brick)
+                                 remat=args.remat, brick=args.brick,
+                                 dtype=getattr(torch, args.dtype))
     model.load_state_dict(synth.seeded_state_dict(model, seed=0))
     if args.train:
         opt = optim.build_optimizer(cfg.OPTIMIZATION, model.parameters())
@@ -133,7 +141,7 @@ def main(argv=None):
     print(json.dumps({
         'card': smi, 'mode': 'train step' if args.train else 'eval forward',
         'sm_max_cin': sm_max_cin, 'fuse_norm': args.fuse_norm,
-        'remat': args.remat, 'brick': args.brick,
+        'remat': args.remat, 'brick': args.brick, 'dtype': args.dtype,
         'scenes': int(batch.coords.shape[0]),
         'wall_ms': wall_ms,
         'profiled_device_ms': device_ms,

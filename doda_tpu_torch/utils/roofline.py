@@ -70,20 +70,32 @@ def present_reads(halo: torch.Tensor) -> float:
     return (present @ halo_reads(halo.device, side)).sum().item()
 
 
+def _size_peak(dtype) -> tuple:
+    """Bytes an element and the peak FLOP/s of a conv in ``dtype``: bf16
+    on the tensor cores, float32 as FMAs on the CUDA cores."""
+    if dtype == torch.float32:
+        return 4, PEAK_F32
+    return 2, PEAK_BF16
+
+
 def fused_work(rows: int, cin: int, cout: int, reads: float,
-               side: int = 4) -> dict:
-    """K1's fused version, bf16, over ``rows`` bricks of side s whose
-    rulebook needs ``reads`` present halo reads (``present_reads``): it
-    reads x2 (rows, s^3*cin), the raster weights and the rulebook (int32)
-    once and writes the output once; its operations are the taps those
-    reads need. ``executed_flops`` are every tap of every row."""
+               side: int = 4, dtype=torch.bfloat16) -> dict:
+    """K1 from the activation and the rulebook over ``rows`` bricks of side
+    s whose rulebook needs ``reads`` present halo reads
+    (``present_reads``): it reads x2 (rows, s^3*cin), the raster weights
+    and the rulebook (int32) once and writes the output once; its
+    operations are the taps those reads need. bf16 (the fused version) on
+    the tensor cores; float32 (``banded_conv_f32``) 4-byte operands and
+    outputs, its FMAs on the CUDA cores. ``executed_flops`` are every tap
+    of every row."""
     cells = side ** 3
-    moved = (rows * cells * (cin + cout) + TAPS * cin * cout) * 2 \
+    size, peak = _size_peak(dtype)
+    moved = (rows * cells * (cin + cout) + TAPS * cin * cout) * size \
         + rows * TAPS * 4
     needed = 2 * cin * cout * reads
     return {'bytes': moved, 'flops': needed,
             'executed_flops': 2 * rows * cells * TAPS * cin * cout,
-            **bound(moved, needed)}
+            **bound(moved, needed, peak)}
 
 
 def narrow_work(rows: int, cin: int, cout: int, reads: float,
@@ -137,33 +149,26 @@ def assembled_work(rows: int, cin: int, cout: int, dtype=torch.bfloat16,
             **bound(moved, ops, peak)}
 
 
-def sm_taps_work(rows: int, cin: int, cout: int, side: int = 4) -> dict:
-    """K2's second version, bf16, on bricks of side s: the (s+2)^3 halo
+def sm_taps_work(rows: int, cin: int, cout: int, side: int = 4,
+                 dtype=torch.bfloat16, reads: float | None = None) -> dict:
+    """K2 (``banded_conv_sm_taps``) on bricks of side s: the (s+2)^3 halo
     cells a brick needs (216 at side 4: x 64, gyz 80, gxm and gxp 36 each;
-    64 at side 2; no padding cell), the s^3 output cells and the raster
-    weights, once; every tap of every row."""
+    64 at side 2; the operand layout's padding cells take part in no tap),
+    the s^3 output cells and the raster weights, once. Its operations are
+    the taps that ``reads`` present halo reads need (``present_reads`` of
+    the rulebook the operands were assembled from: a cell of an absent
+    neighbour is a zero), or every tap of every row where every cell is
+    present (``reads`` None). ``executed_flops`` are every tap of every
+    row. bf16 on the tensor cores; float32 4-byte operands and outputs,
+    its FMAs on the CUDA cores."""
     cells = side ** 3
+    size, peak = _size_peak(dtype)
     moved = (rows * (side + 2) ** 3 * cin + rows * cells * cout
-             + TAPS * cin * cout) * 2
-    flops = 2 * rows * cells * TAPS * cin * cout
-    return {'bytes': moved, 'flops': flops, 'executed_flops': flops,
-            **bound(moved, flops)}
-
-
-def sm_first_work(rows: int, cin: int, cout: int, side: int = 4) -> dict:
-    """K2's first version, float32, on bricks of side s: the bytes of
-    ``sm_taps_work`` in float32 (the (s+2)^3 halo cells a brick, the s^3
-    output cells and the raster weights, once; the operand layout's
-    padding cells take part in no tap), and the operations of every tap on
-    the CUDA cores. ``executed_flops``: the whole band, (s+2)^2 + 4 cells a
-    tap and slice."""
-    from ..ops.banded_conv_sm import sm_widths
-    taps = sm_taps_work(rows, cin, cout, side)
-    moved, flops = 2 * taps['bytes'], taps['flops']
-    xpad, sl = sm_widths(side)[2], side * side
-    return {'bytes': moved, 'flops': flops,
-            'executed_flops': 2 * rows * side * 3 * xpad * cin * sl * cout,
-            **bound(moved, flops, PEAK_F32)}
+             + TAPS * cin * cout) * size
+    executed = 2 * rows * cells * TAPS * cin * cout
+    flops = executed if reads is None else 2 * cin * cout * reads
+    return {'bytes': moved, 'flops': flops, 'executed_flops': executed,
+            **bound(moved, flops, peak)}
 
 
 def ideal_work(cells: int, cin: int, cout: int) -> dict:

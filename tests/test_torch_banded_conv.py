@@ -105,7 +105,7 @@ def test_subm_conv3_2d(request, grid_name, cin, cout):
         jnp.asarray(x2.reshape(g.b_cap, 64, cin)), g.occ, nbr,
         jnp.asarray(w), compute_dtype=F32)).reshape(g.b_cap, -1)
     got = tb2d.subm_conv3_2d(_t(x2), _t(g.occ), tb2d.halo_index(_t(nbr)),
-                             _t(w), torch.float32).numpy()
+                             _t(w), torch.float32, nbr=_t(nbr)).numpy()
     np.testing.assert_allclose(got, want_2d, **TOL)
     np.testing.assert_allclose(got, want_oracle, **TOL)
 

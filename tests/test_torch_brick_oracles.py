@@ -6,7 +6,7 @@ cin != cout, forward to 1e-5 and gradients (autograd on both sides) to
 1e-4; ``down_conv2`` and ``up_conv2`` against the JAX custom VJPs, with the
 maps they read (``target_cells``, ``parent_src``) integer for integer; and
 the oracle against the port's ``subm_conv3_2d`` on its CPU paths (the
-assembled route in float32, the fused K1's plain version in bf16), on a
+'f32' route in float32, the fused K1's plain version in bf16), on a
 grid where a brick's face neighbour is absent while a diagonal one is
 present.
 """
@@ -161,7 +161,7 @@ def test_oracle_matches_subm_conv3_2d(grids):
     halo = tb2d.halo_index(tnbr)
     want = tbricks.subm_conv3(x, tg.occ, tnbr, w, torch.float32)
     assert want.abs().max() > 1e-2
-    assert tb2d.subm_route(16, 8, torch.float32, 0) == 'assembled'
+    assert tb2d.subm_route(16, 8, torch.float32, 0) == 'f32'
     got = tb2d.subm_conv3_2d(x.reshape(rows, -1), tg.occ, halo, w,
                              torch.float32, nbr=tnbr)
     torch.testing.assert_close(got.reshape(want.shape), want, **TOL)

@@ -139,7 +139,7 @@ def test_engine_matches_flax(net, case, monkeypatch):
     routes = port.subm_routes(level_rows=[2 * c for c in CAPS])
     engine = kw.get('conv_engine', 'xla')
     assert routes[engine] == n_port
-    assert routes['assembled'] == 7 - n_port
+    assert routes['f32'] == 7 - n_port
 
 
 def test_fuse_norm_engine_rule(monkeypatch):
@@ -189,7 +189,7 @@ def test_fuse_norm_engine_rule(monkeypatch):
                     n_engine if engine != '2d' else 0), (engine, calls)
                 routes = model.subm_routes()
                 assert routes.get(engine, 0) == n_engine, routes
-                assert routes['assembled'] == 11 - n_engine, routes
+                assert routes['f32'] == 11 - n_engine, routes
         torch.testing.assert_close(outs[True], outs[False], rtol=1e-4,
                                    atol=1e-4)
 
@@ -198,7 +198,7 @@ def test_subm_routes_by_engine():
     """The flagship's 53 subm convs (mid 16, 7 levels, 2 blocks a level)
     by engine at the bench batch's flat rows (4 scenes)."""
     rows = [4 * c for c in (40960, 16384, 3328, 768, 256, 128, 128)]
-    base = {'sm': 0, 'narrow': 0, 'assembled': 0}
+    base = {'sm': 0, 'narrow': 0, 'f32': 0, 'assembled': 0}
 
     def routes(fuse_norm=False, **kw):
         model = tunet.SparseConvNet(mid_channel=16, num_levels=7,

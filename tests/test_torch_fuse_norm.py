@@ -8,8 +8,9 @@ through both packages:
 
 * float32: outputs to rtol = atol = 1e-5, gradients of x, W, scale and
   bias to 2e-4 (the bound of tests/test_bricks2d.py's prologue tests),
-  the subm conv on each of the port's routes ('assembled', the fused K1's
-  plain version, and pro_full + K2's plain version);
+  the subm conv on each of the port's routes ('f32', 'assembled' by a
+  patched rule, the fused K1's plain version, and pro_full + K2's plain
+  version);
 * bf16 against the JAX package's bf16, to 2e-2 of the largest output
   (the JAX package rounds each of its three shifted sums to bf16, the port
   once) and 5e-2 of the largest gradient (two bf16 products and a bf16
@@ -135,11 +136,13 @@ def test_subm_conv3_norm_2d_matches_jax(grids, monkeypatch):
             x, g.occ, nbr, w, s, b, F32), args, cot)
         tn, occ = _t(nbr), _t(g.occ)
         halo, sm = tb2d.halo_index(tn), tb2d.sm_index(tn)
-        for route, sm_max_cin in (('assembled', 0), ('sm', 32),
+        for route, sm_max_cin in (('f32', 0), ('assembled', 0), ('sm', 32),
                                   ('fused', 0)):
             with pytest.MonkeyPatch.context() as mp:
                 if route == 'fused':      # the rule keeps float32 off it
                     mp.setattr(tb2d, 'uses_fused', lambda *a: True)
+                if route == 'assembled':  # float32 takes 'f32' by the rule
+                    mp.setattr(tb2d, 'subm_route', lambda *a: 'assembled')
                 assert tb2d.subm_route(16, 16, torch.float32,
                                        sm_max_cin) == route
                 del calls[:]
@@ -489,7 +492,7 @@ def test_fused_net_matches_flax_fused_net(monkeypatch):
     err = np.abs(got - want)[valid].max()
     assert err <= 1e-3 * max(1.0, np.abs(want).max()), err
     assert port.subm_routes() == {'sm': 0, 'fused': 0, 'narrow': 0,
-                                  'assembled': 7, 'prologue': 0}
+                                  'f32': 7, 'assembled': 0, 'prologue': 0}
 
 
 def test_train_fused_equals_unfused_on_the_fused_route(monkeypatch):

@@ -202,12 +202,12 @@ def flagship_cfg():
 
 
 @pytest.mark.parametrize('sm_max_cin,dtype,fwd,bwd', [
-    (0, torch.bfloat16, dict(sm=0, fused=52, narrow=1, assembled=0),
-     dict(sm=0, fused=52, narrow=0, assembled=0)),
-    (32, torch.bfloat16, dict(sm=15, fused=37, narrow=1, assembled=0),
-     dict(sm=16, fused=36, narrow=0, assembled=0)),
-    (32, torch.float32, dict(sm=15, fused=0, narrow=0, assembled=38),
-     dict(sm=16, fused=0, narrow=0, assembled=36))])
+    (0, torch.bfloat16, dict(sm=0, fused=52, narrow=1, f32=0, assembled=0),
+     dict(sm=0, fused=52, narrow=0, f32=0, assembled=0)),
+    (32, torch.bfloat16, dict(sm=15, fused=37, narrow=1, f32=0, assembled=0),
+     dict(sm=16, fused=36, narrow=0, f32=0, assembled=0)),
+    (32, torch.float32, dict(sm=15, fused=0, narrow=0, f32=38, assembled=0),
+     dict(sm=16, fused=0, narrow=0, f32=36, assembled=0))])
 def test_flagship_routes(flagship_cfg, sm_max_cin, dtype, fwd, bwd):
     model = tmf.build_model(flagship_cfg, device='cpu', dtype=dtype,
                             sm_max_cin=sm_max_cin)
@@ -219,7 +219,7 @@ def test_flagship_routes(flagship_cfg, sm_max_cin, dtype, fwd, bwd):
     (3, 16, torch.bfloat16, 32, 'narrow'),
     (16, 16, torch.bfloat16, 0, 'fused'),
     (16, 16, torch.bfloat16, 32, 'sm'),
-    (16, 16, torch.float32, 0, 'assembled'),
+    (16, 16, torch.float32, 0, 'f32'),
     (192, 96, torch.bfloat16, 32, 'fused'),
     (24, 8, torch.bfloat16, 32, 'fused'),
     (12, 16, torch.bfloat16, 0, 'assembled')])

@@ -94,7 +94,7 @@ def _subm_reference(grid, cin, cout):
     (64, 32, 32),      # forward on K1, dx (32 -> 64) on K2
     (3, 16, 32),
     # the fused K1 route (activation + rulebook in), forward and dx; the
-    # rule keeps float32 on the assembled route, so these cases widen it
+    # rule keeps float32 on the 'f32' route, so these cases widen it
     pytest.param(16, 16, 0, id='16-16-0-fused'),
     pytest.param(64, 32, 32, id='64-32-32-fused'),   # fused forward, K2 dx
     pytest.param(32, 16, 0, id='32-16-0-fused')])
@@ -113,8 +113,7 @@ def test_subm_conv_grads(request, monkeypatch, grid, cin, cout, sm_max_cin):
         monkeypatch.setattr(tb2d, 'banded_conv_fused',
                             lambda *a: calls.append(1) or plain(*a))
     got = _torch_grads(lambda a, b: tb2d.subm_conv3_2d(
-        a, occ, halo, b, torch.float32, sm, sm_max_cin,
-        tn if fused else None), x2, w, cot)
+        a, occ, halo, b, torch.float32, sm, sm_max_cin, tn), x2, w, cot)
     _compare(got, want)
     if fused:      # forward and dx, less what the rule gives to K2
         assert len(calls) == 2 - tb2d.uses_sm(cin, cout, sm_max_cin) \
@@ -132,7 +131,7 @@ def test_subm_conv_skips_dx_of_a_leaf_input(grid, monkeypatch):
     monkeypatch.setattr(tb2d, '_subm_raw',
                         lambda *a: calls.append(1) or raw(*a))
     out = tb2d.subm_conv3_2d(x2, _t(g.occ), tb2d.halo_index(_t(nbr)), w,
-                             torch.float32)
+                             torch.float32, nbr=_t(nbr))
     out.sum().backward()
     assert len(calls) == 1 and w.grad is not None and x2.grad is None
 

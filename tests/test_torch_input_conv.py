@@ -241,17 +241,17 @@ def test_routing_rule_sends_the_input_conv_to_it():
     cfg = cfg_from_yaml_file('cfgs/scannet/spconv.yaml', CfgNode())
     model = tmf.build_model(cfg, device='cpu', dtype=bf)
     assert model.subm_routes() == {'sm': 0, 'fused': 52, 'narrow': 1,
-                                   'assembled': 0}
+                                   'f32': 0, 'assembled': 0}
     # its input needs no gradient: no dx conv of the input conv
     assert model.subm_routes(True) == {'sm': 0, 'fused': 52, 'narrow': 0,
-                                       'assembled': 0}
+                                       'f32': 0, 'assembled': 0}
     model = tmf.build_model(cfg, device='cpu', dtype=f32)
     assert model.subm_routes() == {'sm': 0, 'fused': 0, 'narrow': 0,
-                                   'assembled': 53}
+                                   'f32': 53, 'assembled': 0}
     for cin, cout, dtype, want in (
             (1, 16, bf, 'narrow'), (NARROW_MAX_CIN, 8, bf, 'narrow'),
             (8, 16, bf, 'fused'), (12, 16, bf, 'assembled'),
-            (3, 12, bf, 'assembled'), (3, 16, f32, 'assembled')):
+            (3, 12, bf, 'assembled'), (3, 16, f32, 'f32')):
         assert tb2d.subm_route(cin, cout, dtype, 32) == want, (cin, cout)
 
 

@@ -158,7 +158,7 @@ def _counting(monkeypatch):
     wrap('banded_conv', lambda a: 'assembled')
     wrap('banded_conv_narrow', lambda a: 'narrow')
     wrap('banded_conv_sm_taps', lambda a: 'sm')
-    wrap('banded_conv_sm', lambda a: 'sm')
+    wrap('banded_conv_f32', lambda a: 'f32')
     return calls
 
 

@@ -19,7 +19,8 @@ from doda_tpu.ops import bricks2d as jb2d
 from doda_tpu.ops import pallas_sm
 from doda_tpu_torch.ops import bricks2d as tb2d
 from doda_tpu_torch.ops.banded_conv_sm import (banded_conv_sm,
-                                               banded_conv_sm_plain)
+                                               banded_conv_sm_plain,
+                                               banded_conv_sm_taps)
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 F32 = jnp.float32
@@ -108,7 +109,9 @@ def test_banded_conv_sm_plain_matches_pallas_and_xla(b, cin, cout):
     if b % 8 == 0 and pallas_sm.fits_sm(b, cin, cout, 4):
         want_pl = np.asarray(pallas_sm.banded_conv_sm(*jops, *jw, F32))
         np.testing.assert_allclose(got.numpy(), want_pl, **TOL)
-    assert banded_conv_sm.launches == 0   # the CPU never reaches a kernel
+    # the CPU never reaches a kernel
+    assert banded_conv_sm_taps.launches == banded_conv_sm_taps.f32_launches \
+        == 0
 
 
 def test_banded_conv_sm_takes_row_strided_operands():
@@ -142,7 +145,7 @@ def test_subm_conv3_2d_sm_engine(request, grid_name, cin, cout, jax_too):
     got_sm = tb2d.subm_conv3_2d(_t(x2), _t(g.occ), halo, _t(w),
                                 torch.float32, sm, 32).numpy()
     got_k1 = tb2d.subm_conv3_2d(_t(x2), _t(g.occ), halo, _t(w),
-                                torch.float32).numpy()
+                                torch.float32, nbr=tn).numpy()
     assert np.abs(got_k1).max() > 0.1
     np.testing.assert_allclose(got_sm, got_k1, **TOL)
     if jax_too:
@@ -175,4 +178,5 @@ def test_sm_engine_without_table_or_on_wrong_device_raises(dense_grid):
           ((3, 256, 128), (3, 384, 128), (2, 640, 128))]
     with pytest.raises(ValueError, match='CUDA'):
         banded_conv_sm(*meta, *wm, torch.float32)
-    assert banded_conv_sm.launches == 0
+    assert banded_conv_sm_taps.launches == banded_conv_sm_taps.f32_launches \
+        == 0

@@ -14,8 +14,10 @@ the CPU:
   the plain version;
 * the 32-byte swizzle of a side-2 unit: eight bank groups an ``ldmatrix``
   phase, the epilogue's staging and the shared-memory plan;
-* a mirror of ``csrc/banded_conv_sm.cu``'s side-2 row maps (``sm_f32``'s
-  plan segments and block walk) equal to ``banded_conv_sm_plain``;
+* the band form's side-2 row maps (each slice's segments of the operands
+  and ``sm_weights(w, 2)``, the plain band version's, over a walk of
+  64 x 64 blocks, the deleted first kernel's) equal to
+  ``banded_conv_sm_plain``;
 * a side-2 net under ``sm_max_cin=32`` against ``sm_max_cin=0`` on the
   same weights: float32 logits, one step's gradients, and the kernel calls
   by route against ``subm_routes``.
@@ -350,13 +352,16 @@ def test_side2_swizzle_staging_and_plan():
     assert _plan(16) == (1, 3, 6144 + 3 * 8192 + 20736, 4)
 
 
-# --- mirror of csrc/banded_conv_sm.cu (sm_f32) at S = 2 ---------------------
+# --- the band form's row maps at S = 2 ---------------------------------------
 
 def test_side2_first_version_row_maps():
-    """``make_plan<2>``'s segments (slice xr, tap i: gxm, gxp or x's slice
-    cx and its gyz run, each with its weight block) summed as ``sm_f32``
-    sums them, over the blocks of its grid (each (row, slice, column)
-    written by one block), equal ``banded_conv_sm_plain``."""
+    """The band form's segments at side 2 (slice xr, tap i: gxm, gxp or
+    x's slice cx and its gyz run, each with its block of ``sm_weights(w,
+    2)``), summed over a grid of 64 x 64 blocks as the first version's
+    kernel summed them (deleted: float32 runs ``sm_taps_f32`` on the raster
+    weights), each (row, slice, column) written by one block, equal
+    ``banded_conv_sm_plain``: the band form the plain version and the JAX
+    contract tests keep."""
     g, nbr, rng = _grid(5, 300, 8, 70)
     cin, cout = 32, 16
     _, w, ops = _operands(g, nbr, rng, cin, cout)
@@ -418,9 +423,9 @@ def test_side2_net_on_k2_equals_k1(monkeypatch):
         np.float32))
     plan = tunet.build_level_plan(coords, valid, (2048, 1024, 512), 'cpu',
                                   brick=2)
-    calls = {'sm': 0, 'assembled': 0}
-    for name, route in (('banded_conv_sm', 'sm'),
-                        ('banded_conv', 'assembled')):
+    calls = {'sm': 0, 'f32': 0}
+    for name, route in (('banded_conv_sm_taps', 'sm'),
+                        ('banded_conv_f32', 'f32')):
         def counted(*a, _fn=getattr(tb2d, name), _route=route):
             calls[_route] += 1
             return _fn(*a)

@@ -15,8 +15,9 @@ on the card by ``chip_smoke.py``. Here:
   ragged tiles) computes the conv, and its shared-memory plan fits every
   cin; the 32-byte swizzle leaves ``ldmatrix`` conflict-free,
   and the staged epilogue puts every output where its stores read it;
-* the bf16 route of ``_subm_raw`` calls the new wrapper with raster
-  weights and never ``sm_weights``; the float32 route keeps the first K2.
+* the 'sm' route of ``_subm_raw`` calls the wrapper with raster weights
+  and never ``sm_weights``, in bf16 and in float32 (the first version's
+  kernel, on ``sm_weights``, is deleted).
 """
 
 import numpy as np
@@ -398,9 +399,9 @@ def test_kernel_output_staging(cw):
 
 @pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float32])
 def test_sm_route_kernel_by_dtype(sparse_grid, monkeypatch, dtype):
-    """bf16: forward and dx call the second version with raster weights
-    (the flipped stencil for dx) and never build ``sm_weights``; float32:
-    both call the first version on ``sm_weights``."""
+    """bf16 and float32: forward and dx call the kernel's wrapper with
+    raster weights (the flipped stencil for dx) and never build
+    ``sm_weights``; the first version's wrapper is not on the route."""
     g, nbr = sparse_grid
     rng = np.random.default_rng(8)
     f = rng.normal(size=(g.b_cap, 64, 16)).astype(np.float32)
@@ -408,49 +409,40 @@ def test_sm_route_kernel_by_dtype(sparse_grid, monkeypatch, dtype):
     w = _t(rng.normal(size=(27, 16, 16)).astype(np.float32) * 0.1)
     tn = _t(nbr)
     real_sm_weights = tb2d.sm_weights
-    calls = {'taps': [], 'first': 0, 'sm_weights': 0}
+    calls = {'taps': [], 'sm_weights': 0}
 
     def taps(x, gyz, gxm, gxp, wr, out_dtype):
         calls['taps'].append(wr)
         return banded_conv_sm_plain(x, gyz, gxm, gxp, *real_sm_weights(wr),
                                     out_dtype)
 
-    def first(*args):
-        calls['first'] += 1
-        return banded_conv_sm(*args)
-
     def sm_weights(wr, *side):
         calls['sm_weights'] += 1
         return real_sm_weights(wr, *side)
 
     monkeypatch.setattr(tb2d, 'banded_conv_sm_taps', taps)
-    monkeypatch.setattr(tb2d, 'banded_conv_sm', first)
     monkeypatch.setattr(tb2d, 'sm_weights', sm_weights)
+    assert not hasattr(tb2d, 'banded_conv_sm')
     xl = x2.to(dtype).requires_grad_(True)
     wl = w.clone().requires_grad_(True)
     out = tb2d.subm_conv3_2d(xl, _t(g.occ), tb2d.halo_index(tn), wl, dtype,
                              tb2d.sm_index(tn), 32, tn)
     out.float().sum().backward()
-    if dtype == torch.bfloat16:
-        assert calls['first'] == 0 and calls['sm_weights'] == 0
-        assert len(calls['taps']) == 2
-        fwd_w, dx_w = calls['taps']
-        assert torch.equal(fwd_w, w.bfloat16())
-        assert torch.equal(dx_w, tb2d._flip_weights(w).bfloat16())
-        assert all(t.is_contiguous() for t in calls['taps'])
-    else:
-        assert calls['taps'] == [] and calls['first'] == 2
-        assert calls['sm_weights'] == 2
+    assert calls['sm_weights'] == 0
+    assert len(calls['taps']) == 2
+    fwd_w, dx_w = calls['taps']
+    assert torch.equal(fwd_w, w.to(dtype))
+    assert torch.equal(dx_w, tb2d._flip_weights(w).to(dtype))
+    assert all(t.is_contiguous() for t in calls['taps'])
 
 
 def test_sm_route_takes_second_version_at_every_cin(monkeypatch):
     """The second version cuts a cin above 112 into weight groups, so a
-    wide bf16 'sm' conv takes it too and never the first version."""
+    wide bf16 'sm' conv takes it too (the first version is on no
+    route)."""
     calls = []
     monkeypatch.setattr(tb2d, 'banded_conv_sm_taps',
                         lambda *a: calls.append('taps'))
-    monkeypatch.setattr(tb2d, 'banded_conv_sm',
-                        lambda *a: calls.append('first'))
     rows = 2
     sm = torch.full((rows, 176), rows * 64, dtype=torch.int32)
     for cin in (112, 128):
