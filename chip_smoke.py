@@ -8,9 +8,9 @@ Phases, each printing one line:
   2. build: every CUDA source of doda_tpu_torch/csrc, compiled with nvcc,
      and the host library of the data path (native/src/host_ops.cc, g++)
   3. plan: the bench batch's level plan on the card equals the CPU's
-     kernels: each kernel's wrapper (K1 banded_conv on bf16 operands,
-     refusing float32 ones, its fused version banded_conv_fused, its
-     narrow-input version banded_conv_narrow, its float32 kernel
+     kernels: each kernel's wrapper (K1's fused version
+     banded_conv_fused, its narrow-input version banded_conv_narrow, its
+     route for the other bf16 widths banded_conv_padded, its float32 kernel
      banded_conv_f32, and K2 banded_conv_sm_taps on bf16 and on float32
      operands; the deleted first version's banded_conv_sm raises on the
      card) on the card vs its plain version, at the main
@@ -22,14 +22,19 @@ Phases, each printing one line:
      max|ref| and bf16 within one bf16 step, bit-equal on a repeated call;
      the fused K1 on the real plan's
      rulebooks (levels 0, 1, 5, 6) and on a synthetic one (ragged rows,
-     absent faces with present diagonals, no rows), also against the
-     assembled K1; the fused K1's prologue variant on the real rulebooks
+     absent faces with present diagonals, no rows); the fused K1's
+     prologue variant on the real rulebooks
      and occupancy (levels 0 and 1), a synthetic cin = 24 and no rows, with
      bias > 0 on half the channels, float32 output to 1e-4 of max|ref|;
      the narrow K1 at the bench input conv (the level-0 rulebook, 3 -> 16)
      and on synthetic rulebooks (cin 1 to 7, couts in several blocks,
      ragged rows, no rows), float32 output to 1e-4 of max|ref|, bf16 to
-     the fused K1's bound, and against the assembled K1;
+     the fused K1's bound; the route 'padded' (the fused or narrow K1 on
+     operands zero-padded to multiples of 8 channels) at 12 -> 20, 20 ->
+     12, 9 -> 5, 3 -> 12 and 40 -> 36 on the level-0 rulebook and on
+     synthetic ones at sides 4 and 2, float32 output to 1e-4 of max|ref|,
+     bf16 to 2e-2, bit-equal on a repeated call, counted apart from the
+     kernels' own routes;
      one full subm conv on a real plan under either engine, forward, and
      its weight gradient in bf16 against float32 accumulation
   4. forward: the flagship net (cfgs/scannet/spconv.yaml: mid 16, 7
@@ -152,14 +157,16 @@ Phases, each printing one line:
      --launcher pytorch`` at WORLD_SIZE=1 for one step
  15. timing: each kernel at the level-0 shape beside its bound, its plain
      version and, where there is one, a PyTorch library call computing the
-     same function; K1 in both bf16 versions, with the plane gather alone,
-     and
+     same function; K1's fused version, with the plane gather alone, and
      its prologue variant beside the unfused sequence it replaces (norm
      apply + ReLU + mask + K1), at the level-0 and level-1 shapes on the
-     real rulebooks; K1's narrow-input version at the input conv beside
-     the first version over its planes (alone and with the plane gather),
-     the fused K1 on x2 zero-padded to cin = 8 (padding pass included) and
-     cuDNN conv3d over the oracle's halo; K2 at the level-0 and level-1
+     real rulebooks; the route 'padded' at 12 -> 20 and 20 -> 12 on the
+     level-0 rulebook beside its bound at the true and the padded widths,
+     the launched kernel alone, the padding copy alone and cuDNN conv3d
+     over the oracle's halo; K1's narrow-input version at the input conv
+     beside the fused K1 on x2 zero-padded to cin = 8 (padding pass
+     included) and cuDNN conv3d over the oracle's halo; K2 at the level-0
+     and level-1
      shapes in bf16 and float32; K1's float32 kernel at levels 0 and 1
      beside its float32 bound, its plain version, float32 cuDNN conv3d
      over the oracle's halo (TF32 off) and the bf16 fused K1 of the same
@@ -316,11 +323,10 @@ def plain_path():
     plain PyTorch version."""
     from contextlib import ExitStack
     from doda_tpu_torch.ops import bricks2d
-    from doda_tpu_torch.ops.banded_conv import (banded_conv_fused_plain,
-                                                banded_conv_plain)
+    from doda_tpu_torch.ops.banded_conv import banded_conv_fused_plain
     from doda_tpu_torch.ops.banded_conv_sm import banded_conv_sm_taps_plain
     stack = ExitStack()
-    for name, fn in (('banded_conv', banded_conv_plain),
+    for name, fn in (('banded_conv_padded', banded_conv_fused_plain),
                      ('banded_conv_fused', banded_conv_fused_plain),
                      ('banded_conv_narrow', banded_conv_fused_plain),
                      ('banded_conv_f32', banded_conv_fused_plain),
@@ -331,11 +337,9 @@ def plain_path():
 
 def check_fused(worst, key, x2, nbr, w, narrow=False):
     """The fused K1 (with ``narrow``, its narrow-input version) against its
-    plain version (both output types) and against the assembled K1 on the
-    same inputs, at the brick side of x2's width."""
-    from doda_tpu_torch.ops import bricks, bricks2d
-    from doda_tpu_torch.ops.banded_conv import (banded_conv,
-                                                banded_conv_fused,
+    plain version (both output types) on the same inputs, at the brick side
+    of x2's width."""
+    from doda_tpu_torch.ops.banded_conv import (banded_conv_fused,
                                                 banded_conv_fused_plain,
                                                 banded_conv_narrow)
     fn, tag = ((banded_conv_narrow, 'K1n') if narrow
@@ -346,13 +350,38 @@ def check_fused(worst, key, x2, nbr, w, narrow=False):
         ref = banded_conv_fused_plain(x2, nbr, w, dt)
         worst[f'{tag}/{key}/{str(dt)[6:]}'] = _close(
             got, ref, True, bound, f'{fn.__name__} {key} {dt}')
-    side = bricks.side_of(x2.shape[1] // w.shape[1])
-    old = banded_conv(bricks2d._assemble_p6(
-        x2, bricks2d.halo_index(nbr, side), x2.dtype),
-        bricks2d.banded_weights(w, side), torch.bfloat16)
-    worst[f'{tag}-vs-K1/{key}'] = _close(got, old, True, 2e-2,
-                                         f'{fn.__name__} vs assembled K1 '
-                                         f'{key}')
+
+
+# (cin, cout) of the padded route's checks: cin past a multiple of 8 and
+# cout short of one, both ways round, cin below 8 (the narrow K1 on a
+# padded cout) and a wide pair in several cout blocks
+PADDED_WIDTHS = ((12, 20), (20, 12), (9, 5), (3, 12), (40, 36))
+
+
+def check_padded(worst, key, x2, nbr, w):
+    """The route 'padded' (the fused or narrow K1 on zero-padded operands)
+    against its plain version, bf16 operands: float32 output to 1e-4 of
+    max|ref| and bf16 output within ``CHECKS``' bf16 bound, bit-equal on a
+    repeated call; one count a call with rows, none on the kernels' own
+    counters."""
+    from doda_tpu_torch.ops.banded_conv import (banded_conv_fused,
+                                                banded_conv_fused_plain,
+                                                banded_conv_narrow,
+                                                banded_conv_padded)
+    own = banded_conv_fused.launches, banded_conv_narrow.launches
+    before = banded_conv_padded.launches
+    for dt, bound in ((torch.float32, FUSED_CHECKS[0][1]),
+                      (torch.bfloat16, CHECKS[1][2])):
+        got = banded_conv_padded(x2, nbr, w, dt)
+        torch.cuda.synchronize()
+        ref = banded_conv_fused_plain(x2, nbr, w, dt)
+        worst[f'K1pad/{key}/{str(dt)[6:]}'] = _close(
+            got, ref, True, bound, f'banded_conv_padded {key} {dt}')
+        again = banded_conv_padded(x2, nbr, w, dt)
+        torch.cuda.synchronize()
+        assert torch.equal(got, again), f'{key} {dt}: not bit-equal again'
+    assert banded_conv_padded.launches == before + 4
+    assert (banded_conv_fused.launches, banded_conv_narrow.launches) == own
 
 
 def check_fused_pro(worst, key, x2, nbr, w, occ, g):
@@ -386,11 +415,9 @@ def check_fused_pro(worst, key, x2, nbr, w, occ, g):
 
 def phase_kernels(levels):
     from doda_tpu_torch.ops import bricks2d
-    from doda_tpu_torch.ops.banded_conv import (banded_conv,
-                                                banded_conv_f32,
+    from doda_tpu_torch.ops.banded_conv import (banded_conv_f32,
                                                 banded_conv_fused,
-                                                banded_conv_fused_plain,
-                                                banded_conv_plain)
+                                                banded_conv_fused_plain)
     from doda_tpu_torch.ops.banded_conv_sm import (banded_conv_sm,
                                                    banded_conv_sm_taps,
                                                    banded_conv_sm_taps_plain)
@@ -466,27 +493,29 @@ def phase_kernels(levels):
     assert empty.shape == (0, 64 * 16)
     assert banded_conv_narrow.launches == before    # nothing to launch
 
-    # K1's first version, bf16 operands (its float32 path is deleted: a
-    # float32 call raises, naming banded_conv_f32)
-    for b, cin, cout in ((1000, 3, 16), (4096, 16, 16), (4099, 32, 16),
-                         (2048, 112, 112), (512, 192, 96)):
-        rows6 = torch.randn(b, 6, 36 * cin, device='cuda', generator=g)
-        w = torch.randn(27, cin, cout, device='cuda', generator=g)
-        wb = bricks2d.banded_weights(w / (27 * cin) ** 0.5)
-        for dt, rel, bound in CHECKS[1:]:
-            got = banded_conv(rows6.to(dt), wb.to(dt), dt)
-            torch.cuda.synchronize()
-            ref = banded_conv_plain(rows6.to(dt), wb.to(dt), dt)
-            worst[f'K1/{b}x{cin}x{cout}/{str(dt)[6:]}'] = _close(
-                got, ref, rel, bound, f'banded_conv {b},{cin},{cout} {dt}')
+    # the route 'padded' (bf16 widths neither the fused nor the narrow K1
+    # takes as they are) on the level-0 bench rulebook and on synthetic
+    # ones at sides 4 and 2 (x2 of 8 cells a row: the same rulebooks in
+    # bricks of side 2), ragged rows, and no rows
+    from doda_tpu_torch.ops.banded_conv import banded_conv_padded
+    for cin, cout in PADDED_WIDTHS:
+        assert bricks2d.subm_route(cin, cout, bf, 0) == 'padded'
+        x2, w = operands(level0.nbr.shape[0], cin, cout)
+        check_padded(worst, f'level0/{level0.nbr.shape[0]}x{cin}x{cout}',
+                     x2, level0.nbr, w)
+        for rows, grid in ((4099, 20), (1001, 12)):
+            nbr = synth.synth_rulebook(rows, grid, seed=rows + cin)
+            x2, w = operands(rows, cin, cout)
+            check_padded(worst, f'synthetic/{rows}x{cin}x{cout}', x2, nbr,
+                         w)
+            x2 = x2.reshape(rows, 8, 8, cin)[:, 0].reshape(rows, -1)
+            check_padded(worst, f'side2/synthetic/{rows}x{cin}x{cout}',
+                         x2.contiguous(), nbr, w)
+    before = banded_conv_padded.launches
+    empty = banded_conv_padded(x2[:0], nbr[:0], w, bf)
+    assert empty.shape == (0, 8 * 36)
+    assert banded_conv_padded.launches == before    # nothing to launch
     f32 = torch.float32
-    before = banded_conv.launches
-    try:
-        banded_conv(rows6, wb, f32)
-        raise AssertionError('banded_conv ran float32 operands')
-    except ValueError as e:
-        assert 'banded_conv_f32' in str(e), e
-    assert banded_conv.launches == before
 
     # K1 in float32 (banded_conv_f32) on the bench batch's own rulebooks:
     # every level's block conv, the tails, the input conv and the widest
@@ -639,7 +668,7 @@ def phase_forward(cfg, batch, b_caps, card):
     # narrow K1, all others on the fused K1
     want = model.subm_routes()
     assert want == {'sm': 0, 'fused': 52, 'narrow': 1, 'f32': 0,
-                    'assembled': 0}, want
+                    'padded': 0}, want
     step(batch)                                     # warm-up (set-up)
     torch.cuda.synchronize()
 
@@ -669,7 +698,7 @@ def phase_forward(cfg, batch, b_caps, card):
     model32, step32 = run(torch.float32, sd)
     want32 = model32.subm_routes()
     assert want32 == {'sm': 0, 'fused': 0, 'narrow': 0, 'f32': 53,
-                      'assembled': 0}, want32
+                      'padded': 0}, want32
     _cli_reset()
     lk = step32(batch)['output']
     torch.cuda.synchronize()
@@ -720,9 +749,9 @@ def phase_train(cfg, b_caps, card):
     # except the input conv, whose input needs no gradient
     fwd_want, bwd_want = model.subm_routes(), model.subm_routes(True)
     assert fwd_want == {'sm': 15, 'fused': 37, 'narrow': 1, 'f32': 0,
-                        'assembled': 0}, fwd_want
+                        'padded': 0}, fwd_want
     assert bwd_want == {'sm': 16, 'fused': 36, 'narrow': 0, 'f32': 0,
-                        'assembled': 0}, bwd_want
+                        'padded': 0}, bwd_want
     want = {k: fwd_want[k] + bwd_want[k] for k in fwd_want}
     reset = _cli_reset
 
@@ -776,7 +805,7 @@ def phase_train(cfg, b_caps, card):
     dt0 = time.perf_counter() - t0
     peak0 = torch.cuda.max_memory_allocated()
     assert counts() == {'sm': 0, 'fused': steps * 104, 'narrow': steps,
-                        'f32': 0, 'assembled': 0}, counts()
+                        'f32': 0, 'padded': 0}, counts()
     assert all(math.isfinite(float(v)) for v in losses0)
     log('train_k2_or_fused', card=card, batch=synth.TRAIN_BATCH,
         steps_per_sec_sm_max_cin_32=steps / dt,
@@ -795,7 +824,7 @@ def phase_train(cfg, b_caps, card):
     want32 = {k: v + model_k.subm_routes(True)[k]
               for k, v in model_k.subm_routes().items()}
     assert want32 == {'sm': 31, 'fused': 0, 'narrow': 0, 'f32': 74,
-                      'assembled': 0}, want32
+                      'padded': 0}, want32
     reset()
     loss_k = float(step_k(batch, lr)['loss'])
     f32_ran = _cli_launches()
@@ -889,7 +918,7 @@ def phase_fuse_norm(cfg, batch, b_caps, card):
     model_u, step_u = evaluator(bf, False)
     want = model_f.subm_routes()
     assert want == {'sm': 0, 'fused': 0, 'narrow': 1, 'f32': 0,
-                    'assembled': 0, 'prologue': 52}, want
+                    'padded': 0, 'prologue': 52}, want
     step_f(batch)                                   # warm-up (set-up)
     step_u(batch)
     torch.cuda.synchronize()
@@ -904,7 +933,7 @@ def phase_fuse_norm(cfg, batch, b_caps, card):
     torch.cuda.synchronize()
     launched['eval_forward_unfused'] = counts()
     assert launched['eval_forward_unfused'] == {
-        'sm': 0, 'fused': 52, 'narrow': 1, 'f32': 0, 'assembled': 0,
+        'sm': 0, 'fused': 52, 'narrow': 1, 'f32': 0, 'padded': 0,
         'prologue': 0}, launched
     logits = out_f['output']
     assert logits.shape == (synth.BATCH, synth.N_CAP, 20)
@@ -969,7 +998,7 @@ def phase_fuse_norm(cfg, batch, b_caps, card):
     _, _, loss_f32, grads_f32 = first_step(f32, True)
     launched['train_f32_fused'] = counts()   # float32: pro_full, then 'f32'
     assert launched['train_f32_fused'] == {
-        'sm': 0, 'fused': 0, 'narrow': 0, 'f32': 105, 'assembled': 0,
+        'sm': 0, 'fused': 0, 'narrow': 0, 'f32': 105, 'padded': 0,
         'prologue': 0}, launched
     assert abs(loss_f32 - loss_u32) <= 1e-4 * abs(loss_u32), (loss_f32,
                                                              loss_u32)
@@ -985,7 +1014,7 @@ def phase_fuse_norm(cfg, batch, b_caps, card):
         rule = model.subm_routes()
         rule_bwd = model.subm_routes(backward=True)
         rule = {k: steps * (rule.get(k, 0) + rule_bwd.get(k, 0))
-                for k in ('sm', 'fused', 'narrow', 'f32', 'assembled',
+                for k in ('sm', 'fused', 'narrow', 'f32', 'padded',
                           'prologue')}
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -1581,7 +1610,8 @@ def phase_brick(cfg, batch, b_caps, card):
     side 4's, integer for integer); each K1 kernel at side 2 against its
     plain version on the side-2 bench rulebooks (the fused K1 at every
     level, its prologue variant at levels 0-1, the narrow K1 at the input
-    conv, the float32 K1 at every level), and timed beside its
+    conv, the route 'padded' at level 0 at ``PADDED_WIDTHS``, the float32
+    K1 at every level), and timed beside its
     side-2 bound, its plain version, cuDNN ``conv3d`` over the oracle's
     side-2 halo and the same kernel at side 4; then the model at both
     sides: the bf16 eval forward (predictions >= 99%, launches by route
@@ -1661,6 +1691,14 @@ def phase_brick(cfg, batch, b_caps, card):
           * lv2[0].occ[..., None]).reshape(-1, 24).to(bf)
     w = (torch.randn(27, 3, 16, device='cuda', generator=g) / 9).to(bf)
     check_fused(worst, 'L0/3x16', x2, lv2[0].nbr, w, narrow=True)
+    # the route 'padded' at side 2 on the level-0 side-2 rulebook
+    for cin, cout in PADDED_WIDTHS:
+        rows = lv2[0].nbr.shape[0]
+        x2 = (torch.randn(rows, 8, cin, device='cuda', generator=g)
+              * lv2[0].occ[..., None]).reshape(rows, -1).to(bf)
+        w = (torch.randn(27, cin, cout, device='cuda', generator=g)
+             / (27 * cin) ** 0.5).to(bf)
+        check_padded(worst, f'L0/{cin}x{cout}', x2, lv2[0].nbr, w)
     # K1's float32 kernel at side 2 on every level's side-2 rulebook
     for lvl, cin, cout in F32_K1_SHAPES:
         lv = lv2[lvl]
@@ -1760,7 +1798,7 @@ def phase_brick(cfg, batch, b_caps, card):
         preds[s] = out['preds']
         steps[s] = step
     assert launched['eval_bf16_side2'] == {
-        'sm': 0, 'fused': 52, 'narrow': 1, 'f32': 0, 'assembled': 0,
+        'sm': 0, 'fused': 52, 'narrow': 1, 'f32': 0, 'padded': 0,
         'prologue': 0}
     agree = (preds[2] == preds[4])[valid].float().mean().item()
     assert agree >= 0.99, f'bf16 preds side 2 vs 4 agree on {agree}'
@@ -1786,7 +1824,7 @@ def phase_brick(cfg, batch, b_caps, card):
     step(batch)
     out = counted('eval_bf16_fuse_norm_side2', model, lambda: step(batch))
     assert launched['eval_bf16_fuse_norm_side2'] == {
-        'sm': 0, 'fused': 0, 'narrow': 1, 'f32': 0, 'assembled': 0,
+        'sm': 0, 'fused': 0, 'narrow': 1, 'f32': 0, 'padded': 0,
         'prologue': 52}
     agree_fuse = (out['preds'] == preds[2])[valid].float().mean().item()
     assert agree_fuse >= 0.99, f'side-2 fuse_norm preds agree {agree_fuse}'
@@ -1797,7 +1835,7 @@ def phase_brick(cfg, batch, b_caps, card):
     step(batch)
     out = counted('eval_bf16_side2_sm32', model, lambda: step(batch))
     assert launched['eval_bf16_side2_sm32'] == {
-        'sm': 15, 'fused': 37, 'narrow': 1, 'f32': 0, 'assembled': 0,
+        'sm': 15, 'fused': 37, 'narrow': 1, 'f32': 0, 'padded': 0,
         'prologue': 0}
     agree_sm = (out['preds'] == preds[2])[valid].float().mean().item()
     assert agree_sm >= 0.99, f'side-2 sm_max_cin=32 preds agree {agree_sm}'
@@ -1837,7 +1875,7 @@ def phase_brick(cfg, batch, b_caps, card):
     def rule(model, n):
         fwd, bwd = model.subm_routes(), model.subm_routes(backward=True)
         return {k: n * (fwd.get(k, 0) + bwd.get(k, 0))
-                for k in ('sm', 'fused', 'narrow', 'f32', 'assembled',
+                for k in ('sm', 'fused', 'narrow', 'f32', 'padded',
                           'prologue')}
 
     first = {}
@@ -1936,7 +1974,7 @@ def _remat_run(cfg, sd, remat, step_of, steps, fuse_norm=False):
     step, terms = step_of(model, opt)
     fwd, bwd = model.subm_routes(), model.subm_routes(True)
     rule = {k: terms * (fwd.get(k, 0) + bwd.get(k, 0))
-            for k in ('fused', 'prologue', 'narrow', 'f32', 'assembled',
+            for k in ('fused', 'prologue', 'narrow', 'f32', 'padded',
                       'sm')}
     _cli_reset()
     torch.cuda.reset_peak_memory_stats()
@@ -2206,28 +2244,29 @@ DEVICE_AUG = ['DATA_CONFIG.DATA_AUG.device', 'True',
 
 def _cli_launches():
     """The launch counters of every kernel, by route: 'sm' counts K2 in
-    both dtypes, 'f32' K1 in float32."""
-    from doda_tpu_torch.ops.banded_conv import (banded_conv,
-                                                banded_conv_f32,
+    both dtypes, 'f32' K1 in float32, 'padded' the fused or narrow K1 on
+    zero-padded operands (counted apart from their own routes)."""
+    from doda_tpu_torch.ops.banded_conv import (banded_conv_f32,
                                                 banded_conv_fused,
-                                                banded_conv_narrow)
+                                                banded_conv_narrow,
+                                                banded_conv_padded)
     from doda_tpu_torch.ops.banded_conv_sm import banded_conv_sm_taps
     return {'sm': banded_conv_sm_taps.launches
             + banded_conv_sm_taps.f32_launches,
             'fused': banded_conv_fused.launches,
             'narrow': banded_conv_narrow.launches,
             'f32': banded_conv_f32.launches,
-            'assembled': banded_conv.launches}
+            'padded': banded_conv_padded.launches}
 
 
 def _cli_reset():
     """Every kernel's launch counters to 0."""
-    from doda_tpu_torch.ops.banded_conv import (banded_conv,
-                                                banded_conv_f32,
+    from doda_tpu_torch.ops.banded_conv import (banded_conv_f32,
                                                 banded_conv_fused,
-                                                banded_conv_narrow)
+                                                banded_conv_narrow,
+                                                banded_conv_padded)
     from doda_tpu_torch.ops.banded_conv_sm import banded_conv_sm_taps
-    banded_conv.launches = banded_conv_fused.launches = 0
+    banded_conv_padded.launches = banded_conv_fused.launches = 0
     banded_conv_narrow.launches = banded_conv_f32.launches = 0
     banded_conv_sm_taps.launches = banded_conv_sm_taps.f32_launches = 0
     banded_conv_fused.pro_launches = 0
@@ -2267,7 +2306,7 @@ def cli_rooms(tmp):
         cfg_from_yaml_file(CFG_DA, CfgNode()), device='cpu')
     fwd, bwd = flagship.subm_routes(), flagship.subm_routes(True)
     assert fwd == {'sm': 0, 'fused': 52, 'narrow': 1, 'f32': 0,
-                   'assembled': 0}, fwd
+                   'padded': 0}, fwd
     return {
         'tmp': tmp,
         'roots': ['DATA_CONFIG.DATA_ROOT', str(tmp / '3dfront/density1250'),
@@ -2812,19 +2851,15 @@ def phase_ddp(card, ctx, cfg, b_caps):
 
 
 def time_k1(nbr, halo, occ, cin, cout, g):
-    """K1 in both versions on one level's real rulebook, bf16: the fused
-    kernel, its plain version and bound; its prologue variant beside the
-    unfused sequence it replaces (``MaskedBatchNorm`` apply + ReLU + mask
-    + the fused kernel); the plane gather alone; the assembled kernel on
-    those planes with its plain version, bound and the cuDNN ``conv1d``
-    that computes the same function of the planes. Bytes, operations and
-    bounds are ``doda_tpu_torch/utils/roofline.py``'s."""
+    """K1 on one level's real rulebook, bf16: the fused kernel, its plain
+    version and bound; its prologue variant beside the unfused sequence it
+    replaces (``MaskedBatchNorm`` apply + ReLU + mask + the fused kernel);
+    the plane gather alone (``_assemble_p6``, which dW still reads). Bytes,
+    operations and bounds are ``doda_tpu_torch/utils/roofline.py``'s."""
     from doda_tpu_torch.models.norm import MaskedBatchNorm
     from doda_tpu_torch.ops import bricks2d
-    from doda_tpu_torch.ops.banded_conv import (banded_conv,
-                                                banded_conv_fused,
+    from doda_tpu_torch.ops.banded_conv import (banded_conv_fused,
                                                 banded_conv_fused_plain,
-                                                banded_conv_plain,
                                                 fused_smem_bytes, occ_words)
     from doda_tpu_torch.utils import roofline
     bf = torch.bfloat16
@@ -2881,46 +2916,21 @@ def time_k1(nbr, halo, occ, cin, cout, g):
                 'dynamic_smem_bytes': fused_smem_bytes(cin, cout, True)}
 
     assembly_ms = cuda_ms(lambda: bricks2d._assemble_p6(x2, halo, bf), 10)
-    rows6 = bricks2d._assemble_p6(x2, halo, bf)
-    wb = bricks2d.banded_weights(w)
-    weights_ms = cuda_ms(lambda: bricks2d.banded_weights(w), 10)
-    old = banded_conv(rows6, wb, bf)
-    vs_old = _close(out, old, True, 2e-2, 'fused vs assembled K1')
-    ref = banded_conv_plain(rows6, wb, bf)
-    err = _close(old, ref, True, 2e-2, 'banded_conv at a timing shape')
-    del ref
-    ms = cuda_ms(lambda: banded_conv(rows6, wb, bf), 20)
-    plain_ms = cuda_ms(lambda: banded_conv_plain(rows6, wb, bf), 3)
-    # one library call of the same function: conv1d over the 6 planes
-    x = rows6.transpose(1, 2).contiguous()           # (B, 36cin, 6)
-    wc = wb.permute(2, 1, 0).contiguous()            # (16cout, 36cin, 3)
-    lib = torch.nn.functional.conv1d(x, wc)          # (B, 16cout, 4)
-    lib_err = (lib.transpose(1, 2).reshape(rows, -1).float()
-               - old.float()).abs().max().item()
-    library_ms = cuda_ms(lambda: torch.nn.functional.conv1d(x, wc), 10)
-    assembled = {'ms': ms, 'plain_ms': plain_ms, 'max_abs_err': err,
-                 **roofline.assembled_work(           # the non-zero taps
-                     rows, cin, cout, bf, int((wb != 0).sum())),
-                 'library_ms': library_ms, 'library_max_abs_err': lib_err}
     return {'shape': [rows, cin, cout], 'fused': fused,
-            'prologue': prologue, 'assembly_ms': assembly_ms,
-            'banded_weights_ms': weights_ms,
-            'assembled': assembled, 'fused_vs_assembled_max_abs_err': vs_old}
+            'prologue': prologue, 'assembly_ms': assembly_ms}
 
 
 def time_narrow(nbr, halo, occ, g):
     """K1's narrow-input version at the bench input conv (3 -> 16, bf16)
     on the level-0 rulebook, on seeded activations masked to the active
-    cells: the kernel, its plain version and bound; beside it the first
-    version over ``_assemble_p6``'s planes, alone and with the plane
-    gather it needs; the fused K1 on x2 and w zero-padded to cin = 8 with
-    the padding pass (the cheapest route otherwise at hand, on no path);
-    and cuDNN ``conv3d`` over the oracle's assembled halo, the library
-    call of the same function. Bounds are ``utils/roofline.py``'s."""
+    cells: the kernel, its plain version and bound; beside it the fused K1
+    on x2 and w zero-padded to cin = 8 with the padding pass (the cheapest
+    route otherwise at hand, on no path); and cuDNN ``conv3d`` over the
+    oracle's assembled halo, the library call of the same function.
+    Bounds are ``utils/roofline.py``'s."""
     import torch.nn.functional as F
     from doda_tpu_torch.ops import bricks, bricks2d
-    from doda_tpu_torch.ops.banded_conv import (banded_conv,
-                                                banded_conv_fused,
+    from doda_tpu_torch.ops.banded_conv import (banded_conv_fused,
                                                 banded_conv_fused_plain,
                                                 banded_conv_narrow)
     from doda_tpu_torch.utils import roofline
@@ -2936,15 +2946,6 @@ def time_narrow(nbr, halo, occ, g):
     del ref
     ms = cuda_ms(lambda: banded_conv_narrow(x2, nbr, w, bf), 20)
     plain_ms = cuda_ms(lambda: banded_conv_fused_plain(x2, nbr, w, bf), 3)
-    wb = bricks2d.banded_weights(w)
-    rows6 = bricks2d._assemble_p6(x2, halo, bf)
-    vs_first = _close(out, banded_conv(rows6, wb, bf), True, 2e-2,
-                      'narrow vs first-version K1 at the input conv')
-    first_ms = cuda_ms(lambda: banded_conv(rows6, wb, bf), 20)
-    gather_ms = cuda_ms(lambda: bricks2d._assemble_p6(x2, halo, bf), 10)
-    del rows6
-    first_gather_ms = cuda_ms(lambda: banded_conv(
-        bricks2d._assemble_p6(x2, halo, bf), wb, bf), 20)
     w8 = F.pad(w, (0, 0, 0, 8 - cin)).contiguous()
 
     def padded():
@@ -2970,13 +2971,64 @@ def time_narrow(nbr, halo, occ, g):
             **roofline.narrow_work(rows, cin, cout,
                                    roofline.present_reads(halo)),
             'library_ms': library_ms, 'library_max_abs_err': lib_err,
-            'f32_out_ms': f32_ms,
-            'first_version_ms': first_ms,
-            'first_version_with_gather_ms': first_gather_ms,
-            'plane_gather_ms': gather_ms,
-            'narrow_vs_first_version_max_abs_err': vs_first,
-            'padded_fused_ms': padded_ms,
+            'f32_out_ms': f32_ms, 'padded_fused_ms': padded_ms,
             'padded_fused_vs_narrow_max_abs_err': vs_padded}
+
+
+def time_padded(nbr, halo, occ, cin, cout, g):
+    """The route 'padded' at (cin -> cout), bf16, on one level's real
+    rulebook, on seeded activations masked to the active cells: its ms
+    (the padding copy, the kernel and the slice), its plain version's, its
+    bound at the true widths and, as ``padded_*``, the launched kernel's
+    at the padded widths (``utils/roofline.py::padded_work``); the
+    launched kernel alone on the padded operands, the padding copy alone,
+    and cuDNN ``conv3d`` over the oracle's assembled halo, the library
+    call of the same function."""
+    import torch.nn.functional as F
+    from doda_tpu_torch.ops import bricks, bricks2d
+    from doda_tpu_torch.ops.banded_conv import (NARROW_MAX_CIN,
+                                                banded_conv_fused,
+                                                banded_conv_fused_plain,
+                                                banded_conv_narrow,
+                                                banded_conv_padded,
+                                                pad_channels)
+    from doda_tpu_torch.utils import roofline
+    bf = torch.bfloat16
+    rows = nbr.shape[0]
+    x3 = torch.randn(rows, 64, cin, device='cuda', generator=g)
+    x2 = (x3 * occ[..., None]).reshape(rows, -1).to(bf)
+    w = (torch.randn(27, cin, cout, device='cuda', generator=g)
+         / (27 * cin) ** 0.5).to(bf)
+    key = f'banded_conv_padded {cin} -> {cout} at a timing shape'
+    out = banded_conv_padded(x2, nbr, w, bf)
+    ref = banded_conv_fused_plain(x2, nbr, w, bf)
+    err = _close(out, ref, True, 2e-2, key)
+    del ref
+    ms = cuda_ms(lambda: banded_conv_padded(x2, nbr, w, bf), 20)
+    plain_ms = cuda_ms(lambda: banded_conv_fused_plain(x2, nbr, w, bf), 3)
+    xp, wp = pad_channels(x2, w)
+    kernel = (banded_conv_narrow if wp.shape[1] <= NARROW_MAX_CIN
+              else banded_conv_fused)
+    kernel_ms = cuda_ms(lambda: kernel(xp, nbr, wp, bf), 20)
+    padding_ms = cuda_ms(lambda: pad_channels(x2, w), 20)
+    del xp
+    hin = bricks.shell_halo(x2.reshape(rows, 64, cin), nbr, bf).permute(
+        0, 4, 1, 2, 3)
+    wc = w.reshape(3, 3, 3, cin, cout).permute(4, 3, 0, 1, 2).contiguous(
+        memory_format=torch.channels_last_3d)
+    lib = F.conv3d(hin, wc).permute(0, 2, 3, 4, 1).reshape(rows, -1)
+    lib_err = _close(bricks2d._mask(lib, occ, cout),
+                     bricks2d._mask(out, occ, cout), True, 2e-2,
+                     f'conv3d vs {key}')
+    del lib
+    library_ms = cuda_ms(lambda: F.conv3d(hin, wc), 10)
+    return {'shape': [rows, cin, cout], 'ms': ms, 'plain_ms': plain_ms,
+            'max_abs_err': err,
+            **roofline.padded_work(rows, cin, cout,
+                                   roofline.present_reads(halo)),
+            'launched': kernel.__name__, 'kernel_alone_ms': kernel_ms,
+            'padding_ms': padding_ms, 'library_ms': library_ms,
+            'library_max_abs_err': lib_err}
 
 
 def time_k2(b, cin, cout, g):
@@ -3043,9 +3095,10 @@ def phase_timing(levels, launches, fuse_launches, library, engine_launches,
     g = torch.Generator(device='cuda').manual_seed(2)
     rows = []
 
-    # K1: one row, both versions. The row's own numbers are the fused
-    # version's, which runs 52 of the 53 convs of a forward; the assembled
-    # version's stand under 'assembled'
+    # K1: one row. Its own numbers are the fused version's, which runs 52
+    # of the 53 convs of a forward; the route 'padded' (the fused or narrow
+    # K1 on zero-padded operands, the bf16 widths no cfg has) stands under
+    # 'padded', at 12 -> 20 and 20 -> 12 on the level-0 rulebook
     l0 = time_k1(levels[0].nbr, levels[0].halo, levels[0].occ, 16, 16, g)
     l1 = time_k1(levels[1].nbr, levels[1].halo, levels[1].occ, 32, 32, g)
     assert l0['shape'] == [b, cin, cout], l0['shape']
@@ -3053,17 +3106,34 @@ def phase_timing(levels, launches, fuse_launches, library, engine_launches,
         log('timing', kernel='banded_conv', at=name, dtype='bfloat16', **t)
     assert l0['fused']['executed_flops'] <= 2.9e11
     fused_fwd, fused_train = launches['fused']
-    old_fwd, old_train = launches['assembled']
-    f0, a0 = l0['fused'], dict(l0['assembled'])
-    old_fuse = sum(n['assembled'] for n in fuse_launches.values())
-    old_eng = sum(n['assembled'] for n in engine_launches.values())
-    a0.update(source='doda_tpu_torch/csrc/banded_conv.cu',
-              launches=old_fwd + old_train + old_fuse + old_eng,
-              launches_fuse_norm_phase=old_fuse,
-              launches_engines_phase=old_eng,
-              launches_eval_forward=old_fwd,
-              launches_train_steps=old_train,
-              **_build.resources('banded_conv'))
+    f0 = l0['fused']
+    lv0 = levels[0]
+    pads = [time_padded(lv0.nbr, lv0.halo, lv0.occ, ci, co, g)
+            for ci, co in ((12, 20), (20, 12))]
+    for t in pads:
+        log('timing', kernel='banded_conv_padded', at='level 0',
+            dtype='bfloat16', **t)
+    pad_fwd, pad_train = launches['padded']
+    pad_fuse = sum(n['padded'] for n in fuse_launches.values())
+    pad_eng = sum(n['padded'] for n in engine_launches.values())
+    padded = {
+        'name': 'banded_conv_padded', 'route': 'cuda',
+        'source': 'doda_tpu_torch/csrc/banded_conv_fused.cu (cin > 7) and '
+                  'doda_tpu_torch/csrc/subm_conv_narrow.cu (cin <= 7) on '
+                  'operands zero-padded by doda_tpu_torch/ops/'
+                  'banded_conv.py::pad_channels',
+        'replaces': 'doda_tpu/ops/pallas_banded.py:71 at the bf16 widths '
+                    'neither the fused nor the narrow K1 takes as they are',
+        'launches': pad_fwd + pad_train + pad_fuse + pad_eng,
+        'launches_fuse_norm_phase': pad_fuse,
+        'launches_engines_phase': pad_eng,
+        'launches_eval_forward': pad_fwd, 'launches_train_steps': pad_train,
+        **{k: pads[0][k] for k in ('max_abs_err', 'ms', 'plain_ms',
+                                   'bound_ms', 'bound_by', 'library_ms')},
+        'library': "torch.nn.functional.conv3d over the shell-gather "
+                   "oracle's assembled (rows, 6, 6, 6, cin) bf16 halo, "
+                   'channels-last (assembly not timed)',
+        'widths': pads}
     fuse_phase = sum(n['fused'] + n['prologue']
                      for n in fuse_launches.values())
     eng_phase = sum(n['fused'] for n in engine_launches.values())
@@ -3084,8 +3154,7 @@ def phase_timing(levels, launches, fuse_launches, library, engine_launches,
         'bound_by': f0['bound_by'],
         # the same function from one PyTorch call: cuDNN's conv3d over the
         # oracle's assembled halo at the same shape (its assembly not
-        # timed); the conv1d of the assembled planes stands under
-        # 'assembled'
+        # timed)
         'library_ms': library['level0']['conv3d_ms'],
         'library': lib,
         'fused_ms': f0['ms'], 'fused_bound_ms': f0['bound_ms'],
@@ -3093,7 +3162,7 @@ def phase_timing(levels, launches, fuse_launches, library, engine_launches,
         'executed_flops': f0['executed_flops'],
         'dynamic_smem_bytes': f0['dynamic_smem_bytes'],
         **_build.resources('banded_conv_fused'),
-        'assembled': a0,
+        'padded': padded,
         'prologue': {
             'source': 'doda_tpu_torch/csrc/banded_conv_fused.cu (PRO)',
             'replaces': 'doda_tpu/ops/pallas_banded.py:71 under '
@@ -3110,9 +3179,7 @@ def phase_timing(levels, launches, fuse_launches, library, engine_launches,
                    'fused_bound_by': l1['fused']['bound_by'],
                    'fused_plain_ms': l1['fused']['plain_ms'],
                    'assembly_ms': l1['assembly_ms'],
-                   'assembled_ms': l1['assembled']['ms'],
-                   'assembled_bound_ms': l1['assembled']['bound_ms'],
-                   'library_ms': l1['assembled']['library_ms']}})
+                   'library_ms': library['level1']['conv3d_ms']}})
 
     # K2: the bf16 kernel's row (its float32 kernel has a row of its own)
     k0 = time_k2(b, 16, 16, g)
@@ -3166,7 +3233,7 @@ def phase_timing(levels, launches, fuse_launches, library, engine_launches,
         **_build.resources('subm_conv_narrow')})
     rows[0]['narrow'] = {k: n0[k] for k in (
         'shape', 'ms', 'bound_ms', 'bound_by', 'plain_ms', 'padded_fused_ms',
-        'library_ms', 'first_version_ms', 'first_version_with_gather_ms')}
+        'library_ms')}
 
     # K1 in float32 (csrc/subm_conv_f32.cu): every float32 conv that K2
     # does not take, forward and dx, beside its float32 bound, its plain
@@ -3256,7 +3323,7 @@ def add_brick_phase(rows, launched, timing):
             (k1['prologue'], total('prologue'),
              {**pro, 'side4_ms': pro4['ms'],
               'side2_over_side4': pro['ms'] / pro4['ms']}),
-            (k1['assembled'], total('assembled'), None),
+            (k1['padded'], total('padded'), None),
             (k2, 0, None),
             (narrow, total('narrow'), pair(timing['narrow']))):
         row['launches_brick_phase'] = n
@@ -3394,9 +3461,9 @@ def main():
                         fuse_launches, library, engine_launches, f32_runs)
     # each CLI run's launches, counted in the cli phases, join each
     # kernel's (the CLIs run bf16 at sm_max_cin=0: no float32 kernel, no
-    # 'assembled' and no 'sm' conv)
-    for row, route in ((rows[0], 'fused'), (rows[0]['assembled'],
-                                            'assembled'), (rows[1], 'sm'),
+    # 'padded' and no 'sm' conv)
+    for row, route in ((rows[0], 'fused'), (rows[0]['padded'], 'padded'),
+                       (rows[1], 'sm'),
                        (rows[2], 'narrow'), (rows[3], 'f32'),
                        (rows[4], 'sm')):
         row['launches_cli'] = {run: n[route] for run, n in cli.items()}
@@ -3407,7 +3474,7 @@ def main():
     k1['launches_remat_phase'] = (remat_launches['fused']
                                   + remat_launches['prologue'])
     k1['launches'] += k1['launches_remat_phase']
-    for sub, route in (('prologue', 'prologue'), ('assembled', 'assembled')):
+    for sub, route in (('prologue', 'prologue'), ('padded', 'padded')):
         k1[sub]['launches_remat_phase'] = remat_launches[route]
         k1[sub]['launches'] += remat_launches[route]
     rows[2]['launches_remat_phase'] = remat_launches['narrow']
@@ -3419,10 +3486,10 @@ def main():
     for r in rows:       # every kernel of the paths really ran on them
         assert r['launches'] > 0, r['name']
     assert rows[0]['prologue']['launches'] > 0
-    # no conv of the flagship takes the assembled route since float32 took
-    # banded_conv_f32: the assembled K1 (bf16 only) is checked in phase
-    # kernels and launched on no path
-    assert rows[0]['assembled']['launches'] == 0, rows[0]['assembled']
+    # no conv of the flagship has a bf16 width that the fused and narrow K1
+    # do not take: the route 'padded' is checked in phases kernels and
+    # brick, timed in phase timing, and launched on no path
+    assert rows[0]['padded']['launches'] == 0, rows[0]['padded']
     log('run', card=card, seconds=time.perf_counter() - start)
     print(json.dumps({'kernels': rows}), flush=True)
     print(json.dumps({'ok': True, 'device': {

@@ -10,7 +10,10 @@
 //     out[b, cell, :] = sum_{tap} halo_b[cell + tap] @ w[tap]
 //
 // where halo_b is the 6x6x6 cell neighbourhood of brick b: exactly
-// banded_conv(_assemble_p6(x2, halo_index(nbr)), banded_weights(w)).
+// banded_conv_plain(_assemble_p6(x2, halo_index(nbr)),
+// banded_weights(w)). The route 'padded' (ops/banded_conv.py::
+// banded_conv_padded) runs it on operands zero-padded to multiples of 8
+// channels, for the bf16 widths no kernel takes as they are.
 //
 // What bounds it on an H100. The function moves x2 once, out once and nbr
 // (0.69 GB, 0.206 ms at 3.35 TB/s at rows = 163840, cin = cout = 16) and

@@ -12,13 +12,16 @@
 //
 //     out[b, cell, :] = sum_{tap} halo_b[cell + tap] @ w[tap]
 //
-// exactly banded_conv(_assemble_p6(x2, halo_index(nbr)), banded_weights(w)).
+// exactly banded_conv_plain(_assemble_p6(x2, halo_index(nbr)),
+// banded_weights(w)). The route 'padded' (ops/banded_conv.py::
+// banded_conv_padded) runs it on operands zero-padded to multiples of 8
+// channels, for the bf16 widths no kernel takes as they are.
 //
 // What bounds it on an H100. The function moves x2 once, out once and the
 // rulebook: at the bench input conv (rows = 163840, cin = 3, cout = 16,
 // bf16 out) 416 MB, 0.124 ms at 3.35 TB/s; the output is 80% of it. Its
 // 2.7e10 FLOPs of taps are 0.03 ms on the tensor cores. So bytes bound it.
-// The first version (banded_conv.cu) read six assembled planes, 3.4x the
+// The first version (banded_conv.cu, deleted) read six assembled planes, 3.4x the
 // activation, written by a gather and read back, and multiplied a band
 // that is 75% placed zeros, 81 taps a cell padded into WMMA tiles.
 //

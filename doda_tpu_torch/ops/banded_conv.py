@@ -2,21 +2,20 @@
 
 Port of ``doda_tpu/ops/pallas_banded.py::banded_conv``. For rows6
 (B, 6, 36*cin) — the six halo planes x = -1, 0..3, +4 of each brick — and
-banded weights wb (3, 36*cin, 16*cout) it computes
+banded weights wb (3, 36*cin, 16*cout) that kernel computes
 
     out[:, x*16*cout:(x+1)*16*cout] = sum_{j<3} rows6[:, x + j] @ wb[j]
 
-for x = 0..3, unmasked, accumulating in float32. On CUDA tensors this is
-the hand-written kernel of ``csrc/banded_conv.cu``, for bf16 operands (a
-float32 call raises, naming ``banded_conv_f32``); on CPU tensors it is
-``banded_conv_plain``. There is no other path.
+for x = 0..3, unmasked, accumulating in float32. Here that band is
+``banded_conv_plain``, in plain PyTorch: the plain version of every
+kernel below, none of which reads halo planes or banded weights.
 
-``banded_conv_fused`` is the kernel's second version
-(``csrc/banded_conv_fused.cu``): the same conv from the activation x2
-(rows, 64*cin), the rulebook nbr (rows, 27) and the raster weights
-w (27, cin, cout). It assembles each brick's halo in shared memory and
+``banded_conv_fused`` (``csrc/banded_conv_fused.cu``) is the same conv
+from the activation x2 (rows, 64*cin), the rulebook nbr (rows, 27) and
+the raster weights w (27, cin, cout), for bf16 operands with cin and cout
+multiples of 8. It assembles each brick's halo in shared memory and
 multiplies only the taps, so neither the planes nor the banded weights are
-built. Its plain version is the first route on plain PyTorch:
+built. Its plain version is the band on plain PyTorch:
 ``banded_conv_plain(_assemble_p6(x2, halo_index(nbr)), banded_weights(w))``.
 
 ``banded_conv_narrow`` (``csrc/subm_conv_narrow.cu``) is the same conv
@@ -30,6 +29,16 @@ activation and the rulebook on float32 operands, for every cin and cout:
 the taps only, from the raster weights, as float32 FMAs on the CUDA cores
 (no TF32), so no float32 conv reads halo planes. Its plain version is the
 fused version's.
+
+``banded_conv_padded`` is the same conv in bf16 for the widths that
+neither takes as they are (cin >= 8 not a multiple of 8, or cout not a
+multiple of 8): it zero-pads cin to the next multiple of 8 (not below
+8: the narrow version takes cin 1 to 7 as it is) and cout to the next
+multiple of 8, runs the fused version (the narrow one where cin <= 7) on
+the padded operands and slices the output back to cout. Zero channels add
+exact zeros to the float32 sums, so its result is the launched kernel's on
+the padded operands, bit for bit; its plain version is the fused
+version's plain version on those operands.
 
 With ``pro=(scale, bias, occw)`` the fused version is the prologue variant
 of the fused norm + ReLU engine: the conv reads
@@ -83,67 +92,6 @@ def banded_conv_plain(rows6: torch.Tensor, wb: torch.Tensor,
     return torch.cat(outs, dim=1).to(out_dtype)
 
 
-@functools.lru_cache(maxsize=None)
-def _entry():
-    fn = _build.load('banded_conv').doda_banded_conv
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
-
-
-def _check(rows6: torch.Tensor, wb: torch.Tensor, out_dtype) -> None:
-    if rows6.device.type != 'cuda' or wb.device != rows6.device:
-        raise ValueError(f'banded_conv: rows6 on {rows6.device} and wb on '
-                         f'{wb.device}; both must be on one CUDA device')
-    if rows6.dtype != torch.bfloat16 or wb.dtype != rows6.dtype:
-        raise ValueError(f'banded_conv: operands {rows6.dtype}/{wb.dtype}; '
-                         'the kernel takes bfloat16 (float32 convs run '
-                         'banded_conv_f32 from the activation and the '
-                         'rulebook)')
-    if out_dtype not in _DTYPE_CODES:
-        raise ValueError(f'banded_conv: out_dtype {out_dtype} unsupported')
-    if rows6.dim() != 3 or wb.dim() != 3 \
-            or wb.shape[0] != 3 or wb.shape[1] != rows6.shape[2] \
-            or wb.shape[2] % 8:
-        raise ValueError(f'banded_conv: shapes {tuple(rows6.shape)} and '
-                         f'{tuple(wb.shape)}; need (B, s+2, K) and (3, K, '
-                         'N) with N a multiple of 8')
-    if not (rows6.is_contiguous() and wb.is_contiguous()):
-        raise ValueError('banded_conv: operands must be contiguous')
-    if wb.data_ptr() % 16:
-        raise ValueError('banded_conv: wb must be 16-byte aligned')
-
-
-def banded_conv(rows6: torch.Tensor, wb: torch.Tensor,
-                out_dtype) -> torch.Tensor:
-    """rows6 (B, 6, 36*cin), wb (3, 36*cin, 16*cout) -> (B, 64*cout) at
-    side 4; (B, s+2, (s+2)^2*cin), (3, (s+2)^2*cin, s^2*cout) -> (B,
-    s^3*cout) at side s."""
-    if rows6.device.type == 'cpu' and wb.device.type == 'cpu':
-        return banded_conv_plain(rows6, wb, out_dtype)
-    if rows6.dim() == 3:
-        kernel_side('banded_conv', max(rows6.shape[1] - 2, 0) ** 3)
-    _check(rows6, wb, out_dtype)
-    side = rows6.shape[1] - 2
-    b, _, k = rows6.shape
-    n = wb.shape[2]
-    out = torch.empty((b, side * n), dtype=out_dtype, device=rows6.device)
-    err = _entry()(rows6.data_ptr(), wb.data_ptr(), out.data_ptr(), b, k, n,
-                   side, _DTYPE_CODES[rows6.dtype], _DTYPE_CODES[out_dtype],
-                   torch.cuda.current_stream(rows6.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f'banded_conv: kernel launch failed with CUDA '
-                           f'error {err}')
-    banded_conv.launches += 1
-    return out
-
-
-banded_conv.launches = 0
-
-
 # ---------------------------------------------------------------------------
 # the fused version: activation + rulebook in, conv out
 # ---------------------------------------------------------------------------
@@ -168,8 +116,8 @@ def occ_from_words(occw: torch.Tensor, cells: int = 64) -> torch.Tensor:
 def banded_conv_fused_plain(x2: torch.Tensor, nbr: torch.Tensor,
                             w: torch.Tensor, out_dtype,
                             pro=None) -> torch.Tensor:
-    """The assembled route on plain PyTorch: halo planes by one gather,
-    banded weights, 12 float32 matmuls; with ``pro=(scale, bias, occw)``
+    """The band on plain PyTorch: halo planes by one gather, banded
+    weights, 12 float32 matmuls; with ``pro=(scale, bias, occw)``
     the planes of ``pro_full`` of x2 (the prologue in float32, rounded
     once to the operands' dtype)."""
     from . import bricks, bricks2d
@@ -273,13 +221,27 @@ def banded_conv_fused(x2: torch.Tensor, nbr: torch.Tensor, w: torch.Tensor,
     cells = x2.shape[-1] // w.shape[1] if w.dim() == 3 and w.shape[1] else 0
     side = kernel_side('banded_conv_fused', cells)
     _check_fused(x2, nbr, w, out_dtype)
-    rows, cin, cout = x2.shape[0], w.shape[1], w.shape[2]
+    rows, cin = x2.shape[0], w.shape[1]
     ptrs = (None, None, None)
     if pro is not None:
         pro = (pro[0].to(torch.bfloat16).contiguous(),
                pro[1].to(torch.bfloat16).contiguous(), pro[2])
         _check_pro(pro, x2, cin)
         ptrs = tuple(t.data_ptr() for t in pro)
+    out = _fused_launch(x2, nbr, w, out_dtype, side, ptrs)
+    if rows == 0:
+        return out
+    if pro is None:
+        banded_conv_fused.launches += 1
+    else:
+        banded_conv_fused.pro_launches += 1
+    return out
+
+
+def _fused_launch(x2, nbr, w, out_dtype, side, ptrs=(None, None, None)):
+    """One launch of the fused kernel on checked operands (none for no
+    rows); ``ptrs`` are the prologue's (scale, bias, occw) pointers."""
+    rows, cin, cout = x2.shape[0], w.shape[1], w.shape[2]
     out = torch.empty((rows, side ** 3 * cout), dtype=out_dtype,
                       device=x2.device)
     if rows == 0:
@@ -291,10 +253,6 @@ def banded_conv_fused(x2: torch.Tensor, nbr: torch.Tensor, w: torch.Tensor,
     if err != 0:
         raise RuntimeError('banded_conv_fused: kernel launch failed with '
                            f'CUDA error {err}')
-    if pro is None:
-        banded_conv_fused.launches += 1
-    else:
-        banded_conv_fused.pro_launches += 1
     return out
 
 
@@ -405,9 +363,18 @@ def banded_conv_narrow(x2: torch.Tensor, nbr: torch.Tensor, w: torch.Tensor,
     _check_narrow_shapes(x2, nbr, w)
     if all(t.device.type == 'cpu' for t in (x2, nbr, w)):
         return banded_conv_fused_plain(x2, nbr, w, out_dtype)
-    rows, cin, cout = x2.shape[0], w.shape[1], w.shape[2]
-    side = kernel_side('banded_conv_narrow', x2.shape[1] // cin)
+    side = kernel_side('banded_conv_narrow', x2.shape[1] // w.shape[1])
     _check_cuda('banded_conv_narrow', x2, nbr, w, out_dtype)
+    out = _narrow_launch(x2, nbr, w, out_dtype, side)
+    if x2.shape[0]:
+        banded_conv_narrow.launches += 1
+    return out
+
+
+def _narrow_launch(x2, nbr, w, out_dtype, side):
+    """One launch of the narrow kernel on checked operands (none for no
+    rows)."""
+    rows, cin, cout = x2.shape[0], w.shape[1], w.shape[2]
     out = torch.empty((rows, side ** 3 * cout), dtype=out_dtype,
                       device=x2.device)
     if rows == 0:
@@ -419,8 +386,79 @@ def banded_conv_narrow(x2: torch.Tensor, nbr: torch.Tensor, w: torch.Tensor,
     if err != 0:
         raise RuntimeError('banded_conv_narrow: kernel launch failed with '
                            f'CUDA error {err}')
-    banded_conv_narrow.launches += 1
     return out
 
 
 banded_conv_narrow.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# any bf16 width: zero-padded to the fused (or narrow) version's widths
+# ---------------------------------------------------------------------------
+
+def padded_widths(cin: int, cout: int) -> tuple:
+    """The (cin, cout) that ``banded_conv_padded`` launches a kernel at:
+    cout rounded up to a multiple of 8; cin rounded up to a multiple of 8
+    where it is above ``NARROW_MAX_CIN`` (the fused version), else as it
+    is (the narrow version)."""
+    return (cin if cin <= NARROW_MAX_CIN else (cin + 7) // 8 * 8,
+            (cout + 7) // 8 * 8)
+
+
+def pad_channels(x2: torch.Tensor, w: torch.Tensor) -> tuple:
+    """x2 (rows, cells*cin) and w (27, cin, cout) with zero channels
+    appended up to ``padded_widths``: one copy of x2 where cin grows (x2
+    itself where it does not), one of the small w; on x2's device."""
+    import torch.nn.functional as F
+    cin, cout = w.shape[1], w.shape[2]
+    cin_p, cout_p = padded_widths(cin, cout)
+    if cin_p != cin:
+        rows, cells = x2.shape[0], x2.shape[1] // cin
+        x2 = F.pad(x2.reshape(rows, cells, cin),
+                   (0, cin_p - cin)).reshape(rows, cells * cin_p)
+    if (cin_p, cout_p) != (cin, cout):
+        w = F.pad(w, (0, cout_p - cout, 0, cin_p - cin))
+    return x2, w.contiguous()
+
+
+def banded_conv_padded(x2: torch.Tensor, nbr: torch.Tensor,
+                       w: torch.Tensor, out_dtype) -> torch.Tensor:
+    """x2 (rows, cells*cin) bf16, nbr (rows, 27) int32 with null id ==
+    rows, w (27, cin, cout) bf16 -> (rows, cells*cout), unmasked (cells =
+    s^3 for bricks of side s), for any cin and cout: the fused (cin > 7)
+    or narrow (cin <= 7) version on operands zero-padded by
+    ``pad_channels``, its output sliced back to cout. The padding and the
+    slice are copies on x2's device; on the CPU the kernel is its plain
+    version. Its launches count in ``banded_conv_padded.launches``, not in
+    those of the kernel it runs."""
+    _check_nbr('banded_conv_padded', x2, nbr)
+    if w.dim() != 3 or w.shape[0] != 27 or w.shape[1] == 0 \
+            or w.shape[2] == 0 or x2.shape[1] % w.shape[1]:
+        raise ValueError(f'banded_conv_padded: x2 {tuple(x2.shape)} and w '
+                         f'{tuple(w.shape)}; need (rows, cells*cin) and '
+                         '(27, cin, cout)')
+    rows, cin, cout = x2.shape[0], w.shape[1], w.shape[2]
+    cells = x2.shape[1] // cin
+    on_cpu = all(t.device.type == 'cpu' for t in (x2, nbr, w))
+    if not on_cpu:
+        side = kernel_side('banded_conv_padded', cells)
+        _check_cuda('banded_conv_padded', x2, nbr, w, out_dtype)
+    xp, wp = pad_channels(x2, w)
+    if on_cpu:
+        out = banded_conv_fused_plain(xp, nbr, wp, out_dtype)
+    elif wp.shape[1] <= NARROW_MAX_CIN:
+        _check_narrow_shapes(xp, nbr, wp)
+        out = _narrow_launch(xp, nbr, wp, out_dtype, side)
+    else:
+        _check_fused(xp, nbr, wp, out_dtype)
+        out = _fused_launch(xp, nbr, wp, out_dtype, side)
+    if not on_cpu and rows:
+        banded_conv_padded.launches += 1
+    cout_p = wp.shape[2]
+    if cout_p == cout:
+        return out
+    return out.reshape(rows, cells, cout_p)[:, :, :cout].reshape(
+        rows, cells * cout)
+
+
+banded_conv_padded.launches = 0

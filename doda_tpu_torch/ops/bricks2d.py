@@ -14,7 +14,8 @@ The submanifold 3^3 conv is a banded 1-D conv along the brick's x-slices:
 each brick gets six halo planes (x = -1, 0..3, +4), each a 6x6 (y', z')
 raster of cells (36*C lanes), and output slice x is
 ``sum_j plane[x + j] @ wb[j]`` with the banded weights of
-``banded_weights``. That product is kernel K1 (``banded_conv``). Kernel
+``banded_weights``. That product is kernel K1 (``banded_conv_plain`` in
+plain PyTorch; no kernel of the port reads the planes). Kernel
 K2 (``banded_conv_sm``) computes the same conv "source-major", from the
 brick's own activation plus only the halo cells around it
 (``_assemble_sm``), so the four centre planes never reach device memory;
@@ -28,11 +29,13 @@ takes the activation and the rulebook and assembles the halo inside the
 kernel: no planes, no banded weights. A bf16 conv of 1 to 7 input
 channels (``uses_narrow``: the cin = 3 input conv) runs its narrow-input
 version, ``banded_conv_narrow``, from the activation and the rulebook
-too. Every float32 conv that K2 does not take, of any width, runs
+too. Every other bf16 width takes the route 'padded'
+(``banded_conv_padded``): the fused (or narrow) version on operands
+zero-padded to multiples of 8 channels, the output sliced back. Every
+float32 conv that K2 does not take, of any width, runs
 ``banded_conv_f32`` (the route 'f32'), from the activation and the
-rulebook as well, on the CUDA cores. The assembled route below remains
-for bf16 shapes that neither bf16 kernel takes, and its planes for the dW
-product.
+rulebook as well, on the CUDA cores. The halo planes below remain for the
+dW product.
 
 Assembly differs from the JAX package by design. There, TPU gathers want
 wide rows, so the planes are stitched from lane slices of boundary-cell
@@ -59,8 +62,8 @@ Fused norm + ReLU prologue (``subm_conv3_norm_2d``, ``down_conv2_norm_2d``,
 takes the folded per-channel (scale, bias) of the batch norm in front of it
 and reads ``where(occ, relu(x*scale + bias), 0)`` (``_apply_pro``) in
 place of x, so the normalized activation is never written. On the fused
-route the prologue runs inside K1 where it stages the halo; on the 'sm'
-and 'assembled' routes and in the down/up convs ``pro_full`` applies it
+route the prologue runs inside K1 where it stages the halo; on the other
+routes and in the down/up convs ``pro_full`` applies it
 once up front, as the JAX package does for its source-major engines. The
 backward runs dh through the plain conv's dx kernel, then the prologue's
 backward in one pass: dx = dh*scale*relu'*occ, and dscale and dbias
@@ -75,8 +78,9 @@ from typing import Optional
 import numpy as np
 import torch
 
-from .banded_conv import (NARROW_MAX_CIN, banded_conv, banded_conv_f32,
-                          banded_conv_fused, banded_conv_narrow, occ_words)
+from .banded_conv import (NARROW_MAX_CIN, banded_conv_f32,
+                          banded_conv_fused, banded_conv_narrow,
+                          banded_conv_padded, occ_words)
 from .banded_conv_sm import banded_conv_sm_taps
 from .bricks import BRICK, geometry, side_of
 
@@ -369,8 +373,9 @@ def subm_route(cin: int, cout: int, dtype, sm_max_cin: int,
     """The kernel a (cin -> cout) subm conv runs at brick side ``side``:
     'sm' (K2, bf16 or float32), 'f32' (K1 in float32 from activation and
     rulebook, any width), 'fused' (K1 in bf16 from activation and
-    rulebook), 'narrow' (the same for cin < 8) or 'assembled' (K1 on halo
-    planes: bf16 widths that neither takes). The routes are the same at
+    rulebook), 'narrow' (the same for cin < 8) or 'padded' (either of
+    those two on operands zero-padded to multiples of 8 channels: the bf16
+    widths that neither takes as they are). The routes are the same at
     every side; each kernel's wrapper refuses a side it is not built
     for."""
     if uses_sm(cin, cout, sm_max_cin, side):
@@ -379,7 +384,7 @@ def subm_route(cin: int, cout: int, dtype, sm_max_cin: int,
         return 'fused'
     if dtype == torch.float32:
         return 'f32'
-    return 'narrow' if uses_narrow(cin, cout, dtype) else 'assembled'
+    return 'narrow' if uses_narrow(cin, cout, dtype) else 'padded'
 
 
 # ---------------------------------------------------------------------------
@@ -391,7 +396,7 @@ def _flip_weights(w: torch.Tensor) -> torch.Tensor:
     return w.flip(0).transpose(1, 2)
 
 
-def _subm_raw(x2, halo, sm, weights, compute_dtype, sm_max_cin, nbr=None,
+def _subm_raw(x2, sm, weights, compute_dtype, sm_max_cin, nbr=None,
               pro=None, occw=None):
     """Assembly + conv core, unmasked (the backward's dx must keep the
     gradient at inactive cells; masked producers upstream zero it).
@@ -415,7 +420,7 @@ def _subm_raw(x2, halo, sm, weights, compute_dtype, sm_max_cin, nbr=None,
                              'no sm_index table')
         ops = _assemble_sm(x2, sm, compute_dtype, side)
         return banded_conv_sm_taps(*ops, w.contiguous(), x2.dtype)
-    if route in ('fused', 'narrow', 'f32') and nbr is None:
+    if nbr is None:
         raise ValueError(f'subm conv {cin}->{cout} in {compute_dtype} '
                          f'selects the {route} K1 but was given no '
                          'rulebook (nbr)')
@@ -425,14 +430,13 @@ def _subm_raw(x2, halo, sm, weights, compute_dtype, sm_max_cin, nbr=None,
     if route == 'narrow':
         return banded_conv_narrow(x2.to(compute_dtype), nbr, w.contiguous(),
                                   out_dtype)
-    if route == 'fused':
-        if pro is not None:
-            pro = (pro[0], pro[1],
-                   occ_words(pro[2]) if occw is None else occw)
-        return banded_conv_fused(x2.to(compute_dtype), nbr, w.contiguous(),
-                                 out_dtype, pro)
-    return banded_conv(_assemble_p6(x2, halo, compute_dtype),
-                       banded_weights(w, side), out_dtype)
+    if route == 'padded':
+        return banded_conv_padded(x2.to(compute_dtype), nbr, w.contiguous(),
+                                  out_dtype)
+    if pro is not None:
+        pro = (pro[0], pro[1], occ_words(pro[2]) if occw is None else occw)
+    return banded_conv_fused(x2.to(compute_dtype), nbr, w.contiguous(),
+                             out_dtype, pro)
 
 
 def _contract_rows(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -484,7 +488,7 @@ def _subm_dw(rows6: torch.Tensor, g: torch.Tensor, compute_dtype, cin: int,
 
 @torch.library.custom_op('doda_torch::subm_conv3_product', mutates_args=())
 def subm_conv3_product(x2: torch.Tensor, weights: torch.Tensor,
-                       halo: torch.Tensor, sm: Optional[torch.Tensor],
+                       sm: Optional[torch.Tensor],
                        nbr: Optional[torch.Tensor],
                        scale: Optional[torch.Tensor],
                        bias: Optional[torch.Tensor],
@@ -502,9 +506,8 @@ def subm_conv3_product(x2: torch.Tensor, weights: torch.Tensor,
     (``models/unet.py``). The autograd Functions below call it in their
     forward only, so it needs no autograd formula of its own."""
     if scale is None:
-        return _subm_raw(x2, halo, sm, weights, compute_dtype, sm_max_cin,
-                         nbr)
-    return _subm_raw(x2, halo, sm, weights, compute_dtype, sm_max_cin, nbr,
+        return _subm_raw(x2, sm, weights, compute_dtype, sm_max_cin, nbr)
+    return _subm_raw(x2, sm, weights, compute_dtype, sm_max_cin, nbr,
                      (scale, bias, occ), occw)
 
 
@@ -522,8 +525,8 @@ class _SubmConv(torch.autograd.Function):
                 nbr):
         ctx.save_for_backward(x2, weights, occ, halo, sm, nbr)
         ctx.compute_dtype, ctx.sm_max_cin = compute_dtype, sm_max_cin
-        out = subm_conv3_product(x2, weights, halo, sm, nbr, None, None,
-                                 None, None, compute_dtype, sm_max_cin)
+        out = subm_conv3_product(x2, weights, sm, nbr, None, None, None,
+                                 None, compute_dtype, sm_max_cin)
         return _mask(out, occ, weights.shape[2])
 
     @staticmethod
@@ -536,7 +539,7 @@ class _SubmConv(torch.autograd.Function):
         if ctx.needs_input_grad[0]:
             # the conv of the cotangent with the transpose stencil, through
             # the kernel that the flipped shape (cout -> cin) selects
-            dx = _subm_raw(g, halo, sm, _flip_weights(weights), cd,
+            dx = _subm_raw(g, sm, _flip_weights(weights), cd,
                            ctx.sm_max_cin, nbr).to(x2.dtype)
         if ctx.needs_input_grad[1]:
             dw = _subm_dw(_assemble_p6(x2, halo, cd), g, cd, cin,
@@ -557,9 +560,8 @@ def subm_conv3_2d(x2: torch.Tensor, occ: torch.Tensor, halo: torch.Tensor,
     weights (27, cin, cout) raster (dx, dy, dz)
     sm      (rows, 176) from ``sm_index``, needed where ``uses_sm`` picks
             K2 for this conv or for its backward's flipped shape
-    nbr     (rows, 27) int32 rulebook, null id == rows, needed where
-            ``subm_route`` picks a K1 that takes it: 'fused', 'narrow'
-            or 'f32' (forward or flipped shape)
+    nbr     (rows, 27) int32 rulebook, null id == rows, needed wherever
+            ``subm_route`` picks K1 (forward or flipped shape)
     returns (rows, 64*cout) in x2.dtype, masked to active cells
     """
     return _SubmConv.apply(x2, weights, occ, halo, sm, compute_dtype,
@@ -574,7 +576,7 @@ class _SubmConvNorm(torch.autograd.Function):
                 sm_max_cin, nbr, occw):
         ctx.save_for_backward(x2, weights, scale, bias, occ, halo, sm, nbr)
         ctx.compute_dtype, ctx.sm_max_cin = compute_dtype, sm_max_cin
-        out = subm_conv3_product(x2, weights, halo, sm, nbr, scale, bias,
+        out = subm_conv3_product(x2, weights, sm, nbr, scale, bias,
                                  occ, occw, compute_dtype, sm_max_cin)
         return _mask(out, occ, weights.shape[2])
 
@@ -589,7 +591,7 @@ class _SubmConvNorm(torch.autograd.Function):
         if any(ctx.needs_input_grad[i] for i in (0, 2, 3)):
             # the cotangent of the prologue's output through the plain
             # conv's dx kernel, then the prologue's backward
-            dh = _subm_raw(g, halo, sm, _flip_weights(weights), cd,
+            dh = _subm_raw(g, sm, _flip_weights(weights), cd,
                            ctx.sm_max_cin, nbr)
             dx, ds, db = _pro_backward(x2, h, scale, dh, cd)
         if ctx.needs_input_grad[1]:

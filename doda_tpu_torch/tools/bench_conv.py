@@ -1,6 +1,7 @@
 """Times one subm conv on each route at the bench shapes.
 
     python -m doda_tpu_torch.tools.bench_conv [--reps 20] [--levels 0-6]
+                                              [--widths 12:20,20:12]
                                               [--brick 4|2]
                                               [--dtype bfloat16|float32]
                                               [--device cuda|cpu]
@@ -13,7 +14,8 @@ that level's real rulebook, on seeded activations masked to its active
 cells. By default: level 0 at the JAX tool's combos (16 -> 16, 32 -> 16,
 32 -> 32); ``--levels a-b`` takes each level l of the range at its own
 width (16·(l+1) -> 16·(l+1)). Where level 0 is taken, the input conv's
-shape (3 -> 16) is timed too, in float32 and in bf16.
+shape (3 -> 16) is timed too, in float32 and in bf16. ``--widths`` adds
+level-0 (cin, cout) pairs of any width (those of the route 'padded').
 
 Routes, each where it applies (bf16 unless said):
   fused      K1's fused version, ``banded_conv_fused`` (cin, cout % 8 == 0)
@@ -22,12 +24,12 @@ Routes, each where it applies (bf16 unless said):
   unfused    the sequence the prologue replaces: ``bricks2d.pro_full``
              (scale, bias, ReLU, mask), then the fused K1
   narrow     K1's narrow-input version, ``banded_conv_narrow`` (cin < 8)
-  padded     the fused K1 on x2 and w zero-padded to cin = 8, the padding
+  padded     the fused or narrow K1 on operands zero-padded to multiples of
+             8 channels, ``banded_conv_padded`` (the other widths), padding
+             and slice timed with it; its bound is the function's at the
+             true widths (``roofline.padded_work``)
+  fused_cin8 the fused K1 on x2 and w zero-padded to cin = 8, the padding
              pass timed with it: a yardstick for ``narrow``, on no path
-  assembled  K1's first version, ``banded_conv``, over ``_assemble_p6``'s
-             planes and ``banded_weights`` (built once, not timed)
-  assembled+gather  the same with ``_assemble_p6``'s plane gather timed
-             (where ``narrow`` applies: the route it replaces)
   sm         K2's second version, ``banded_conv_sm_taps``, over
              ``_assemble_sm``'s operands (built once; cin % 16 == 0)
   plain      the plain version of the route the model takes at the shape
@@ -69,10 +71,9 @@ import torch.nn.functional as F
 
 from ..models.unet import build_level_plan, default_brick_caps, flatten_plan
 from ..ops import bricks, bricks2d
-from ..ops.banded_conv import (banded_conv, banded_conv_f32,
-                               banded_conv_fused, banded_conv_fused_plain,
-                               banded_conv_narrow, banded_conv_plain,
-                               occ_words)
+from ..ops.banded_conv import (banded_conv_f32, banded_conv_fused,
+                               banded_conv_fused_plain, banded_conv_narrow,
+                               banded_conv_padded, occ_words)
 from ..ops.banded_conv_sm import banded_conv_sm_taps
 from ..utils import roofline, synth
 from ..utils.device import card_label, resolve_device
@@ -162,12 +163,12 @@ def f32_readings(lv, cin: int, cout: int, reps: int, gen) -> list:
 
     add('f32', lambda: banded_conv_f32(x2, lv.nbr, w, f32), k1_work)
     add('route_k1', lambda: bricks2d._subm_raw(
-        x2, lv.halo, sm, w, f32, 0, lv.nbr), k1_work)
+        x2, sm, w, f32, 0, lv.nbr), k1_work)
     if k2_ok:
         ops = bricks2d._assemble_sm(x2, sm, f32, side)
         add('sm', lambda: banded_conv_sm_taps(*ops, w, f32), k2_work)
         add('route_k2', lambda: bricks2d._subm_raw(
-            x2, lv.halo, sm, w, f32, 32, lv.nbr), k2_work)
+            x2, sm, w, f32, 32, lv.nbr), k2_work)
         del ops
     add('plain', lambda: banded_conv_fused_plain(x2, lv.nbr, w, f32),
         k1_work)
@@ -192,8 +193,9 @@ def readings(lv, cin: int, cout: int, dtype, reps: int, gen) -> list:
 
     def add(name, fn, work):
         out.append({'route': name, 'ms': timed_ms(fn, reps, dev),
-                    **{k: work[k] for k in ('bound_ms', 'bound_by', 'bytes',
-                                            'flops')}})
+                    **{k: v for k, v in work.items() if k in (
+                        'bound_ms', 'bound_by', 'bytes', 'flops')
+                       or k.startswith('padded_')}})
 
     if route == 'fused':
         fused = roofline.fused_work(rows, cin, cout, reads, side)
@@ -220,17 +222,12 @@ def readings(lv, cin: int, cout: int, dtype, reps: int, gen) -> list:
         def padded():
             x8 = F.pad(x2.reshape(rows, cells, cin), (0, 8 - cin))
             return banded_conv_fused(x8.reshape(rows, -1), lv.nbr, w8, dtype)
-        add('padded', padded, narrow)
-    rows6 = bricks2d._assemble_p6(x2, lv.halo, dtype)
-    wb = bricks2d.banded_weights(w, side)
-    assembled = roofline.assembled_work(rows, cin, cout, dtype, side=side)
-    add('assembled', lambda: banded_conv(rows6, wb, dtype), assembled)
-    if route == 'narrow':
-        add('assembled+gather', lambda: banded_conv(
-            bricks2d._assemble_p6(x2, lv.halo, dtype), wb, dtype), assembled)
-    if route == 'assembled':
-        add('plain', lambda: banded_conv_plain(rows6, wb, dtype), assembled)
-    del rows6, wb
+        add('fused_cin8', padded, narrow)
+    if route == 'padded':
+        work = roofline.padded_work(rows, cin, cout, reads, side)
+        add('padded', lambda: banded_conv_padded(x2, lv.nbr, w, dtype), work)
+        add('plain', lambda: banded_conv_fused_plain(x2, lv.nbr, w, dtype),
+            work)
     if dtype == torch.bfloat16 and cin % 16 == 0 and cout % 8 == 0:
         ops = bricks2d._assemble_sm(x2, bricks2d.sm_index(lv.nbr, side),
                                     dtype, side)
@@ -247,6 +244,8 @@ def main(argv=None) -> list:
     ap.add_argument('--levels', default='0',
                     help="'0': level 0 at 16/32 -> 16/32 (default); 'a-b': "
                          'each level of the range at its width')
+    ap.add_argument('--widths', default='',
+                    help="extra level-0 'cin:cout' pairs, comma-separated")
     ap.add_argument('--device', default='cuda', help="'cuda' or 'cpu'")
     ap.add_argument('--batch', type=int, default=synth.BATCH)
     ap.add_argument('--points', type=int, default=synth.N_REAL,
@@ -264,7 +263,9 @@ def main(argv=None) -> list:
     if dev.type == 'cuda':
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
-    todo = combos(args.levels)
+    todo = combos(args.levels) + [
+        (0, *map(int, pair.split(':'))) for pair in args.widths.split(',')
+        if pair]
     num_levels = max(lvl for lvl, _, _ in todo) + 1
     b_caps = bench_caps(args.brick, args.brick_cap, num_levels)
     batch = synth.bench_batch(args.batch, args.points, b_caps,

@@ -2,7 +2,7 @@
 bit for bit.
 
     python -m doda_tpu_torch.tools.fused_digest [--csrc DIR] [--brick 4]
-                                               [--kernel fused|sm]
+                               [--kernel fused|prologue|narrow|f32|sm]
 
 from the repo root, on the card. ``--kernel fused`` (the default) builds
 ``banded_conv_fused.cu`` from ``DIR`` (by default this checkout's
@@ -10,6 +10,12 @@ from the repo root, on the card. ``--kernel fused`` (the default) builds
 to compare) and runs it without the prologue on seeded bf16 operands at
 ``chip_smoke.py``'s shapes: the bench batch's real rulebooks at levels 0,
 1, 5 and 6 and three synthetic ones, each to float32 and to bf16.
+``--kernel prologue`` runs the same source's prologue variant at the same
+shapes, with seeded scale, bias (> 0 on half the channels) and cell
+occupancy; ``--kernel narrow`` ``subm_conv_narrow.cu`` at the bench input
+conv (3 -> 16 on the level-0 rulebook) and phase kernels' synthetic
+shapes of cin 1 to 7; ``--kernel f32`` ``subm_conv_f32.cu`` on float32
+operands at the fused shapes and the input conv.
 ``--kernel sm`` builds K2's source and runs it at the shapes of
 ``chip_smoke.py``'s phase kernels: ``banded_conv_sm_taps.cu`` on seeded
 bf16 operands to float32 and to bf16 and, where the source has its
@@ -34,6 +40,7 @@ import torch
 
 from ..models.unet import build_level_plan, default_brick_caps, flatten_plan
 from ..ops import _build
+from ..ops.banded_conv import occ_words
 from ..ops.banded_conv_sm import sm_widths
 from ..utils import synth
 from ..utils.device import card_label
@@ -67,10 +74,37 @@ def fused_entry(csrc: Path, side: int = 4):
         + [ctypes.c_int] * (4 if sided else 3) + [ctypes.c_void_p] * 4
     fn.restype = ctypes.c_int
 
-    def call(x2, nbr, w, out, rows, cin, cout, code, stream):
+    def call(x2, nbr, w, out, rows, cin, cout, code, stream,
+             pro=(None, None, None)):
         head = (x2, nbr, w, out, rows, cin, cout, code)
-        return fn(*head, *((side,) if sided else ()), None, None, None,
-                  stream)
+        return fn(*head, *((side,) if sided else ()), *pro, stream)
+    return call
+
+
+# (rows or level 0, grid, cin, cout) of the narrow K1: chip_smoke.py's
+# input conv and its synthetic checks
+NARROW_SHAPES = ((0, None, 3, 16), (4099, 20, 1, 8), (4099, 20, 4, 16),
+                 (1001, 12, 5, 24), (4099, 20, 6, 32), (1001, 12, 7, 40),
+                 (3, 4, 2, 16))
+
+
+def k1_entry(csrc: Path, kernel: str, side: int):
+    """fn(x2, nbr, w, out, rows, cin, cout, out_dtype code, stream, pro)
+    of K1's ``kernel`` ('fused', 'prologue', 'narrow' or 'f32') built from
+    ``csrc``."""
+    if kernel in ('fused', 'prologue'):
+        return fused_entry(csrc, side)
+    name = {'narrow': 'subm_conv_narrow', 'f32': 'subm_conv_f32'}[kernel]
+    lib = ctypes.CDLL(str(_build._compiled(        # both take the side
+        csrc / f'{name}.cu', name, _build._nvcc, _build.NVCC_FLAGS,
+        report='.ptxas.txt')))
+    fn = getattr(lib, f'doda_{name}')
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_longlong] \
+        + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+
+    def call(x2, nbr, w, out, rows, cin, cout, code, stream, pro=None):
+        return fn(x2, nbr, w, out, rows, cin, cout, code, side, stream)
     return call
 
 
@@ -150,7 +184,8 @@ def main(argv=None) -> list:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument('--csrc', type=Path, default=_build.CSRC)
     ap.add_argument('--brick', type=int, choices=(2, 4), default=4)
-    ap.add_argument('--kernel', choices=('fused', 'sm'), default='fused')
+    ap.add_argument('--kernel', default='fused',
+                    choices=('fused', 'prologue', 'narrow', 'f32', 'sm'))
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit('fused_digest: needs a CUDA device')
@@ -158,7 +193,8 @@ def main(argv=None) -> list:
     if args.kernel == 'sm':
         return sm_digests(args.csrc.resolve(), side,
                           card_label(torch.device('cuda')))
-    fn = fused_entry(args.csrc.resolve(), side)
+    kernel = args.kernel
+    fn = k1_entry(args.csrc.resolve(), kernel, side)
     dev = torch.device('cuda')
     b_caps = default_brick_caps(synth.BRICK_CAP, 7) if side == 4 \
         else synth.BRICK_CAPS_SIDE2
@@ -166,37 +202,49 @@ def main(argv=None) -> list:
     with torch.no_grad():
         levels, _ = flatten_plan(build_level_plan(
             batch.coords, batch.valid, b_caps, dev, brick=side))
-    cases = [(f'level{lvl}', levels[lvl].nbr, cin, cout)
-             for lvl, cin, cout in LEVEL_SHAPES]
-    cases += [(f'synthetic{rows}', synth.synth_rulebook(rows, grid, rows),
-               cin, cout) for rows, grid, cin, cout in SYNTH_SHAPES]
+    if kernel == 'narrow':
+        cases = [('input', levels[0].nbr, cin, cout) if not rows else
+                 (f'synthetic{rows}', synth.synth_rulebook(rows, grid, rows),
+                  cin, cout) for rows, grid, cin, cout in NARROW_SHAPES]
+    else:
+        cases = [(f'level{lvl}', levels[lvl].nbr, cin, cout)
+                 for lvl, cin, cout in LEVEL_SHAPES]
+        cases += [(f'synthetic{rows}', synth.synth_rulebook(rows, grid,
+                                                            rows),
+                   cin, cout) for rows, grid, cin, cout in SYNTH_SHAPES]
+    if kernel == 'f32':
+        cases.append(('input', levels[0].nbr, 3, 16))
     g = torch.Generator(device=dev).manual_seed(1)
     card = card_label(dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
+    operand = torch.float32 if kernel == 'f32' else torch.bfloat16
     out = []
     for name, nbr, cin, cout in cases:
         rows = nbr.shape[0]
         x2 = torch.randn(rows, side ** 3 * cin, device=dev,
-                         generator=g).bfloat16()
+                         generator=g).to(operand)
         w = (torch.randn(27, cin, cout, device=dev, generator=g)
-             / (27 * cin) ** 0.5).bfloat16()
+             / (27 * cin) ** 0.5).to(operand)
+        pro, keep = (None, None, None), ()
+        if kernel == 'prologue':
+            scale = (1 + 0.3 * torch.randn(cin, device=dev, generator=g))
+            bias = 0.3 * torch.randn(cin, device=dev, generator=g)
+            bias[::2] = bias[::2].abs() + 0.1
+            occ = torch.rand(rows, side ** 3, device=dev, generator=g) < 0.6
+            keep = (scale.bfloat16(), bias.bfloat16(), occ_words(occ))
+            pro = tuple(t.data_ptr() for t in keep)
         digests = {}
         for code, dt in ((0, torch.float32), (1, torch.bfloat16)):
             y = torch.zeros(rows, side ** 3 * cout, dtype=dt, device=dev)
             err = fn(x2.data_ptr(), nbr.data_ptr(), w.data_ptr(),
-                     y.data_ptr(), rows, cin, cout, code, stream)
+                     y.data_ptr(), rows, cin, cout, code, stream, pro)
             if err:
                 raise RuntimeError(f'{name}: CUDA error {err}')
             torch.cuda.synchronize(dev)
-            digests[str(dt)[6:]] = hashlib.sha256(
-                y.view(torch.uint8).cpu().numpy().tobytes()).hexdigest()
+            digests[str(dt)[6:]] = _sha(y)
         line = {'card': card, 'csrc': str(args.csrc), 'brick': side,
-                'case': name,
+                'kernel': kernel, 'case': name,
                 'shape': [rows, cin, cout], 'sha256': digests}
         print(json.dumps(line), flush=True)
         out.append(line)
     return out
-
-
-if __name__ == '__main__':
-    main()

@@ -76,8 +76,8 @@ def level_rows(levels, convs, scenes: int) -> list:
                 w = roofline.fused_work(rows, cin, cout, reads, side, dtype)
             elif route == 'narrow':
                 w = roofline.narrow_work(rows, cin, cout, reads, side)
-            elif route == 'assembled':
-                w = roofline.assembled_work(rows, cin, cout, side=side)
+            elif route == 'padded':
+                w = roofline.padded_work(rows, cin, cout, reads, side)
             else:
                 w = roofline.sm_taps_work(rows, cin, cout, side, dtype, reads)
             routes[route] = routes.get(route, 0) + 1

@@ -15,9 +15,8 @@ neighbour brick is read by no tap), the count is what the given rulebook
 needs.
 
 The K1 and K2 models take the brick side (``side``, 4 by default): at
-side s a brick has s^3 cells and an (s+2)^3 halo, and the first version's
-planes and banded weights are (s+2) x (s+2)^2 cells and 3 x (s+2)^2 x s^2
-cells. The side-2 bound is the same function's work counted at that side.
+side s a brick has s^3 cells and an (s+2)^3 halo. The side-2 bound is the
+same function's work counted at that side.
 """
 
 from __future__ import annotations
@@ -29,16 +28,6 @@ PEAK_BYTES = 3.35e12       # H100 SXM HBM3 bytes/s (data sheet)
 PEAK_F32 = 67e12           # H100 SXM float32 FLOP/s off the tensor cores
 
 CELLS, TAPS, HALO = 64, 27, 216     # side 4's cells, taps and halo cells
-# the banded weights of the first-version K1: 3 planes x 36 halo cells x
-# 16 output cells, of which 3 x 9 x 16 taps are not zero by placement
-BANDED_TAPS = 3 * 9 * 16
-
-
-def banded_taps(side: int = 4) -> int:
-    """The taps that placement makes non-zero in the first version's
-    banded weights at brick side s: 3 planes x 9 (dy, dz) x s^2 output
-    cells (``BANDED_TAPS`` at side 4)."""
-    return 3 * 9 * side * side
 
 
 def bound(moved: float, ops: float, peak: float = PEAK_BF16) -> dict:
@@ -127,26 +116,24 @@ def prologue_work(rows: int, cin: int, cout: int, reads: float,
             'bound_by': 'bytes' if t_bytes >= t_ops else 'operations'}
 
 
-def assembled_work(rows: int, cin: int, cout: int, dtype=torch.bfloat16,
-                   taps: int | None = None, side: int = 4) -> dict:
-    """K1's first version over ``_assemble_p6``'s planes: it reads the
-    planes (rows, s+2, (s+2)^2*cin) and the banded weights (3,
-    (s+2)^2*cin, s^2*cout) and writes (rows, s^3*cout), all in ``dtype``
-    ((rows, 6, 36*cin), (3, 36*cin, 16*cout), (rows, 64*cout) at side 4);
-    its operations are the non-zero weights' (``taps``, by default those
-    that placement makes non-zero) times the s output slices of each row.
-    bf16 runs on the tensor cores, float32 on the CUDA cores."""
-    size = torch.finfo(dtype).bits // 8
-    hs, sl = side + 2, side * side
-    taps = banded_taps(side) * cin * cout if taps is None else taps
-    moved = (rows * hs * hs * hs * cin + 3 * hs * hs * cin * sl * cout
-             + rows * side * sl * cout) * size
-    ops = 2 * rows * side * taps
-    peak = PEAK_BF16 if dtype == torch.bfloat16 else PEAK_F32
-    return {'bytes': moved, 'flops': ops,
-            'executed_flops': 2 * rows * side * 3 * hs * hs * cin * sl
-            * cout,
-            **bound(moved, ops, peak)}
+def padded_work(rows: int, cin: int, cout: int, reads: float,
+                side: int = 4) -> dict:
+    """The route 'padded' (``banded_conv_padded``), bf16: its function's
+    bytes and operations are the fused version's at the true widths (x2,
+    the raster weights and the rulebook read once, the output written
+    once; the taps the present reads need), and those bound it. Beside
+    them (``padded_*``) the work of the kernel it launches at
+    ``padded_widths``: the fused version's, or the narrow one's for cin <=
+    7, whose zero channels it reads, multiplies and writes."""
+    from ..ops.banded_conv import NARROW_MAX_CIN, padded_widths
+    cin_p, cout_p = padded_widths(cin, cout)
+    kernel = narrow_work if cin_p <= NARROW_MAX_CIN else fused_work
+    work = fused_work(rows, cin, cout, reads, side)
+    launched = kernel(rows, cin_p, cout_p, reads, side)
+    work.update(padded_cin=cin_p, padded_cout=cout_p,
+                **{f'padded_{k}': launched[k] for k in (
+                    'bytes', 'flops', 'bound_ms', 'bound_by')})
+    return work
 
 
 def sm_taps_work(rows: int, cin: int, cout: int, side: int = 4,

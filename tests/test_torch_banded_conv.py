@@ -1,9 +1,12 @@
-"""Kernel K1 and the wide-lane convs of the PyTorch port vs the JAX package.
+"""K1's band and the wide-lane convs of the PyTorch port vs the JAX
+package.
 
-On the CPU, ``banded_conv`` is its plain version; here it is held against
-the Pallas kernel itself (interpret mode off the TPU). The convs are held
-against ``doda_tpu.ops.bricks2d`` and the ``bricks.subm_conv3`` oracle at
-float32, with the tolerance of tests/test_bricks2d.py (1e-5).
+``banded_conv_plain``, K1's band in plain PyTorch, is held against the
+Pallas kernel itself (interpret mode off the TPU); the planes, the banded
+weights and the down, up and 1x1 convs against ``doda_tpu.ops.bricks2d``
+at float32, with the tolerance of tests/test_bricks2d.py (1e-5); the
+wrappers raise off the CPU and the entry points refuse to run without a
+card.
 """
 
 import numpy as np
@@ -11,6 +14,10 @@ import jax.numpy as jnp
 import pytest
 import torch
 
+from _torch_threads import two_threads  # noqa: F401
+from _torch_banded_conv_common import (  # noqa: F401
+    _no_tf32, dense_grid, sparse_grid)
+from _torch_banded_conv_common import _feats, _t, F32, TOL
 from doda_tpu.models.unet import FlatDown as JFlatDown
 from doda_tpu.ops import bricks as jbricks
 from doda_tpu.ops import bricks2d as jb2d
@@ -18,49 +25,8 @@ from doda_tpu.ops import pallas_banded
 from doda_tpu_torch.models import model_fn as tmf
 from doda_tpu_torch.models.unet import FlatDown
 from doda_tpu_torch.ops import bricks2d as tb2d
-from doda_tpu_torch.ops.banded_conv import banded_conv
-
-TOL = dict(rtol=1e-5, atol=1e-5)
-F32 = jnp.float32
-
-
-@pytest.fixture(scope='module', autouse=True)
-def _no_tf32():
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-
-
-def _grid(coords, cap):
-    valid = np.ones(len(coords), bool)
-    g = jbricks.brickify(jnp.asarray(coords), jnp.asarray(valid), cap)
-    return g, jbricks.build_brick_rulebook(g.table)
-
-
-@pytest.fixture(scope='module')
-def dense_grid():
-    rng = np.random.default_rng(3)
-    return _grid(rng.integers(0, 24, (4096, 3)).astype(np.int32), 512)
-
-
-@pytest.fixture(scope='module')
-def sparse_grid():
-    """Isolated voxels plus a crafted corner contact: bricks (1,1,1) and
-    (0,0,1) are present, the face x-neighbour (0,1,1) is not, so the
-    x-halo plane of (1,1,1) has a cell only a diagonal brick supplies."""
-    rng = np.random.default_rng(11)
-    coords = rng.integers(0, 96, (1500, 3)).astype(np.int32)
-    crafted = np.array([[4, 4, 4], [3, 3, 4], [3, 3, 7], [4, 7, 4]],
-                       np.int32)
-    return _grid(np.concatenate([coords, crafted]), 2048)
-
-
-def _feats(rng, g, cin):
-    f = rng.normal(size=(g.b_cap, 64, cin)).astype(np.float32)
-    return (f * np.asarray(g.occ)[..., None]).reshape(g.b_cap, -1)
-
-
-def _t(a):
-    return torch.from_numpy(np.array(a))
+from doda_tpu_torch.ops.banded_conv import (banded_conv_padded,
+                                            banded_conv_plain)
 
 
 @pytest.mark.parametrize('b,cin,cout', [(64, 8, 8), (64, 3, 16),
@@ -71,10 +37,9 @@ def test_banded_conv_plain_matches_pallas(b, cin, cout):
     wb = rng.normal(size=(3, 36 * cin, 16 * cout)).astype(np.float32) * 0.1
     want = np.asarray(pallas_banded.banded_conv(
         [jnp.asarray(rows6[:, j]) for j in range(6)], jnp.asarray(wb), F32))
-    got = banded_conv(_t(rows6), _t(wb), torch.float32)
+    got = banded_conv_plain(_t(rows6), _t(wb), torch.float32)
     assert got.dtype == torch.float32 and got.shape == (b, 64 * cout)
     np.testing.assert_allclose(got.numpy(), want, **TOL)
-    assert banded_conv.launches == 0      # the CPU never reaches a kernel
 
 
 def test_banded_weights_and_planes_exact(sparse_grid):
@@ -89,25 +54,6 @@ def test_banded_weights_and_planes_exact(sparse_grid):
         jnp.asarray(x2), nbr, F32, pm=False)], axis=1)
     got = tb2d._assemble_p6(_t(x2), tb2d.halo_index(_t(nbr)), torch.float32)
     np.testing.assert_array_equal(got.reshape(g.b_cap, -1).numpy(), want)
-
-
-@pytest.mark.parametrize('grid_name,cin,cout', [
-    ('dense_grid', 16, 16), ('dense_grid', 3, 16), ('dense_grid', 32, 16),
-    ('sparse_grid', 16, 16), ('sparse_grid', 4, 8)])
-def test_subm_conv3_2d(request, grid_name, cin, cout):
-    g, nbr = request.getfixturevalue(grid_name)
-    rng = np.random.default_rng(cin * 100 + cout)
-    x2 = _feats(rng, g, cin)
-    w = rng.normal(size=(27, cin, cout)).astype(np.float32) * 0.1
-    want_2d = np.asarray(jb2d.subm_conv3_2d(
-        jnp.asarray(x2), g.occ, nbr, jnp.asarray(w), compute_dtype=F32))
-    want_oracle = np.asarray(jbricks.subm_conv3(
-        jnp.asarray(x2.reshape(g.b_cap, 64, cin)), g.occ, nbr,
-        jnp.asarray(w), compute_dtype=F32)).reshape(g.b_cap, -1)
-    got = tb2d.subm_conv3_2d(_t(x2), _t(g.occ), tb2d.halo_index(_t(nbr)),
-                             _t(w), torch.float32, nbr=_t(nbr)).numpy()
-    np.testing.assert_allclose(got, want_2d, **TOL)
-    np.testing.assert_allclose(got, want_oracle, **TOL)
 
 
 def test_down_up_conv1x1(dense_grid):
@@ -143,13 +89,14 @@ def test_down_up_conv1x1(dense_grid):
 
 
 def test_no_silent_cpu_fallback(monkeypatch):
-    """Off the CPU the wrapper launches its kernel or raises; the entry
+    """Off the CPU a K1 wrapper launches its kernel or raises; the entry
     points default to the card and refuse to run without one."""
-    rows6 = torch.zeros(4, 6, 36, device='meta')
-    wb = torch.zeros(3, 36, 16, device='meta')
+    meta = dict(device='meta', dtype=torch.bfloat16)
+    x2, w = torch.zeros(4, 64 * 12, **meta), torch.zeros(27, 12, 20, **meta)
+    nbr = torch.zeros(4, 27, device='meta', dtype=torch.int32)
     with pytest.raises(ValueError, match='CUDA'):
-        banded_conv(rows6, wb, torch.float32)
-    assert banded_conv.launches == 0
+        banded_conv_padded(x2, nbr, w, torch.bfloat16)
+    assert banded_conv_padded.launches == 0
     monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
     from doda_tpu_torch.config import CfgNode
     cfg = CfgNode({'COMMON_CLASSES': {'n_classes': 5},

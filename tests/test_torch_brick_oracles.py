@@ -17,6 +17,7 @@ import jax.numpy as jnp
 import pytest
 import torch
 
+from _torch_threads import two_threads  # noqa: F401
 from doda_tpu.ops import bricks as jbricks
 from doda_tpu_torch.ops import bricks as tbricks
 from doda_tpu_torch.ops import bricks2d as tb2d

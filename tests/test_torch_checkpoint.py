@@ -9,6 +9,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_threads import two_threads  # noqa: F401
 from doda_tpu.utils import checkpoint as jckpt
 from doda_tpu_torch import config as tconfig
 from doda_tpu_torch.models import model_fn as tmf

@@ -4,6 +4,7 @@ mapper name, given as the reference-style JSON path."""
 import numpy as np
 import pytest
 
+from _torch_threads import two_threads  # noqa: F401
 from doda_tpu.data import class_mapper as jmapper
 from doda_tpu_torch.data import class_mapper as tmapper
 

@@ -22,6 +22,7 @@ NumPy/scipy paths separately (tests/test_torch_data_host.py).
 import numpy as np
 import pytest
 
+from _torch_threads import two_threads  # noqa: F401
 from _torch_data_common import (N_POINTS, SEED, assert_batches_equal,
                                 cfgs, equal, make_rooms, run_epoch)
 from doda_tpu import data as jdata

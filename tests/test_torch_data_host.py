@@ -9,6 +9,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_threads import two_threads  # noqa: F401
 from _torch_data_common import (SEED, assert_batches_equal, cfgs, equal,
                                 make_rooms, run_epoch)
 from doda_tpu import data as jdata

@@ -11,6 +11,8 @@ import subprocess
 import sys
 from pathlib import Path
 
+from _torch_threads import two_threads  # noqa: F401
+
 ROOT = Path(__file__).resolve().parents[1]
 PKG = ROOT / 'doda_tpu_torch'
 BANNED = ('jax', 'jaxlib', 'flax', 'optax', 'msgpack', 'doda_tpu')

@@ -14,6 +14,7 @@ import jax.numpy as jnp
 import pytest
 import torch
 
+from _torch_threads import two_threads  # noqa: F401
 from doda_tpu.models import norm as jnorm
 from doda_tpu.models import unet as junet
 from doda_tpu.models.losses import cross_entropy as j_cross_entropy

@@ -11,6 +11,7 @@ import jax.numpy as jnp
 import pytest
 import torch
 
+from _torch_threads import two_threads  # noqa: F401
 from doda_tpu.models import unet as junet
 from doda_tpu.ops import bricks as jbricks
 from doda_tpu_torch.models import unet as tunet

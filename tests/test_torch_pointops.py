@@ -10,6 +10,7 @@ import numpy as np
 import jax.numpy as jnp
 import torch
 
+from _torch_threads import two_threads  # noqa: F401
 from doda_tpu.ops import pointops as jpo
 from doda_tpu_torch.ops import pointops as tpo
 

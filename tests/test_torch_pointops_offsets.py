@@ -10,6 +10,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_threads import two_threads  # noqa: F401
 import doda_tpu.ops.pointops_offsets as jpof
 from doda_tpu_torch.ops import pointops_offsets as tpof
 

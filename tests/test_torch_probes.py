@@ -128,14 +128,13 @@ def test_bench_conv_prints_a_line_a_route(capsys):
     assert lines == got
     assert [(r['level'], r['cin'], r['route']) for r in lines] == [
         (1, 32, 'fused'), (1, 32, 'plain'), (1, 32, 'prologue'),
-        (1, 32, 'unfused'), (1, 32, 'assembled'), (1, 32, 'sm'),
-        (1, 32, 'conv3d')]
+        (1, 32, 'unfused'), (1, 32, 'sm'), (1, 32, 'conv3d')]
     rows = lines[0]['rows']
     for r in lines:
         assert r['card'] == 'cpu' and r['clock'] == 'host' and r['ms'] > 0
     assert lines[0]['bound_ms'] == pytest.approx(bounds.bound(
         lines[0]['bytes'], lines[0]['flops'])['bound_ms'])
     assert lines[2]['bytes'] == lines[0]['bytes'] + rows * 8 + 2 * 32 * 2
-    assert lines[5]['bytes'] == 2 * (rows * 216 * 32 + rows * 64 * 32
+    assert lines[4]['bytes'] == 2 * (rows * 216 * 32 + rows * 64 * 32
                                      + 27 * 32 * 32)
-    assert lines[6]['bound_ms'] is None
+    assert lines[5]['bound_ms'] is None

@@ -21,8 +21,8 @@ import torch
 from _torch_threads import two_threads  # noqa: F401
 from _torch_st_common import CAPS as ST_CAPS
 from _torch_st_common import W_SRC, W_TAR, st_batch, st_cfg, st_points
-from test_torch_train import (CAPS, FAST_COMPILE, _batch, _cfg, _flat,
-                              _random_variables)
+from _torch_train_common import (CAPS, FAST_COMPILE, _batch, _cfg, _flat,
+                                 _random_variables)
 from doda_tpu.models import model_fn as jmf
 from doda_tpu.models import unet as junet
 from doda_tpu_torch.models import model_fn as tmf
@@ -81,7 +81,7 @@ def test_policy_table_matches_jax(monkeypatch):
 
 def test_each_policy_equals_off_in_a_train_step():
     """A 2-level bf16 net (fused K1 on its plain version, the input conv
-    on the assembled route, tail0's 1x1 shortcut): one step under each
+    on the narrow K1's, tail0's 1x1 shortcut): one step under each
     policy from the same state equals 'off''s."""
     cfg = _cfg()
     cfg.MODEL.BACKBONE.mid_channel = 8
@@ -155,7 +155,7 @@ def _counting(monkeypatch):
     wrap('banded_conv_fused',
          lambda a: 'prologue' if len(a) > 4 and a[4] is not None
          else 'fused')
-    wrap('banded_conv', lambda a: 'assembled')
+    wrap('banded_conv_padded', lambda a: 'padded')
     wrap('banded_conv_narrow', lambda a: 'narrow')
     wrap('banded_conv_sm_taps', lambda a: 'sm')
     wrap('banded_conv_f32', lambda a: 'f32')

@@ -15,6 +15,7 @@ import jax.numpy as jnp
 import pytest
 import torch
 
+from _torch_threads import two_threads  # noqa: F401
 from doda_tpu.ops import bricks as jbricks
 from doda_tpu.ops import slabs as jslabs
 from doda_tpu_torch.ops import bricks as tbricks

@@ -16,6 +16,7 @@ import jax.numpy as jnp
 import pytest
 import torch
 
+from _torch_threads import two_threads  # noqa: F401
 from doda_tpu.ops import coords as jcoords
 from doda_tpu.ops import sparse as jsparse
 from doda_tpu_torch.ops import coords as tcoords

@@ -9,6 +9,7 @@ each dataset's palette. The CLI's ``main`` runs on a ScanNet-format room of
 
 import numpy as np
 
+from _torch_threads import two_threads  # noqa: F401
 from doda_tpu.utils import visualize as jvis
 from doda_tpu_torch.tools import make_synth_data
 from doda_tpu_torch.tools import visualize as vis_cli

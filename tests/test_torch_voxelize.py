@@ -14,6 +14,7 @@ import jax.numpy as jnp
 import pytest
 import torch
 
+from _torch_threads import two_threads  # noqa: F401
 from doda_tpu.native import host_ops as jhost
 from doda_tpu.ops import voxelize as jvox
 from doda_tpu_torch.native import host_ops as thost
