@@ -40,10 +40,11 @@ Phases, each printing one line:
   4. forward: the flagship net (cfgs/scannet/spconv.yaml: mid 16, 7
      levels, 2 blocks per level, 20 classes) with seeded random weights
      serves bench-shaped batches (4 scenes, ~150k points each) through
-     ``make_eval_step``: launch counts (52 fused K1 + 1 narrow K1, from
-     the parameter shapes), scenes/sec, peak memory, float32
-     logits kernel vs plain path (53 launches of K1's float32 kernel, no
-     halo planes), bf16 predictions kernel vs plain path
+     ``make_eval_step``: launch counts (52 fused K1 + 1 narrow K1 + 1
+     sorted point -> cell reduction, from the parameter shapes),
+     scenes/sec, peak memory, float32 logits kernel vs plain path (53
+     launches of K1's float32 kernel, no halo planes), bf16 predictions
+     kernel vs plain path
   5. train: the same net in train mode with ``sm_max_cin=32`` (K2 at
      levels 0 and 1, the fused K1 elsewhere; a float32 step runs K2's and
      K1's float32 kernels) takes three bf16 SGD steps on 2 bench
@@ -102,7 +103,19 @@ Phases, each printing one line:
      >= 99% against ``sm_max_cin=0``), the float32 step against side 2's
      ``sm_max_cin=0`` step (loss 1e-4 relative, gradients 1e-3 of their
      scale) and three bf16 steps, launches against ``subm_routes``
-  9. remat: the U-Net blocks' memory policies (``remat``) in the
+  9. feats: the point -> cell reduction (the JAX package's default,
+     ``DODA_FEATS`` unset) on the bench batch at sides 4 and 2: the sorted
+     kernel (``cell_reduce_sorted``, csrc/cell_mean.cu) against its
+     float64 twin (1e-6 of max|ref|) and the scatter route
+     (``bricks.cell_feats_2d``, ``index_add_``, 1e-5), modes 3 and 4,
+     bit-equal on a repeated call, untouched cells zero; its ms beside its
+     bound, the twin's, the scatter route's and ``index_reduce_``'s; the
+     flagship's eval forward with deterministic algorithms off: two
+     forwards bit-equal in float32 and bf16, one launch a forward; device
+     time by bucket, wall time in turns of balanced order and the host
+     time inside the call, beside the same forward with the scatter route
+     patched in
+ 10. remat: the U-Net blocks' memory policies (``remat``) in the
      CLI-shaped train step (cfgs/da_front3d_scannet/spconv.yaml, batch 4
      of the bench rooms, bf16, ``sm_max_cin=0``), 'off', 'dots', 'all'
      and 'mix2' from one seeded state: each policy's first step
@@ -114,11 +127,11 @@ Phases, each printing one line:
      an st step (DSNorm) and a ``fuse_norm`` step (the replay runs the
      prologue K1) under 'all' against 'off', each domain's running
      statistics moved once
- 10. pointops: every point op, offset wrapper and voxelization function
+ 11. pointops: every point op, offset wrapper and voxelization function
      on the card against the CPU on one bench scene's points (FPS of 4,096
      of 150k points, kNN k = 16 of 4,096 queries among 16,384 points, a
      0.05 m voxel grid): integer outputs equal, floats to 1e-5
- 11. cli: the port's three CLIs in process (``doda_tpu_torch.tools``), at
+ 12. cli: the port's three CLIs in process (``doda_tpu_torch.tools``), at
      full width and depth and the cfgs' batch size (4), on synthetic rooms
      of ~150k points written by ``tools/make_synth_data.py``: ``train``
      (cfgs/da_front3d_scannet/spconv.yaml, one epoch on 6 3D-FRONT-format
@@ -133,21 +146,21 @@ Phases, each printing one line:
      written, with the output tree asserted; ``doda_tpu_torch.tools.
      visualize`` on one room with ``test``'s dumps (the .ply files' header,
      vertex count and colours)
- 12. import: a seeded reference ``.pth`` of the DA flagship (the
+ 13. import: a seeded reference ``.pth`` of the DA flagship (the
      reference's key names and layouts), converted into the JAX package's
      format by ``doda_tpu_torch.tools.convert_torch_ckpt``, through
      ``test --ckpt`` on the 4 ScanNet rooms: launches, its mIoU equal to
      that of the same tree loaded through ``params_from_jax`` and run
      through ``make_eval_step``, one batch's float32 logits bit-equal
      between the two loads (all under deterministic algorithms)
- 13. device_aug: ``train`` and ``st``, one step each, with
+ 14. device_aug: ``train`` and ``st``, one step each, with
      ``DATA_AUG.device`` on: step ms, data wait and its share, peak memory,
      launches, beside phase cli's host-path readings; the augmentation's
      own device time; ``device_augment`` on the card against the CPU on
      the same CPU draws (feats to 1e-5, coords equal but for floor flips
      inside 1e-4 of an integer); the brick audit of each step's augmented
      batch
- 14. ddp: two gloo ranks spawned on the one card, one bench scene each
+ 15. ddp: two gloo ranks spawned on the one card, one bench scene each
      (150k and 100k points; st targets of 120k and 150k), against one
      process on both, float32 on the kernel path
      (``tests/_torch_equivalence.py``): for a train step and an st step
@@ -155,7 +168,7 @@ Phases, each printing one line:
      and running statistics; eval predictions and histograms;
      ``all_gather_objects``; each rank's peak memory; then ``train
      --launcher pytorch`` at WORLD_SIZE=1 for one step
- 15. timing: each kernel at the level-0 shape beside its bound, its plain
+ 16. timing: each kernel at the level-0 shape beside its bound, its plain
      version and, where there is one, a PyTorch library call computing the
      same function; K1's fused version, with the plane gather alone, and
      its prologue variant beside the unfused sequence it replaces (norm
@@ -173,7 +186,8 @@ Phases, each printing one line:
      call; K1's and K2's bf16 library time is phase engines' conv3d
 Then a JSON line of the kernels (rows of their own for K1 and K2 in
 float32, and for K2 in bf16 and both float32 kernels at side 2, from
-phase brick) and, last, {"ok": true, "device": ...}.
+phase brick, and for the sorted point -> cell reduction, from phase
+feats) and, last, {"ok": true, "device": ...}.
 Any failure raises, and the script exits non-zero without that last line.
 """
 
@@ -319,12 +333,14 @@ def check_f32(worst, key, fn, ref_fn):
 
 
 def plain_path():
-    """Context in which every kernel wrapper of the conv engine is its
-    plain PyTorch version."""
+    """Context in which every kernel wrapper of the conv engine, and the
+    sorted point -> cell reduction, is its plain PyTorch version."""
     from contextlib import ExitStack
+    from doda_tpu_torch.models import unet
     from doda_tpu_torch.ops import bricks2d
     from doda_tpu_torch.ops.banded_conv import banded_conv_fused_plain
     from doda_tpu_torch.ops.banded_conv_sm import banded_conv_sm_taps_plain
+    from doda_tpu_torch.ops.cell_mean import cell_reduce_sorted_plain
     stack = ExitStack()
     for name, fn in (('banded_conv_padded', banded_conv_fused_plain),
                      ('banded_conv_fused', banded_conv_fused_plain),
@@ -332,6 +348,8 @@ def plain_path():
                      ('banded_conv_f32', banded_conv_fused_plain),
                      ('banded_conv_sm_taps', banded_conv_sm_taps_plain)):
         stack.enter_context(patch.object(bricks2d, name, fn))
+    stack.enter_context(patch.object(unet, 'cell_reduce_sorted',
+                                     cell_reduce_sorted_plain))
     return stack
 
 
@@ -665,10 +683,11 @@ def phase_forward(cfg, batch, b_caps, card):
     sd = synth.seeded_state_dict(model_fn.build_model(cfg), seed=0)
     model, step = run(torch.bfloat16, sd)
     # the rule on the parameter shapes: the cin = 3 input conv on the
-    # narrow K1, all others on the fused K1
+    # narrow K1, all others on the fused K1; one sorted point -> cell
+    # reduction
     want = model.subm_routes()
     assert want == {'sm': 0, 'fused': 52, 'narrow': 1, 'f32': 0,
-                    'padded': 0}, want
+                    'padded': 0, 'cell_mean': 1}, want
     step(batch)                                     # warm-up (set-up)
     torch.cuda.synchronize()
 
@@ -698,7 +717,7 @@ def phase_forward(cfg, batch, b_caps, card):
     model32, step32 = run(torch.float32, sd)
     want32 = model32.subm_routes()
     assert want32 == {'sm': 0, 'fused': 0, 'narrow': 0, 'f32': 53,
-                      'padded': 0}, want32
+                      'padded': 0, 'cell_mean': 1}, want32
     _cli_reset()
     lk = step32(batch)['output']
     torch.cuda.synchronize()
@@ -749,9 +768,9 @@ def phase_train(cfg, b_caps, card):
     # except the input conv, whose input needs no gradient
     fwd_want, bwd_want = model.subm_routes(), model.subm_routes(True)
     assert fwd_want == {'sm': 15, 'fused': 37, 'narrow': 1, 'f32': 0,
-                        'padded': 0}, fwd_want
+                        'padded': 0, 'cell_mean': 1}, fwd_want
     assert bwd_want == {'sm': 16, 'fused': 36, 'narrow': 0, 'f32': 0,
-                        'padded': 0}, bwd_want
+                        'padded': 0, 'cell_mean': 0}, bwd_want
     want = {k: fwd_want[k] + bwd_want[k] for k in fwd_want}
     reset = _cli_reset
 
@@ -805,7 +824,7 @@ def phase_train(cfg, b_caps, card):
     dt0 = time.perf_counter() - t0
     peak0 = torch.cuda.max_memory_allocated()
     assert counts() == {'sm': 0, 'fused': steps * 104, 'narrow': steps,
-                        'f32': 0, 'padded': 0}, counts()
+                        'f32': 0, 'padded': 0, 'cell_mean': steps}, counts()
     assert all(math.isfinite(float(v)) for v in losses0)
     log('train_k2_or_fused', card=card, batch=synth.TRAIN_BATCH,
         steps_per_sec_sm_max_cin_32=steps / dt,
@@ -824,7 +843,7 @@ def phase_train(cfg, b_caps, card):
     want32 = {k: v + model_k.subm_routes(True)[k]
               for k, v in model_k.subm_routes().items()}
     assert want32 == {'sm': 31, 'fused': 0, 'narrow': 0, 'f32': 74,
-                      'padded': 0}, want32
+                      'padded': 0, 'cell_mean': 1}, want32
     reset()
     loss_k = float(step_k(batch, lr)['loss'])
     f32_ran = _cli_launches()
@@ -918,7 +937,7 @@ def phase_fuse_norm(cfg, batch, b_caps, card):
     model_u, step_u = evaluator(bf, False)
     want = model_f.subm_routes()
     assert want == {'sm': 0, 'fused': 0, 'narrow': 1, 'f32': 0,
-                    'padded': 0, 'prologue': 52}, want
+                    'padded': 0, 'prologue': 52, 'cell_mean': 1}, want
     step_f(batch)                                   # warm-up (set-up)
     step_u(batch)
     torch.cuda.synchronize()
@@ -934,7 +953,7 @@ def phase_fuse_norm(cfg, batch, b_caps, card):
     launched['eval_forward_unfused'] = counts()
     assert launched['eval_forward_unfused'] == {
         'sm': 0, 'fused': 52, 'narrow': 1, 'f32': 0, 'padded': 0,
-        'prologue': 0}, launched
+        'prologue': 0, 'cell_mean': 1}, launched
     logits = out_f['output']
     assert logits.shape == (synth.BATCH, synth.N_CAP, 20)
     assert torch.isfinite(logits).all() and int(out_f['count']) == n_valid
@@ -999,7 +1018,7 @@ def phase_fuse_norm(cfg, batch, b_caps, card):
     launched['train_f32_fused'] = counts()   # float32: pro_full, then 'f32'
     assert launched['train_f32_fused'] == {
         'sm': 0, 'fused': 0, 'narrow': 0, 'f32': 105, 'padded': 0,
-        'prologue': 0}, launched
+        'prologue': 0, 'cell_mean': 1}, launched
     assert abs(loss_f32 - loss_u32) <= 1e-4 * abs(loss_u32), (loss_f32,
                                                              loss_u32)
     _, f32_worst = _grad_error(grads_f32, grads_u32)
@@ -1015,7 +1034,7 @@ def phase_fuse_norm(cfg, batch, b_caps, card):
         rule_bwd = model.subm_routes(backward=True)
         rule = {k: steps * (rule.get(k, 0) + rule_bwd.get(k, 0))
                 for k in ('sm', 'fused', 'narrow', 'f32', 'padded',
-                          'prologue')}
+                          'prologue', 'cell_mean')}
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         _cli_reset()
@@ -1799,7 +1818,7 @@ def phase_brick(cfg, batch, b_caps, card):
         steps[s] = step
     assert launched['eval_bf16_side2'] == {
         'sm': 0, 'fused': 52, 'narrow': 1, 'f32': 0, 'padded': 0,
-        'prologue': 0}
+        'prologue': 0, 'cell_mean': 1}
     agree = (preds[2] == preds[4])[valid].float().mean().item()
     assert agree >= 0.99, f'bf16 preds side 2 vs 4 agree on {agree}'
     seconds = {4: [], 2: []}                        # in turns: 4, 2, 2, 4
@@ -1825,7 +1844,7 @@ def phase_brick(cfg, batch, b_caps, card):
     out = counted('eval_bf16_fuse_norm_side2', model, lambda: step(batch))
     assert launched['eval_bf16_fuse_norm_side2'] == {
         'sm': 0, 'fused': 0, 'narrow': 1, 'f32': 0, 'padded': 0,
-        'prologue': 52}
+        'prologue': 52, 'cell_mean': 1}
     agree_fuse = (out['preds'] == preds[2])[valid].float().mean().item()
     assert agree_fuse >= 0.99, f'side-2 fuse_norm preds agree {agree_fuse}'
     del model, step, out
@@ -1836,7 +1855,7 @@ def phase_brick(cfg, batch, b_caps, card):
     out = counted('eval_bf16_side2_sm32', model, lambda: step(batch))
     assert launched['eval_bf16_side2_sm32'] == {
         'sm': 15, 'fused': 37, 'narrow': 1, 'f32': 0, 'padded': 0,
-        'prologue': 0}
+        'prologue': 0, 'cell_mean': 1}
     agree_sm = (out['preds'] == preds[2])[valid].float().mean().item()
     assert agree_sm >= 0.99, f'side-2 sm_max_cin=32 preds agree {agree_sm}'
     del model, step, out, preds
@@ -1876,7 +1895,7 @@ def phase_brick(cfg, batch, b_caps, card):
         fwd, bwd = model.subm_routes(), model.subm_routes(backward=True)
         return {k: n * (fwd.get(k, 0) + bwd.get(k, 0))
                 for k in ('sm', 'fused', 'narrow', 'f32', 'padded',
-                          'prologue')}
+                          'prologue', 'cell_mean')}
 
     first = {}
     for s in (4, 2):
@@ -1943,6 +1962,177 @@ def phase_brick(cfg, batch, b_caps, card):
     return launched, timing
 
 
+def phase_feats(cfg, batch, b_caps, card):
+    """The point -> cell reduction on the bench batch at brick sides 4
+    and 2: the sorted kernel (``cell_reduce_sorted``, csrc/cell_mean.cu)
+    against its float64 twin (1e-6 of max|ref|) and the scatter route
+    (``bricks.cell_feats_2d``, ``index_add_`` over each point's flat cell
+    id, float32 atomics in another order: 1e-5 of max|ref|), modes 3 and
+    4, bit-equal on a repeated call, exact zeros at the cells no point
+    reaches; its ms beside its bound, the twin's, the scatter route's and
+    ``index_reduce_``'s (the library call). Then the flagship's eval
+    forward: two forwards bit-equal with deterministic algorithms off
+    (float32 logits; bf16 logits and predictions), one launch a forward,
+    and its device time by bucket (``tools/trace_fwd.py``'s) and bf16 wall
+    time in turns beside the same forward with the scatter route patched
+    in for the kernel, in pairs of turns whose order alternates, so that
+    the gap can be split into route and order, with the host time spent
+    inside each route's call.
+    Returns the kernel's readings and the counted runs' launches."""
+    from doda_tpu_torch.models import model_fn, unet
+    from doda_tpu_torch.models.unet import _flat_ids, batch_stream
+    from doda_tpu_torch.ops.bricks import cell_feats_2d
+    from doda_tpu_torch.ops.cell_mean import (cell_reduce_sorted,
+                                              cell_reduce_sorted_plain)
+    from doda_tpu_torch.utils import roofline, synth
+    t_phase = time.perf_counter()
+    assert not torch.are_deterministic_algorithms_enabled()
+    caps = {4: b_caps, 2: synth.BRICK_CAPS_SIDE2}
+    synth.capacity_audit(batch, caps[2], 2)
+    dbatch = batch.to('cuda')
+    x = model_fn.model_input(cfg, dbatch)
+    bt, n, c = x.shape
+    x = x.reshape(bt * n, c).float().contiguous()
+    sd = synth.seeded_state_dict(model_fn.build_model(cfg), seed=0)
+    readings, launched = {}, {}
+    for s in (4, 2):
+        plan = model_fn.build_level_plan(dbatch.coords, dbatch.valid,
+                                         caps[s][:1], brick=s)
+        g0 = plan.grid0
+        cap0, cells = g0.occ.shape[1:]
+        rows = bt * cap0
+        sc, sp = batch_stream(g0)
+        flat = _flat_ids(g0.flat_index(), cap0 * cells)   # the scatter ids
+        untouched = ~g0.occ.reshape(rows, cells)
+        err = {}
+        for mode in (3, 4):
+            got = cell_reduce_sorted(x, sc, sp, rows, cells, mode)
+            torch.cuda.synchronize()
+            again = cell_reduce_sorted(x, sc, sp, rows, cells, mode)
+            torch.cuda.synchronize()
+            assert torch.equal(got, again), f'side {s} mode {mode}: repeat'
+            assert (got.reshape(rows, cells, c)[untouched] == 0).all()
+            err[f'twin_mode{mode}'] = _close(
+                got, cell_reduce_sorted_plain(x, sc, sp, rows, cells, mode),
+                True, 1e-6, f'cell_reduce_sorted side {s} mode {mode}')
+            err[f'scatter_mode{mode}'] = _close(
+                got, cell_feats_2d(x, flat, rows, mode, cells), True, 1e-5,
+                f'cell_reduce_sorted vs scatter side {s} mode {mode}')
+        mean = got
+
+        def library():
+            return torch.zeros((rows * cells + 1, c), device='cuda')\
+                .index_reduce_(0, flat, x, 'mean', include_self=False)
+        err['library_mode4'] = _close(
+            mean, library()[:-1].reshape(rows, cells * c), True, 1e-5,
+            f'index_reduce_ side {s}')
+        del got, again
+        n_valid = int((sc < rows * cells).sum())
+        n_active = int(g0.occ.sum())
+        work = roofline.cell_mean_work(bt * n, n_valid, c, rows * cells,
+                                       n_active)
+        readings[s] = {
+            'shape': {'points': bt * n, 'valid_points': n_valid,
+                      'channels': c, 'rows': rows, 'cells': cells,
+                      'active_cells': n_active},
+            'max_abs_err': err['twin_mode4'], 'errors': err,
+            'ms': cuda_ms(lambda: cell_reduce_sorted(x, sc, sp, rows, cells),
+                          50),
+            'plain_ms': cuda_ms(lambda: cell_reduce_sorted_plain(
+                x, sc, sp, rows, cells), 5),
+            'scatter_route_ms': cuda_ms(
+                lambda: cell_feats_2d(x, flat, rows, 4, cells), 20),
+            'library_ms': cuda_ms(library, 20), **work}
+        del plan, g0, sc, sp, untouched, mean
+        torch.cuda.empty_cache()
+
+        host_ms = []                    # host time inside the reduction
+
+        def timed(fn):
+            def call(*args):
+                t0 = time.perf_counter()
+                out = fn(*args)
+                host_ms.append(1e3 * (time.perf_counter() - t0))
+                return out
+            return call
+
+        def scatter(feats, sort_cell, sort_pos, rows, cells, mode=4):
+            # the scatter route over the batch's flat ids in point order,
+            # in the kernel's place in the forward
+            return cell_feats_2d(feats, flat, rows, mode, cells)
+
+        def route(name):
+            return patch.object(unet, 'cell_reduce_sorted', timed(
+                scatter if name == 'scatter' else cell_reduce_sorted))
+
+        # the flagship's eval forward, one model a dtype, the route
+        # switched in place: the kernel's bit-equal on a repeat, then both
+        # routes' device time, and their bf16 forwards timed on the host
+        # clock in six pairs of turns, the kernel first in three of them
+        # (sorted, scatter, scatter, sorted, ...)
+        runs = {}
+        for dtype in (torch.float32, torch.bfloat16):
+            model = model_fn.build_model(cfg, dtype=dtype, brick=s)
+            model.load_state_dict(sd, strict=True)
+            step = model_fn.make_eval_step(cfg, model, caps[s])
+            for feats in ('sorted', 'scatter'):
+                with route(feats):
+                    step(dbatch)                    # warm-up (set-up)
+                    torch.cuda.synchronize()
+                    _cli_reset()                    # the counted path
+                    a = step(dbatch)
+                    torch.cuda.synchronize()
+                    ran = _launches()
+                    tag = f'eval_{str(dtype)[6:]}_{feats}_side{s}'
+                    assert ran == {'prologue': 0, **model.subm_routes(),
+                                   'cell_mean': int(feats == 'sorted')}, (
+                                       tag, ran)
+                    launched[tag] = ran
+                    b = step(dbatch)
+                    torch.cuda.synchronize()
+                    same = (torch.equal(a['output'], b['output']),
+                            torch.equal(a['preds'], b['preds']))
+                    if feats == 'sorted':
+                        assert same == (True, True), (tag, same)
+                    run = {'logits_bit_equal_on_repeat': same[0],
+                           'preds_equal_on_repeat': same[1]}
+                    if dtype == torch.bfloat16:
+                        run['profiled'] = _profile(lambda: step(dbatch))
+                runs[tag] = run
+                del a, b
+            if dtype == torch.float32:
+                del model, step
+                torch.cuda.empty_cache()
+        seconds = {'sorted': [], 'scatter': []}
+        inside = {'sorted': [], 'scatter': []}
+        for feats in ('sorted', 'scatter', 'scatter', 'sorted') * 3:
+            host_ms.clear()
+            with route(feats):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(3):
+                    step(dbatch)
+                torch.cuda.synchronize()
+            seconds[feats].append((time.perf_counter() - t0) / 3)
+            inside[feats].append(sum(host_ms) / len(host_ms))
+        del model, step, flat
+        torch.cuda.empty_cache()
+        # each pair's sorted - scatter gap (ms), by which of the two ran
+        # first: a gap that follows the route keeps its sign in both lists
+        gap = [1e3 * (a - b) for a, b in zip(seconds['sorted'],
+                                             seconds['scatter'])]
+        readings[s]['eval_forward'] = runs
+        readings[s]['bf16_seconds_per_forward_in_turns'] = seconds
+        readings[s]['bf16_gap_ms_sorted_first'] = gap[0::2]
+        readings[s]['bf16_gap_ms_scatter_first'] = gap[1::2]
+        readings[s]['bf16_host_ms_inside_the_reduction'] = inside
+    log('feats', card=card, deterministic_algorithms=False,
+        side4=readings[4], side2=readings[2], launches=launched,
+        phase_seconds=time.perf_counter() - t_phase)
+    _cli_reset()
+    return readings, launched
+
+
 REMATS = ('off', 'dots', 'all', 'mix2')
 REMAT_BATCH = 4            # the DA cfgs' batch
 
@@ -1975,7 +2165,7 @@ def _remat_run(cfg, sd, remat, step_of, steps, fuse_norm=False):
     fwd, bwd = model.subm_routes(), model.subm_routes(True)
     rule = {k: terms * (fwd.get(k, 0) + bwd.get(k, 0))
             for k in ('fused', 'prologue', 'narrow', 'f32', 'padded',
-                      'sm')}
+                      'sm', 'cell_mean')}
     _cli_reset()
     torch.cuda.reset_peak_memory_stats()
     with deterministic():
@@ -2245,18 +2435,21 @@ DEVICE_AUG = ['DATA_CONFIG.DATA_AUG.device', 'True',
 def _cli_launches():
     """The launch counters of every kernel, by route: 'sm' counts K2 in
     both dtypes, 'f32' K1 in float32, 'padded' the fused or narrow K1 on
-    zero-padded operands (counted apart from their own routes)."""
+    zero-padded operands (counted apart from their own routes),
+    'cell_mean' the sorted point -> cell reduction."""
     from doda_tpu_torch.ops.banded_conv import (banded_conv_f32,
                                                 banded_conv_fused,
                                                 banded_conv_narrow,
                                                 banded_conv_padded)
     from doda_tpu_torch.ops.banded_conv_sm import banded_conv_sm_taps
+    from doda_tpu_torch.ops.cell_mean import cell_reduce_sorted
     return {'sm': banded_conv_sm_taps.launches
             + banded_conv_sm_taps.f32_launches,
             'fused': banded_conv_fused.launches,
             'narrow': banded_conv_narrow.launches,
             'f32': banded_conv_f32.launches,
-            'padded': banded_conv_padded.launches}
+            'padded': banded_conv_padded.launches,
+            'cell_mean': cell_reduce_sorted.launches}
 
 
 def _cli_reset():
@@ -2266,10 +2459,11 @@ def _cli_reset():
                                                 banded_conv_narrow,
                                                 banded_conv_padded)
     from doda_tpu_torch.ops.banded_conv_sm import banded_conv_sm_taps
+    from doda_tpu_torch.ops.cell_mean import cell_reduce_sorted
     banded_conv_padded.launches = banded_conv_fused.launches = 0
     banded_conv_narrow.launches = banded_conv_f32.launches = 0
     banded_conv_sm_taps.launches = banded_conv_sm_taps.f32_launches = 0
-    banded_conv_fused.pro_launches = 0
+    banded_conv_fused.pro_launches = cell_reduce_sorted.launches = 0
 
 
 def _lines(path):
@@ -2306,7 +2500,7 @@ def cli_rooms(tmp):
         cfg_from_yaml_file(CFG_DA, CfgNode()), device='cpu')
     fwd, bwd = flagship.subm_routes(), flagship.subm_routes(True)
     assert fwd == {'sm': 0, 'fused': 52, 'narrow': 1, 'f32': 0,
-                   'padded': 0}, fwd
+                   'padded': 0, 'cell_mean': 1}, fwd
     return {
         'tmp': tmp,
         'roots': ['DATA_CONFIG.DATA_ROOT', str(tmp / '3dfront/density1250'),
@@ -2638,9 +2832,9 @@ def phase_import(card, ctx):
     assert sorted(tree) == ['batch_stats', 'params'], sorted(tree)
     assert checkpoint.load_metric_from_ckpt(dst) == (0.5, 12)
 
-    # both evaluations take the point -> cell means with deterministic
-    # algorithms (index_add_'s atomics would vary the logits from run to
-    # run), so that their mIoUs can be held equal exactly
+    # both evaluations run with deterministic algorithms, so that their
+    # mIoUs can be held equal exactly (the sorted point -> cell reduction
+    # needs none)
     with deterministic():
         run = cli_run(ctx, test, ['--cfg_file', CFG_DA, '--ckpt', str(dst)],
                       tag='chip_smoke_import')
@@ -3414,6 +3608,7 @@ def main():
         return 1
     from doda_tpu_torch.config import CfgNode, cfg_from_yaml_file
     from doda_tpu_torch.models.unet import default_brick_caps
+    from doda_tpu_torch.ops import _build
     from doda_tpu_torch.utils import synth
 
     start = time.perf_counter()
@@ -3435,6 +3630,7 @@ def main():
     library, engine_launches = phase_engines(cfg, batch, b_caps, card,
                                              levels)
     brick_launches, brick_timing = phase_brick(cfg, batch, b_caps, card)
+    feats, feats_launches = phase_feats(cfg, batch, b_caps, card)
     del batch
     remat_launches = phase_remat(card)
     phase_pointops(card)
@@ -3482,6 +3678,36 @@ def main():
     # phase brick's runs at sides 4 and 2 join each kernel's row, with the
     # side-2 readings beside the side-4 ones of the same call
     add_brick_phase(rows, brick_launches, brick_timing)
+    # the sorted point -> cell reduction: once in every forward (but phase
+    # feats' runs with the scatter route patched in)
+    by_phase = {
+        'eval_forward': fwd['cell_mean'], 'train_steps': train['cell_mean'],
+        'fuse_norm': sum(n['cell_mean'] for n in fuse_launches.values()),
+        'engines': sum(n['cell_mean'] for n in engine_launches.values()),
+        'brick': sum(n['cell_mean'] for n in brick_launches.values()),
+        'feats': sum(n['cell_mean'] for n in feats_launches.values()),
+        'remat': remat_launches['cell_mean'],
+        'cli': {run: n['cell_mean'] for run, n in cli.items()}}
+    f4 = feats[4]
+    rows.append({
+        'name': 'cell_reduce_sorted', 'route': 'cuda',
+        'source': 'doda_tpu_torch/csrc/cell_mean.cu',
+        'replaces': 'none: no pallas_call; the port of the JAX default '
+                    'point -> cell reduction doda_tpu/ops/bricks.py:213 '
+                    '(_brick_feats_sorted, plain XLA)',
+        'launches': sum(v for k, v in by_phase.items() if k != 'cli')
+        + sum(by_phase['cli'].values()),
+        'launches_by_phase': by_phase,
+        **{k: f4[k] for k in ('max_abs_err', 'ms', 'plain_ms', 'bound_ms',
+                              'bound_by', 'library_ms', 'scatter_route_ms',
+                              'shape', 'bytes', 'flops', 'errors')},
+        'library': 'torch.zeros then Tensor.index_reduce_(0, flat, feats, '
+                   "'mean', include_self=False): two calls, the zero fill "
+                   'included',
+        **_build.resources('cell_mean'),
+        'brick2': {k: feats[2][k] for k in (
+            'max_abs_err', 'ms', 'plain_ms', 'bound_ms', 'bound_by',
+            'library_ms', 'scatter_route_ms', 'shape')}})
     assert remat_launches['sm'] == remat_launches['f32'] == 0, remat_launches
     for r in rows:       # every kernel of the paths really ran on them
         assert r['launches'] > 0, r['name']

@@ -80,6 +80,12 @@ brick=s)`` builds the plan in bricks of s^3 cells and the net reads s
 from the plan's occupancy; a plan of another side than the net's raises.
 The parameters do not depend on it, so one set of weights runs at every
 side. K1's kernels and K2's (``sm_max_cin > 0``) run at sides 2 and 4.
+
+The point -> cell reduction in front of the input conv is the JAX
+package's default (``DODA_FEATS`` unset): each cell's run of the batch's
+(brick, cell)-sorted stream (``batch_stream``, from ``brickify``'s sort)
+summed by ``cell_reduce_sorted``, which uses no float atomics, so two
+forwards on one batch give the same bits.
 """
 
 from __future__ import annotations
@@ -96,9 +102,10 @@ from torch.utils.checkpoint import (checkpoint,
                                     noop_context_fn, set_checkpoint_early_stop)
 
 from ..ops.bricks import (BrickGrid, brickify, build_brick_downsample,
-                          build_brick_rulebook, cell_feats_2d, geometry,
-                          side_of, subm_conv3, subm_conv3_v2)
+                          build_brick_rulebook, geometry, side_of,
+                          subm_conv3, subm_conv3_v2)
 from ..ops.banded_conv import occ_words
+from ..ops.cell_mean import cell_reduce_sorted
 from ..ops.bricks2d import (conv1x1_2d, down_conv2_2d, down_conv2_norm_2d,
                             halo_index, sm_index, subm_conv3_2d,
                             subm_conv3_norm_2d, subm_route, up_conv2_2d,
@@ -212,6 +219,24 @@ def build_level_plan(coords, valid, b_caps: Sequence[int],
     return _stack([_scene_plan(coords[s], valid[s], tuple(b_caps), slabs,
                                brick)
                    for s in range(coords.shape[0])])
+
+
+# ---------------------------------------------------------------------------
+# the batch's point -> cell stream: the scenes' sorted streams in scene
+# order, ids and rows made global
+# ---------------------------------------------------------------------------
+
+def batch_stream(grid0: BrickGrid):
+    """The batch's (brick, cell)-sorted stream from the stacked level-0
+    grids, made global by ``_flat_ids``: scene s's flat cell ids offset by
+    s*cap0*cells, every null id (SENTINEL, past the valid points of a
+    scene) ``Batch*cap0*cells``, and its point rows offset by s*N.
+    Concatenated in scene order the valid ids still ascend, so the points
+    of a cell stay adjacent. Returns (sort_cell, sort_pos), each
+    (Batch*N,) int32."""
+    cap0, cells = grid0.occ.shape[1:]
+    return (_flat_ids(grid0.sort_cell, cap0 * cells),
+            _flat_ids(grid0.sort_pos, grid0.sort_pos.shape[1]))
 
 
 # ---------------------------------------------------------------------------
@@ -565,8 +590,11 @@ class SparseConvNet(nn.Module):
         gives 'all' adds one launch of its forward route; one at a 'dots'
         level adds none on '2d' (its product comes back from the kept
         outputs), but a call of another engine's conv function, which
-        runs again around its kept products."""
-        counts = {'sm': 0, 'fused': 0, 'narrow': 0, 'f32': 0, 'padded': 0}
+        runs again around its kept products. The point -> cell reduction
+        launches ``cell_reduce_sorted`` once a forward, outside every
+        block, counted under 'cell_mean' (none in the backward)."""
+        counts = {'sm': 0, 'fused': 0, 'narrow': 0, 'f32': 0, 'padded': 0,
+                  'cell_mean': int(not backward)}
         if self.fuse_norm:
             counts['prologue'] = 0
         if self.conv_engine != '2d':
@@ -635,11 +663,10 @@ class SparseConvNet(nn.Module):
         # flat cell id of every point across the batch, null = rows*cells
         gidx = plan.grid0.flat_index()
         miss = gidx >= cap0 * cells
-        offs = torch.arange(bt, device=gidx.device)[:, None] * (cap0 * cells)
-        flat = torch.where(miss, bt * cap0 * cells, gidx + offs).reshape(-1)
+        flat = _flat_ids(gidx, cap0 * cells)
 
-        x = cell_feats_2d(point_feats.reshape(bt * n, -1), flat, bt * cap0,
-                          cells=cells)
+        x = cell_reduce_sorted(point_feats.reshape(bt * n, -1).float(),
+                               *batch_stream(plan.grid0), bt * cap0, cells)
         x = _fsubm(x.to(self.dtype), levels[0], self.input_kernel,
                    self.dtype, self.sm_max_cin, self.conv_engine,
                    self.deep_xla_rows)

@@ -35,7 +35,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from .coords import CoordTable, pad_rows, unique_coords_packed
+from .coords import (SENTINEL, CoordTable, pack_coords1, pad_rows,
+                     table_from_sorted, unique_coords_packed)
 from .sparse import build_subm_rulebook
 
 @dataclasses.dataclass(frozen=True)
@@ -87,6 +88,12 @@ class BrickGrid(NamedTuple):
     table: CoordTable       # brick coords; table.p2v maps point -> brick
     occ: torch.Tensor       # (b_cap, side^3) bool active cells
     p2c: torch.Tensor       # (N,) int32 cell of each point
+    # brickify's sort stream, which the sorted point -> cell reduction
+    # (ops/cell_mean.py) reads:
+    sort_cell: torch.Tensor   # (N,) int32 flat cell id b*side^3 + c in
+    #                           (brick, cell, point) order; SENTINEL past
+    #                           the valid points
+    sort_pos: torch.Tensor    # (N,) int32 point row of each slot
 
     @property
     def b_cap(self) -> int:
@@ -104,19 +111,34 @@ class BrickGrid(NamedTuple):
 def brickify(coords: torch.Tensor, valid: torch.Tensor,
              b_cap: int, brick: int = BRICK) -> BrickGrid:
     """Voxel coords (N, 3) -> brick table + cell occupancy, in bricks of
-    side ``brick``."""
+    side ``brick``.
+
+    One sort of an int64 key, the packed brick key then ``cell*N + pos``,
+    deduplicates the bricks and leaves the points in (brick, cell, point)
+    order: the stream ``sort_cell`` / ``sort_pos`` of the JAX package's
+    ``brickify``, integer for integer. The table and p2v are those of
+    ``unique_coords_packed``: both orders ascend in the packed key."""
     g = geometry(brick)
+    n_pts = coords.shape[0]
     cell_xyz = coords % brick
     cell = (cell_xyz[:, 0] * (brick * brick) + cell_xyz[:, 1] * brick
             + cell_xyz[:, 2])
     cell = torch.where(valid, cell, 0).to(torch.int32)
-    table = unique_coords_packed(torch.div(coords, brick,
-                                           rounding_mode='floor'),
-                                 valid, b_cap)
+    k = pack_coords1(torch.div(coords, brick, rounding_mode='floor'), valid)
+    span = g.cells * n_pts                  # payload cell*N + pos < span
+    pos = torch.arange(n_pts, device=coords.device)
+    key, _ = torch.sort(k.long() * span + cell.long() * n_pts + pos)
+    payload = key % span
+    pos_s = payload % n_pts
+    table, vid_s = table_from_sorted((key // span).to(torch.int32), pos_s,
+                                     b_cap)
     occ = torch.zeros((b_cap + 1, g.cells), dtype=torch.bool,
                       device=coords.device)
     occ[table.p2v.long(), cell.long()] = True     # misses land in row b_cap
-    return BrickGrid(table=table, occ=occ[:b_cap], p2c=cell)
+    sort_cell = torch.where(vid_s < b_cap, vid_s * g.cells + payload // n_pts,
+                            SENTINEL).to(torch.int32)
+    return BrickGrid(table=table, occ=occ[:b_cap], p2c=cell,
+                     sort_cell=sort_cell, sort_pos=pos_s.to(torch.int32))
 
 
 def cell_feats_2d(feats: torch.Tensor, flat: torch.Tensor, rows: int,

@@ -1,0 +1,119 @@
+"""The point -> cell reduction over brickify's sorted stream.
+
+Port of the JAX package's default reduction,
+``doda_tpu/ops/bricks.py::_brick_feats_sorted`` (``DODA_FEATS`` unset), by
+its semantics: ``brickify`` leaves the points in (brick, cell) order, so
+the points of a cell form one run of the stream, and each run is summed
+alone; no float scatter. That function reaches no Pallas kernel. Its way
+of summing (expand each point to the 16*(C+1) lanes of its x-slice, a
+float32 cumsum over the whole stream, differences at run ends) serves the
+TPU's 128-lane tiles, and it loses precision as the stream grows: the
+prefix sum of all-positive features reaches ~1e4 before two nearby values
+are subtracted. Here the runs are summed directly.
+
+``cell_reduce_sorted`` (``csrc/cell_mean.cu``) takes the stream
+(``sort_cell``, ``sort_pos``) and returns the dense (rows, cells*C)
+table: each run's points summed in stream order in float32 by one thread
+(mode 3, the sum), divided by the run's length (mode 4, the mean); every
+cell that no point reaches exactly zero. It uses no atomics and no float
+scan, so two calls on one input give the same bits; ``index_add_`` on the
+card, the route of ``bricks.cell_feats_2d``, does not.
+
+``cell_reduce_sorted_plain`` is its plain version: a float64
+``index_add_`` over the same ids, cast back (sequential on the CPU, so
+reproducible). The input features carry no gradient in any step, so the
+reduction has no backward and raises on features that require one.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from . import _build
+
+MODES = (3, 4)              # 3 = sum, 4 = mean (ref voxelize.cu:10-31)
+
+
+def _check(feats, sort_cell, sort_pos, rows, cells, mode) -> None:
+    if mode not in MODES:
+        raise NotImplementedError(f'brick voxel mode {mode}')
+    if feats.requires_grad:
+        raise ValueError('cell_reduce_sorted has no backward: the point '
+                         'features must not require a gradient')
+    n = feats.shape[0]
+    if feats.dim() != 2 or sort_cell.shape != (n,) \
+            or sort_pos.shape != (n,) or rows < 0 or cells < 1:
+        raise ValueError(f'cell_reduce_sorted: feats {tuple(feats.shape)}, '
+                         f'sort_cell {tuple(sort_cell.shape)}, sort_pos '
+                         f'{tuple(sort_pos.shape)}, rows {rows}, cells '
+                         f'{cells}; need (N, C), (N,), (N,) and rows >= 0, '
+                         'cells >= 1')
+
+
+def cell_reduce_sorted_plain(feats: torch.Tensor, sort_cell: torch.Tensor,
+                             sort_pos: torch.Tensor, rows: int, cells: int,
+                             mode: int = 4) -> torch.Tensor:
+    """The plain version of ``cell_reduce_sorted``: sums and counts in
+    float64 by ``index_add_`` over the stream's ids (null ids, those >=
+    rows*cells, dropped), cast to the features' type."""
+    _check(feats, sort_cell, sort_pos, rows, cells, mode)
+    n_seg = rows * cells
+    c = feats.shape[1]
+    ids = sort_cell.long().clamp(max=n_seg)
+    f64 = feats.to(torch.float64)[sort_pos.long()]
+    total = f64.new_zeros((n_seg + 1, c)).index_add_(0, ids, f64)[:n_seg]
+    if mode == 4:
+        count = f64.new_zeros(n_seg + 1).index_add_(
+            0, ids, f64.new_ones(ids.shape[0]))[:n_seg]
+        total = total / count.clamp(min=1.0)[:, None]
+    return total.reshape(rows, cells * c).to(feats.dtype)
+
+
+@functools.lru_cache(maxsize=None)
+def _lib():
+    lib = _build.load('cell_mean')
+    lib.doda_cell_reduce_sorted.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
+        ctypes.c_void_p]
+    lib.doda_cell_reduce_sorted.restype = ctypes.c_int
+    return lib
+
+
+def cell_reduce_sorted(feats: torch.Tensor, sort_cell: torch.Tensor,
+                       sort_pos: torch.Tensor, rows: int, cells: int,
+                       mode: int = 4) -> torch.Tensor:
+    """Point features into cells: feats (N, C), the sorted stream
+    sort_cell (N,) int32 (flat cell id in [0, rows*cells), any larger id
+    for none; the points of one cell adjacent) and sort_pos (N,) int32
+    (the feats row of each slot) -> (rows, cells*C), mode 4 the mean over
+    each cell, 3 the sum; cells no point reaches are exactly zero."""
+    if all(t.device.type == 'cpu' for t in (feats, sort_cell, sort_pos)):
+        return cell_reduce_sorted_plain(feats, sort_cell, sort_pos, rows,
+                                        cells, mode)
+    _check(feats, sort_cell, sort_pos, rows, cells, mode)
+    dev = feats.device
+    if feats.dtype != torch.float32 or not feats.is_contiguous() \
+            or any(t.device != dev or t.dtype != torch.int32
+                   or not t.is_contiguous() for t in (sort_cell, sort_pos)):
+        raise ValueError('cell_reduce_sorted: need contiguous float32 feats '
+                         'and int32 sort_cell and sort_pos on one card')
+    n, c = feats.shape
+    out = torch.zeros((rows, cells * c), dtype=torch.float32, device=dev)
+    if out.numel() == 0:
+        return out
+    err = _lib().doda_cell_reduce_sorted(
+        feats.data_ptr(), sort_cell.data_ptr(), sort_pos.data_ptr(),
+        out.data_ptr(), n, c, rows * cells, mode,
+        torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError('cell_reduce_sorted: kernel launch failed with '
+                           f'CUDA error {err}')
+    cell_reduce_sorted.launches += 1
+    return out
+
+
+cell_reduce_sorted.launches = 0

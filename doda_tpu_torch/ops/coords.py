@@ -71,9 +71,18 @@ def unique_coords_packed(coords: torch.Tensor, valid: torch.Tensor,
 
     Keys beyond the first ``cap`` unique ones overflow into the null slot
     and are dropped silently (``n`` is clamped to ``cap``)."""
-    dev = coords.device
-    n_pts = coords.shape[0]
     ks, order = torch.sort(pack_coords1(coords, valid), stable=True)
+    return table_from_sorted(ks, order, cap)[0]
+
+
+def table_from_sorted(ks: torch.Tensor, order: torch.Tensor, cap: int):
+    """The table of ``unique_coords_packed`` from the ascending packed keys
+    ``ks`` of the points and each slot's point ``order``; also returns
+    each slot's table id ``vid_s`` (``cap`` where invalid or overflowed).
+    ``brickify`` sorts by a longer key whose leading part is the packed
+    key and hands its stream here."""
+    dev = ks.device
+    n_pts = ks.shape[0]
     valid_s = ks != SENTINEL
     new = torch.ones_like(valid_s)
     new[1:] = ks[1:] != ks[:-1]
@@ -91,7 +100,7 @@ def unique_coords_packed(coords: torch.Tensor, valid: torch.Tensor,
     p2v = torch.empty(n_pts, dtype=torch.int32, device=dev)
     p2v[order] = vid_s
     key = pack_coords1(table, torch.arange(cap, device=dev) < n)
-    return CoordTable(coords=table, key=key, n=n, p2v=p2v)
+    return CoordTable(coords=table, key=key, n=n, p2v=p2v), vid_s
 
 
 def lookup_packed(table: CoordTable, query_coords: torch.Tensor,

@@ -38,9 +38,13 @@ def card_label(dev: torch.device) -> str:
 @contextlib.contextmanager
 def deterministic():
     """PyTorch's deterministic algorithms inside the block, for checks
-    that hold two runs bit for bit: on the card ``index_add_`` (the
-    point-to-cell mean) otherwise sums with atomics in a varying order.
-    Ops without a deterministic version warn instead of raising."""
+    that hold two runs bit for bit. An eval forward needs none: its
+    point -> cell reduction (``ops/cell_mean.py``) gives the same bits
+    without. What still sums with atomics in a varying order on the card
+    is ``index_add_``: the backward of the voxel -> point gather
+    (``index_select``) in every train and st step, and the plain
+    reduction ``ops/bricks.py::cell_feats_2d``. Ops without a
+    deterministic version warn instead of raising."""
     was, warn = (torch.are_deterministic_algorithms_enabled(),
                  torch.is_deterministic_algorithms_warn_only_enabled())
     torch.use_deterministic_algorithms(True, warn_only=True)

@@ -1,4 +1,4 @@
-"""The card's peak rates and the least time a subm conv's work could take.
+"""The card's peak rates and the least time a kernel's work could take.
 
 One model of bytes and operations for ``chip_smoke.py`` and the probes
 (``tools/roofline.py``, ``tools/bench_conv.py``), so that their bounds
@@ -36,6 +36,18 @@ def bound(moved: float, ops: float, peak: float = PEAK_BF16) -> dict:
     t_bytes, t_ops = moved / PEAK_BYTES * 1e3, ops / peak * 1e3
     return {'bound_ms': max(t_bytes, t_ops),
             'bound_by': 'bytes' if t_bytes >= t_ops else 'operations'}
+
+
+def cell_mean_work(n_pts: int, n_valid: int, c: int, n_cells: int,
+                   n_runs: int) -> dict:
+    """The sorted point -> cell reduction (``ops/cell_mean.py``), mode 4,
+    float32: the stream's ids (every slot) and rows (the valid points'),
+    the valid points' features and the dense (n_cells, c) output moved
+    once; a float32 add a valid point and channel and a division a run and
+    channel."""
+    moved = 4 * (n_pts + n_valid + n_valid * c + n_cells * c)
+    ops = n_valid * c + n_runs * c
+    return {'bytes': moved, 'flops': ops, **bound(moved, ops, PEAK_F32)}
 
 
 def halo_reads(device=None, side: int = 4) -> torch.Tensor:

@@ -1,5 +1,6 @@
 """Shared inputs of the brick-side tests (tests/test_torch_brick_side*.py):
-the JAX package run in a subprocess under ``DODA_BRICK=2``, side-2 grids,
+the JAX package run in a subprocess under ``DODA_BRICK=2`` (its plan, its
+sorted stream and default point -> cell reduction, its convs), side-2 grids,
 numpy mirrors of the side-2 fused and narrow K1, a net constructor and tiny
 CLI rooms.
 """
@@ -53,9 +54,18 @@ wu = jnp.asarray(rng.normal(size=(8, cout, cin)).astype(np.float32) * 0.1)
 fd = FlatDown(child_parent=ds.child_parent, parity=ds.parity,
               parent_children=ds.parent_children)
 f32 = jnp.float32
+os.environ.pop('DODA_FEATS', None)           # the default, sorted reduction
+feats = dict(uniform=rng.uniform(0.3, 1.0, (n, 3)).astype(np.float32),
+             normal=rng.normal(size=(n, 3)).astype(np.float32))
 out = dict(
     coords=coords, n=int(g.table.n), tcoords=np.asarray(g.table.coords),
     p2v=np.asarray(g.table.p2v), occ=occ, p2c=np.asarray(g.p2c),
+    sort_cell=np.asarray(g.sort_cell), sort_pos=np.asarray(g.sort_pos),
+    num_voxels=int(g.num_voxels),
+    **{f'{k}{m}': v for k, f in feats.items() for m, v in (
+        ('', f), ('_3', np.asarray(bricks.brick_feats_2d(jnp.asarray(f), g,
+                                                          3))),
+        ('_4', np.asarray(bricks.brick_feats_2d(jnp.asarray(f), g, 4))))},
     nbr=np.asarray(nbr), pn=int(ds.parent.n),
     pcoords=np.asarray(ds.parent.coords), pocc=pocc,
     child_parent=np.asarray(ds.child_parent), parity=np.asarray(ds.parity),

@@ -1,8 +1,9 @@
 """The brick side as an argument of the port (the JAX package's
 ``DODA_BRICK``), on the CPU at side 2:
 
-* the plan (``brickify``, the rulebook, ``build_brick_downsample``,
-  ``down_maps``) integer for integer and the wide-lane convs
+* the plan (``brickify`` with its sorted stream, the rulebook,
+  ``build_brick_downsample``, ``down_maps``) integer for integer, the
+  sorted point -> cell reduction (modes 3 and 4) and the wide-lane convs
   (``subm_conv3_2d``, ``subm_conv3_norm_2d``, ``down_conv2_2d``,
   ``up_conv2_2d``) at float32 to 1e-5 against the JAX package run in a
   subprocess under ``DODA_BRICK=2`` (its side binds at import);
@@ -35,6 +36,7 @@ from doda_tpu_torch.ops import bricks as tbricks
 from doda_tpu_torch.ops import bricks2d as tb2d
 from doda_tpu_torch.ops.banded_conv import (banded_conv_fused,
                                             banded_conv_narrow)
+from doda_tpu_torch.ops.cell_mean import cell_reduce_sorted
 from doda_tpu_torch.ops.banded_conv_sm import (banded_conv_sm_plain,
                                                banded_conv_sm_taps,
                                                banded_conv_sm_taps_plain)
@@ -62,6 +64,31 @@ def test_side2_plan_and_convs_equal_the_jax_package(tmp_path):
     np.testing.assert_array_equal(g.table.p2v.numpy(), j['p2v'])
     np.testing.assert_array_equal(g.occ.numpy(), j['occ'])
     np.testing.assert_array_equal(g.p2c.numpy(), j['p2c'])
+    np.testing.assert_array_equal(g.sort_cell.numpy(), j['sort_cell'])
+    np.testing.assert_array_equal(g.sort_pos.numpy(), j['sort_pos'])
+    assert int(g.occ.sum()) == j['num_voxels']
+    # the sorted reduction: within 1e-5 of the JAX default on normal
+    # features; on colour-like ones (uniform in [0.3, 1]) within 1e-6 of
+    # max|ref| of the float64 sums and means, and no further off them than
+    # the JAX default, whose float32 prefix sum over the stream drifts
+    # (1.0e-5 here: at side 2 a slice's 4 cells share the lanes)
+    flat = g.flat_index().numpy()
+    count = np.bincount(flat, minlength=512 * 8 + 1)[:-1, None]
+    for kind in ('normal', 'uniform'):
+        total = np.zeros((512 * 8 + 1, 3))
+        np.add.at(total, flat, j[kind].astype(np.float64))
+        for mode in (3, 4):
+            got = cell_reduce_sorted(_t(j[kind]), g.sort_cell, g.sort_pos,
+                                     512, 8, mode).numpy()
+            want = j[f'{kind}_{mode}']
+            ref = (total[:-1] if mode == 3 else
+                   total[:-1] / np.maximum(count, 1)).reshape(512, 24)
+            err = np.abs(got - ref).max()
+            assert err <= 1e-6 * np.abs(ref).max(), (kind, mode, err)
+            assert err <= np.abs(want - ref).max(), (kind, mode, err)
+            if kind == 'normal':
+                np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
+            assert (got.reshape(512, 8, 3)[~g.occ.numpy()] == 0).all()
     nbr = tbricks.build_brick_rulebook(g.table)
     np.testing.assert_array_equal(nbr.numpy(), j['nbr'])
     ds = tbricks.build_brick_downsample(g.table, g.occ, 256)

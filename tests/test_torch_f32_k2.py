@@ -65,9 +65,10 @@ def test_subm_route_sends_float32_to_f32():
             want = 'sm' if tb2d.uses_sm(cin, cout, 32, side) else 'f32'
             assert tb2d.subm_route(cin, cout, F32, 32, side) == want
     assert model.subm_routes() == {'sm': 0, 'fused': 0, 'narrow': 0,
-                                   'f32': 53, 'padded': 0}
+                                   'f32': 53, 'padded': 0, 'cell_mean': 1}
     assert model.subm_routes(True) == {'sm': 0, 'fused': 0, 'narrow': 0,
-                                       'f32': 52, 'padded': 0}
+                                       'f32': 52, 'padded': 0,
+                                       'cell_mean': 0}
 
 
 def test_f32_route_forward_and_dx_equal_jax(monkeypatch):

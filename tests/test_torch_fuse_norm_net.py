@@ -86,7 +86,8 @@ def test_fused_net_matches_flax_fused_net(monkeypatch):
     err = np.abs(got - want)[valid].max()
     assert err <= 1e-3 * max(1.0, np.abs(want).max()), err
     assert port.subm_routes() == {'sm': 0, 'fused': 0, 'narrow': 0,
-                                  'f32': 7, 'padded': 0, 'prologue': 0}
+                                  'f32': 7, 'padded': 0, 'prologue': 0,
+                                  'cell_mean': 1}
 
 
 def test_train_fused_equals_unfused_on_the_fused_route(monkeypatch):

@@ -80,13 +80,14 @@ def test_routing_rule_sends_the_input_conv_to_it():
     cfg = cfg_from_yaml_file('cfgs/scannet/spconv.yaml', CfgNode())
     model = tmf.build_model(cfg, device='cpu', dtype=bf)
     assert model.subm_routes() == {'sm': 0, 'fused': 52, 'narrow': 1,
-                                   'f32': 0, 'padded': 0}
+                                   'f32': 0, 'padded': 0, 'cell_mean': 1}
     # its input needs no gradient: no dx conv of the input conv
     assert model.subm_routes(True) == {'sm': 0, 'fused': 52, 'narrow': 0,
-                                       'f32': 0, 'padded': 0}
+                                       'f32': 0, 'padded': 0,
+                                       'cell_mean': 0}
     model = tmf.build_model(cfg, device='cpu', dtype=f32)
     assert model.subm_routes() == {'sm': 0, 'fused': 0, 'narrow': 0,
-                                   'f32': 53, 'padded': 0}
+                                   'f32': 53, 'padded': 0, 'cell_mean': 1}
     for cin, cout, dtype, want in (
             (1, 16, bf, 'narrow'), (NARROW_MAX_CIN, 8, bf, 'narrow'),
             (8, 16, bf, 'fused'), (12, 16, bf, 'padded'),

@@ -140,7 +140,8 @@ def test_steps_under_dots_and_all_match_jax():
 
 def _counting(monkeypatch):
     """Count the kernel wrappers' calls by route where ``bricks2d`` makes
-    them (on the CPU they run their plain versions)."""
+    them, and the point -> cell reduction's where ``unet`` makes it (on the
+    CPU they run their plain versions)."""
     calls = {}
 
     def wrap(name, route_of):
@@ -159,6 +160,12 @@ def _counting(monkeypatch):
     wrap('banded_conv_narrow', lambda a: 'narrow')
     wrap('banded_conv_sm_taps', lambda a: 'sm')
     wrap('banded_conv_f32', lambda a: 'f32')
+    fn = tunet.cell_reduce_sorted       # the point -> cell reduction
+
+    def reduced(*a):
+        calls['cell_mean'] = calls.get('cell_mean', 0) + 1
+        return fn(*a)
+    monkeypatch.setattr(tunet, 'cell_reduce_sorted', reduced)
     return calls
 
 
