@@ -53,7 +53,15 @@ Phases, each printing one line:
      parameter and running statistic moved; steps/sec, trained scenes/sec,
      peak memory; then one float32 step on the kernel path against the
      plain path, loss and every gradient; and three bf16 steps under
-     ``sm_max_cin=0`` (fused K1 everywhere) beside the ``sm_max_cin=32`` ones
+     ``sm_max_cin=0`` (fused K1 everywhere) beside the ``sm_max_cin=32`` ones;
+     repeat: with deterministic algorithms off, two runs of two steps each
+     from one seeded state (bf16 and float32 train steps under
+     ``sm_max_cin=32`` and an st step of the DA flagship at side 4, bf16
+     train steps at side 2) leave the same bits in every loss, gradient,
+     weight, running statistic and momentum; launches by route against
+     the rule in every step (the sorted reduction 2 a train step, 4 an st
+     step: the point -> cell reduction and the voxel -> point gather's
+     backward)
   6. fuse_norm: the flagship with ``fuse_norm=True`` (the fused norm +
      ReLU engine: its 52 block convs on K1's prologue variant) against the
      same weights unfused: the eval forward on the 4 bench scenes (launches
@@ -104,17 +112,20 @@ Phases, each printing one line:
      ``sm_max_cin=0`` step (loss 1e-4 relative, gradients 1e-3 of their
      scale) and three bf16 steps, launches against ``subm_routes``
   9. feats: the point -> cell reduction (the JAX package's default,
-     ``DODA_FEATS`` unset) on the bench batch at sides 4 and 2: the sorted
-     kernel (``cell_reduce_sorted``, csrc/cell_mean.cu) against its
-     float64 twin (1e-6 of max|ref|) and the scatter route
-     (``bricks.cell_feats_2d``, ``index_add_``, 1e-5), modes 3 and 4,
-     bit-equal on a repeated call, untouched cells zero; its ms beside its
-     bound, the twin's, the scatter route's and ``index_reduce_``'s; the
-     flagship's eval forward with deterministic algorithms off: two
-     forwards bit-equal in float32 and bf16, one launch a forward; device
-     time by bucket, wall time in turns of balanced order and the host
-     time inside the call, beside the same forward with the scatter route
-     patched in
+     ``DODA_FEATS`` unset) on the bench batch at sides 4 and 2, and at side
+     4 the same kernel as the voxel -> point gather's backward (C = 16, a
+     float32 cotangent, bf16 and float32 out): the sorted kernel
+     (``cell_reduce_sorted``, csrc/cell_mean.cu) against its float64 twin
+     (1e-6 of max|ref|, bf16 out one bf16 step) and at C = 3 the scatter
+     route (``bricks.cell_feats_2d``, ``index_add_``, 1e-5), modes 3 and
+     4, bit-equal on a repeated call, untouched cells zero, one launch and
+     no fill a call (torch.profiler); its ms beside its bound, the first
+     version's, the twin's, the scatter route's, ``index_reduce_``'s and
+     ``index_select``'s autograd backward; the flagship's eval forward
+     with deterministic algorithms off: two forwards bit-equal in float32
+     and bf16, one launch a forward; device time by bucket, wall time in
+     two pairs of turns of balanced order and the host time inside the
+     call, beside the same forward with the scatter route patched in
  10. remat: the U-Net blocks' memory policies (``remat``) in the
      CLI-shaped train step (cfgs/da_front3d_scannet/spconv.yaml, batch 4
      of the bench rooms, bf16, ``sm_max_cin=0``), 'off', 'dots', 'all'
@@ -765,12 +776,13 @@ def phase_train(cfg, b_caps, card):
     model, step = trainer(torch.bfloat16, sd)
     # launches of one step by the rule on the parameter shapes: every
     # kernel runs one forward conv and one dx conv on the flipped shape,
-    # except the input conv, whose input needs no gradient
+    # except the input conv, whose input needs no gradient; the sorted
+    # reduction once a forward and once a backward (the gather's)
     fwd_want, bwd_want = model.subm_routes(), model.subm_routes(True)
     assert fwd_want == {'sm': 15, 'fused': 37, 'narrow': 1, 'f32': 0,
                         'padded': 0, 'cell_mean': 1}, fwd_want
     assert bwd_want == {'sm': 16, 'fused': 36, 'narrow': 0, 'f32': 0,
-                        'padded': 0, 'cell_mean': 0}, bwd_want
+                        'padded': 0, 'cell_mean': 1}, bwd_want
     want = {k: fwd_want[k] + bwd_want[k] for k in fwd_want}
     reset = _cli_reset
 
@@ -824,7 +836,8 @@ def phase_train(cfg, b_caps, card):
     dt0 = time.perf_counter() - t0
     peak0 = torch.cuda.max_memory_allocated()
     assert counts() == {'sm': 0, 'fused': steps * 104, 'narrow': steps,
-                        'f32': 0, 'padded': 0, 'cell_mean': steps}, counts()
+                        'f32': 0, 'padded': 0, 'cell_mean': 2 * steps}, \
+        counts()
     assert all(math.isfinite(float(v)) for v in losses0)
     log('train_k2_or_fused', card=card, batch=synth.TRAIN_BATCH,
         steps_per_sec_sm_max_cin_32=steps / dt,
@@ -843,7 +856,7 @@ def phase_train(cfg, b_caps, card):
     want32 = {k: v + model_k.subm_routes(True)[k]
               for k, v in model_k.subm_routes().items()}
     assert want32 == {'sm': 31, 'fused': 0, 'narrow': 0, 'f32': 74,
-                      'padded': 0, 'cell_mean': 1}, want32
+                      'padded': 0, 'cell_mean': 2}, want32
     reset()
     loss_k = float(step_k(batch, lr)['loss'])
     f32_ran = _cli_launches()
@@ -870,6 +883,119 @@ def phase_train(cfg, b_caps, card):
         losses=losses, lr=lr, f32_loss_kernel=loss_k, f32_loss_plain=loss_p,
         f32_worst_gradient_err=worst, f32_launches_per_step=f32_ran)
     return ran, f32_ran
+
+
+ROUTES = ('sm', 'fused', 'narrow', 'f32', 'padded', 'prologue', 'cell_mean')
+
+
+def _step_bits(model, opt, outs):
+    """Every tensor a run of steps leaves, by name: each step's outputs
+    (the losses), the last step's gradients, the state dict (weights and
+    running statistics) and the optimizer's state (momentum)."""
+    bits = {f'step{i}/{k}': v for i, out in enumerate(outs)
+            for k, v in out.items() if torch.is_tensor(v)}
+    bits.update({f'grad/{n}': p.grad for n, p in model.named_parameters()})
+    bits.update({f'state/{k}': v for k, v in model.state_dict().items()})
+    for i, st in opt.state_dict()['state'].items():
+        bits.update({f'opt/{i}/{k}': v for k, v in st.items()
+                     if torch.is_tensor(v)})
+    return {k: v.detach().clone() for k, v in bits.items()}
+
+
+def phase_repeat(cfg, card):
+    """Bit-equal steps with deterministic algorithms off: from one seeded
+    state, two runs of two steps each of the flagship (batch 2 of the bench
+    scenes) in bf16 under ``sm_max_cin=32`` (K2 and the fused K1), in
+    float32 under ``sm_max_cin=32`` (K2's and K1's float32 kernels), an st
+    step of the DA flagship (DSNorm, ``sm_max_cin=0``, the CLIs' kernels)
+    at side 4, and bf16 under ``sm_max_cin=0`` at side 2. The two runs of
+    each must leave the same bits in every loss, gradient, weight, running
+    statistic and momentum; every step's launches equal ``subm_routes``'
+    rule (``cell_reduce_sorted`` 1 a forward and 1 a backward: 2 a train
+    step, 4 an st step). Returns the launches of every counted step."""
+    from doda_tpu_torch.config import CfgNode, cfg_from_yaml_file
+    from doda_tpu_torch.models import model_fn
+    from doda_tpu_torch.models.unet import default_brick_caps
+    from doda_tpu_torch.utils import optim, synth
+    t_phase = time.perf_counter()
+    assert not torch.are_deterministic_algorithms_enabled()
+    tbatch = synth.make_batch(seed=0, batch=synth.TRAIN_BATCH)
+    st_cfg = cfg_from_yaml_file(CFG_ST, CfgNode())
+    n_st = st_cfg.COMMON_CLASSES.n_classes
+    st_caps = default_brick_caps(
+        st_cfg.DATA_CONFIG.DATA_PROCESSOR.brick_cap, 7)
+    src = synth.make_batch(seed=0, batch=synth.TRAIN_BATCH, n_classes=n_st)
+    tar = synth.make_batch(seed=1, batch=synth.TRAIN_BATCH, n_classes=n_st)
+    caps4 = default_brick_caps(synth.BRICK_CAP, 7)
+    for b, caps, side in ((tbatch, caps4, 4), (tbatch, synth.BRICK_CAPS_SIDE2,
+                                                2), (src, st_caps, 4),
+                          (tar, st_caps, 4)):
+        synth.capacity_audit(b, caps, side)
+    tbatch, src, tar = tbatch.to('cuda'), src.to('cuda'), tar.to('cuda')
+    lr = optim.make_lr_fn(cfg.OPTIMIZATION, cfg.OPTIMIZATION.NUM_EPOCHS,
+                          100)(1, 0)
+    sd = synth.seeded_state_dict(model_fn.build_model(cfg), seed=0)
+    sd_st = synth.seeded_state_dict(model_fn.build_model(st_cfg), seed=0)
+    w_src = st_cfg.SELF_TRAIN.SRC.get('loss_weight', 1.0)
+    w_tar = st_cfg.SELF_TRAIN.TAR.get('loss_weight', 1.0)
+
+    def train(dtype, side, sm_max_cin):
+        def make():
+            model = model_fn.build_model(cfg, dtype=dtype, brick=side,
+                                         sm_max_cin=sm_max_cin, train=True)
+            model.load_state_dict(sd, strict=True)
+            opt = optim.build_optimizer(cfg.OPTIMIZATION, model.parameters())
+            step = model_fn.make_train_step(
+                cfg, model, opt, caps4 if side == 4 else
+                synth.BRICK_CAPS_SIDE2)
+            return model, opt, (lambda: step(tbatch, lr)), 1
+        return make
+
+    def st():
+        model = model_fn.build_model(st_cfg, train=True)
+        model.load_state_dict(sd_st, strict=True)
+        opt = optim.build_optimizer(st_cfg.OPTIMIZATION, model.parameters())
+        step = model_fn.make_st_step(st_cfg, model, opt, st_caps)
+        return model, opt, (lambda: step(src, tar, lr, w_src, w_tar)), 2
+
+    pairs = {'train_bf16_side4_sm32': train(torch.bfloat16, 4, SM_MAX_CIN),
+             'train_f32_side4_sm32': train(torch.float32, 4, SM_MAX_CIN),
+             'st_bf16_side4': st,
+             'train_bf16_side2': train(torch.bfloat16, 2, 0)}
+    readings, launched = {}, {}
+    for name, make in pairs.items():
+        runs = []
+        for run in range(2):
+            model, opt, step, terms = make()
+            fwd, bwd = model.subm_routes(), model.subm_routes(True)
+            rule = {k: terms * (fwd.get(k, 0) + bwd.get(k, 0))
+                    for k in ROUTES}
+            outs = []
+            for _ in range(2):
+                _cli_reset()                        # the counted path
+                outs.append(step())
+                torch.cuda.synchronize()
+                ran = _launches()
+                assert ran == rule, (name, run, ran, rule)
+            launched[f'{name}_run{run}'] = {k: 2 * v for k, v in ran.items()}
+            runs.append(_step_bits(model, opt, outs))
+            del model, opt, step, outs
+            torch.cuda.empty_cache()
+        a, b = runs
+        assert a.keys() == b.keys()
+        differ = [k for k in a if not torch.equal(a[k], b[k])]
+        assert not differ, (name, differ)
+        readings[name] = {
+            'tensors_bit_equal': len(a),
+            'losses': {k: float(v) for k, v in a.items()
+                       if k.split('/')[1].startswith('loss')},
+            'launches_per_step': rule}
+        del runs, a, b
+    log('repeat', card=card, deterministic_algorithms=False,
+        batch=synth.TRAIN_BATCH, steps_a_run=2, runs=readings,
+        phase_seconds=time.perf_counter() - t_phase)
+    _cli_reset()
+    return launched
 
 
 def _profile(fn):
@@ -1018,7 +1144,7 @@ def phase_fuse_norm(cfg, batch, b_caps, card):
     launched['train_f32_fused'] = counts()   # float32: pro_full, then 'f32'
     assert launched['train_f32_fused'] == {
         'sm': 0, 'fused': 0, 'narrow': 0, 'f32': 105, 'padded': 0,
-        'prologue': 0, 'cell_mean': 1}, launched
+        'prologue': 0, 'cell_mean': 2}, launched
     assert abs(loss_f32 - loss_u32) <= 1e-4 * abs(loss_u32), (loss_f32,
                                                              loss_u32)
     _, f32_worst = _grad_error(grads_f32, grads_u32)
@@ -1962,22 +2088,143 @@ def phase_brick(cfg, batch, b_caps, card):
     return launched, timing
 
 
+# the times of the first version of csrc/cell_mean.cu (a zero fill, then
+# one thread a slot) at C = 3, "NVIDIA H100 80GB HBM3, 700.00 W" (PERF.md
+# section 6), printed in phase feats' line beside the kernel's and kept
+# out of the kernels line, whose numbers this run measures
+FIRST_VERSION_MS = {4: 0.1039, 2: 0.0570}
+BWD_C = 16                 # the gather's backward: the flagship's mid width
+
+
+def _kernels_of(fn):
+    """The CUDA kernels, by name and count, that torch.profiler records over
+    one call of ``fn`` and one reduction of the first row of its output (a
+    PyTorch kernel of known name in the session)."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()[:1].sum()
+        torch.cuda.synchronize()
+    return {e.key: e.count for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA}
+
+
+def feats_kernels():
+    """Phase feats' launch check, run by ``phase_feats`` in a process of its
+    own (there, after the earlier phases, torch.profiler recorded no kernel
+    of a session this short, PyTorch's own included): the kernels of one
+    ``cell_reduce_sorted`` call (mode 3, and a reduction after it) at C = 3
+    on the bench batch's stream at sides 4 and 2 and at C = 16, bf16 and
+    float32 out, at side 4; printed as one JSON line, by case."""
+    from doda_tpu_torch.config import CfgNode, cfg_from_yaml_file
+    from doda_tpu_torch.models import model_fn
+    from doda_tpu_torch.models.unet import batch_stream, default_brick_caps
+    from doda_tpu_torch.ops.cell_mean import cell_reduce_sorted
+    from doda_tpu_torch.utils import synth
+    cfg = cfg_from_yaml_file('cfgs/scannet/spconv.yaml', CfgNode())
+    batch = synth.make_batch(seed=0).to('cuda')
+    x = model_fn.model_input(cfg, batch)
+    bt, n, c = x.shape
+    x = x.reshape(bt * n, c).float().contiguous()
+    out = {}
+    for s, caps in ((4, default_brick_caps(synth.BRICK_CAP, 7)),
+                    (2, synth.BRICK_CAPS_SIDE2)):
+        g0 = model_fn.build_level_plan(batch.coords, batch.valid, caps[:1],
+                                       brick=s).grid0
+        rows, cells = bt * g0.occ.shape[1], g0.occ.shape[2]
+        sc, sp = (t.view(bt, n) for t in batch_stream(g0))
+        cases = {f'side{s}_c3_float32': (x, torch.float32)}
+        if s == 4:
+            ct = torch.randn(bt * n, BWD_C, device='cuda')
+            cases.update({f'side4_c16_{str(dt)[6:]}': (ct, dt)
+                          for dt in (torch.bfloat16, torch.float32)})
+        for tag, (f, dt) in cases.items():
+            out[tag] = _kernels_of(lambda: cell_reduce_sorted(
+                f, sc, sp, rows, cells, 3, dt))
+    print(json.dumps(out), flush=True)
+
+
+def _one_launch_no_fill():
+    """``feats_kernels`` in a fresh process: every case launches one
+    ``cell_rows`` and nothing else but the reduction after it (no fill).
+    Returns the kernels by case."""
+    res = subprocess.run(
+        [sys.executable, '-c', 'import chip_smoke; chip_smoke.feats_kernels()'],
+        capture_output=True, text=True, timeout=600,
+        cwd=Path(__file__).resolve().parent)
+    assert res.returncode == 0, res.stderr[-3000:]
+    kernels = json.loads(res.stdout.strip().splitlines()[-1])
+    for tag, got in kernels.items():
+        ours = [n for k, n in got.items() if 'cell_rows' in k]
+        rest = {k: n for k, n in got.items() if 'cell_rows' not in k}
+        assert ours == [1] and sum(rest.values()) == 1 \
+            and all('reduce' in k for k in rest), (tag, got)
+    assert len(kernels) == 4, kernels
+    return kernels
+
+
+def _feats_kernel(x, sc, sp, rows, cells, untouched, out_dtype, err, tag):
+    """``cell_reduce_sorted`` on one input, modes 3 and 4, against its
+    float64 twin (float32 out 1e-6 of max|ref|, bf16 out one bf16 step),
+    bit-equal on a repeated call, exact zeros at the untouched cells. Mode
+    3 and 4's float32 outputs are also held bit for bit against a float32
+    ``index_add_`` in stream order on the CPU (the same adds in the same
+    order), recorded. Returns mode 3's output."""
+    from doda_tpu_torch.ops.cell_mean import (cell_reduce_sorted,
+                                              cell_reduce_sorted_plain)
+    c = x.shape[1]
+    bound = 1e-6 if out_dtype == torch.float32 else 2.0 ** -7
+    ids = sc.reshape(-1).long().cpu()
+    keep = ids < rows * cells
+    rows_cpu = x.cpu()[sp.reshape(-1).long().cpu()[keep]]
+    seq = torch.zeros(rows * cells, c).index_add_(0, ids[keep], rows_cpu)
+    count = torch.zeros(rows * cells).index_add_(
+        0, ids[keep], torch.ones(int(keep.sum())))
+    for mode in (3, 4):
+        got = cell_reduce_sorted(x, sc, sp, rows, cells, mode, out_dtype)
+        torch.cuda.synchronize()
+        again = cell_reduce_sorted(x, sc, sp, rows, cells, mode, out_dtype)
+        torch.cuda.synchronize()
+        assert got.dtype == out_dtype
+        assert torch.equal(got, again), f'{tag} mode {mode}: repeat'
+        assert (got.reshape(rows, cells, c)[untouched] == 0).all(), tag
+        err[f'{tag}_twin_mode{mode}'] = _close(
+            got, cell_reduce_sorted_plain(x, sc, sp, rows, cells, mode,
+                                          torch.float64), True, bound,
+            f'{tag} mode {mode}')
+        if out_dtype == torch.float32:
+            ref = seq if mode == 3 else \
+                seq / count.clamp(min=1.0)[:, None]
+            err[f'{tag}_bit_equal_cpu_index_add_mode{mode}'] = torch.equal(
+                got.cpu(), ref.reshape(rows, cells * c))
+        if mode == 3:
+            total = got
+        del again
+    return total
+
+
 def phase_feats(cfg, batch, b_caps, card):
     """The point -> cell reduction on the bench batch at brick sides 4
     and 2: the sorted kernel (``cell_reduce_sorted``, csrc/cell_mean.cu)
-    against its float64 twin (1e-6 of max|ref|) and the scatter route
-    (``bricks.cell_feats_2d``, ``index_add_`` over each point's flat cell
-    id, float32 atomics in another order: 1e-5 of max|ref|), modes 3 and
-    4, bit-equal on a repeated call, exact zeros at the cells no point
-    reaches; its ms beside its bound, the twin's, the scatter route's and
-    ``index_reduce_``'s (the library call). Then the flagship's eval
-    forward: two forwards bit-equal with deterministic algorithms off
-    (float32 logits; bf16 logits and predictions), one launch a forward,
-    and its device time by bucket (``tools/trace_fwd.py``'s) and bf16 wall
-    time in turns beside the same forward with the scatter route patched
-    in for the kernel, in pairs of turns whose order alternates, so that
-    the gap can be split into route and order, with the host time spent
-    inside each route's call.
+    on the points' features (C = 3) and, at side 4, as the voxel -> point
+    gather's backward (C = 16, a seeded float32 cotangent, bf16 and
+    float32 out) against its float64 twin, modes 3 and 4, bit-equal on a
+    repeated call, exact zeros at the cells no point reaches
+    (``_feats_kernel``), one launch and no fill a call
+    (``_one_launch_no_fill``); at C = 3 against the scatter
+    route too (``bricks.cell_feats_2d``, ``index_add_`` over each point's
+    flat cell id, float32 atomics in another order: 1e-5 of max|ref|);
+    its ms beside its bound, the first version's (``FIRST_VERSION_MS``),
+    the twin's, the scatter route's, ``index_reduce_``'s (the library call
+    at C = 3) and ``index_select``'s autograd backward (a zero fill and
+    ``index_add_``: the library call of the gather's backward). Then the
+    flagship's eval forward: two forwards bit-equal with deterministic
+    algorithms off (float32 logits; bf16 logits and predictions), one
+    launch a forward, and its device time by bucket
+    (``tools/trace_fwd.py``'s) and bf16 wall time in turns beside the same
+    forward with the scatter route patched in for the kernel, in two pairs
+    of turns whose order alternates, with the host time spent inside each
+    route's call.
     Returns the kernel's readings and the counted runs' launches."""
     from doda_tpu_torch.models import model_fn, unet
     from doda_tpu_torch.models.unet import _flat_ids, batch_stream
@@ -1987,6 +2234,7 @@ def phase_feats(cfg, batch, b_caps, card):
     from doda_tpu_torch.utils import roofline, synth
     t_phase = time.perf_counter()
     assert not torch.are_deterministic_algorithms_enabled()
+    launches_a_call = _one_launch_no_fill()
     caps = {4: b_caps, 2: synth.BRICK_CAPS_SIDE2}
     synth.capacity_audit(batch, caps[2], 2)
     dbatch = batch.to('cuda')
@@ -2001,20 +2249,14 @@ def phase_feats(cfg, batch, b_caps, card):
         g0 = plan.grid0
         cap0, cells = g0.occ.shape[1:]
         rows = bt * cap0
-        sc, sp = batch_stream(g0)
+        sc, sp = (t.view(bt, n) for t in batch_stream(g0))
         flat = _flat_ids(g0.flat_index(), cap0 * cells)   # the scatter ids
         untouched = ~g0.occ.reshape(rows, cells)
         err = {}
+        _feats_kernel(x, sc, sp, rows, cells, untouched, torch.float32, err,
+                      'c3')
         for mode in (3, 4):
             got = cell_reduce_sorted(x, sc, sp, rows, cells, mode)
-            torch.cuda.synchronize()
-            again = cell_reduce_sorted(x, sc, sp, rows, cells, mode)
-            torch.cuda.synchronize()
-            assert torch.equal(got, again), f'side {s} mode {mode}: repeat'
-            assert (got.reshape(rows, cells, c)[untouched] == 0).all()
-            err[f'twin_mode{mode}'] = _close(
-                got, cell_reduce_sorted_plain(x, sc, sp, rows, cells, mode),
-                True, 1e-6, f'cell_reduce_sorted side {s} mode {mode}')
             err[f'scatter_mode{mode}'] = _close(
                 got, cell_feats_2d(x, flat, rows, mode, cells), True, 1e-5,
                 f'cell_reduce_sorted vs scatter side {s} mode {mode}')
@@ -2026,7 +2268,7 @@ def phase_feats(cfg, batch, b_caps, card):
         err['library_mode4'] = _close(
             mean, library()[:-1].reshape(rows, cells * c), True, 1e-5,
             f'index_reduce_ side {s}')
-        del got, again
+        del got
         n_valid = int((sc < rows * cells).sum())
         n_active = int(g0.occ.sum())
         work = roofline.cell_mean_work(bt * n, n_valid, c, rows * cells,
@@ -2035,15 +2277,53 @@ def phase_feats(cfg, batch, b_caps, card):
             'shape': {'points': bt * n, 'valid_points': n_valid,
                       'channels': c, 'rows': rows, 'cells': cells,
                       'active_cells': n_active},
-            'max_abs_err': err['twin_mode4'], 'errors': err,
+            'max_abs_err': err['c3_twin_mode4'], 'errors': err,
             'ms': cuda_ms(lambda: cell_reduce_sorted(x, sc, sp, rows, cells),
                           50),
+            'first_version_ms': FIRST_VERSION_MS[s],
             'plain_ms': cuda_ms(lambda: cell_reduce_sorted_plain(
                 x, sc, sp, rows, cells), 5),
             'scatter_route_ms': cuda_ms(
                 lambda: cell_feats_2d(x, flat, rows, 4, cells), 20),
             'library_ms': cuda_ms(library, 20), **work}
-        del plan, g0, sc, sp, untouched, mean
+        if s == 4:
+            # the gather's backward: the float32 cotangent of every point
+            # into the (rows*cells, 16) cell table, against index_select's
+            # autograd backward (the cotangent in the table's type, a zero
+            # fill, index_add_)
+            gen = torch.Generator(device='cuda').manual_seed(16)
+            ct = torch.randn(bt * n, BWD_C, device='cuda', generator=gen)
+            idx = flat.clamp(max=rows * cells - 1)
+            miss = (flat >= rows * cells)[:, None]
+            ct = torch.where(miss, 0, ct)          # as the head's where
+            bwd = {}
+            for dt in (torch.bfloat16, torch.float32):
+                name = str(dt)[6:]
+                total = _feats_kernel(ct, sc, sp, rows, cells, untouched,
+                                      dt, err, f'c16_{name}')
+
+                def index_select_bwd(dt=dt):
+                    return torch.zeros((rows * cells, BWD_C), dtype=dt,
+                                       device='cuda').index_add_(
+                        0, idx, ct.to(dt))
+                err[f'c16_{name}_vs_index_select_bwd'] = _close(
+                    total, index_select_bwd().reshape(rows, -1), True,
+                    2.0 ** -7 if dt == torch.bfloat16 else 1e-5,
+                    f'gather backward {name} vs index_add_')
+                bwd[name] = {
+                    'max_abs_err': err[f'c16_{name}_twin_mode3'],
+                    'ms': cuda_ms(lambda dt=dt: cell_reduce_sorted(
+                        ct, sc, sp, rows, cells, 3, dt), 50),
+                    'plain_ms': cuda_ms(lambda dt=dt: cell_reduce_sorted_plain(
+                        ct, sc, sp, rows, cells, 3, dt), 3),
+                    'library_ms': cuda_ms(index_select_bwd, 20),
+                    **roofline.cell_mean_work(
+                        bt * n, n_valid, BWD_C, rows * cells, n_active, 3,
+                        dt.itemsize)}
+                del total
+            readings[s]['gather_backward'] = bwd
+            del ct, idx, miss
+        del plan, g0, untouched, mean
         torch.cuda.empty_cache()
 
         host_ms = []                    # host time inside the reduction
@@ -2068,8 +2348,8 @@ def phase_feats(cfg, batch, b_caps, card):
         # the flagship's eval forward, one model a dtype, the route
         # switched in place: the kernel's bit-equal on a repeat, then both
         # routes' device time, and their bf16 forwards timed on the host
-        # clock in six pairs of turns, the kernel first in three of them
-        # (sorted, scatter, scatter, sorted, ...)
+        # clock in two pairs of turns, the kernel first in one of them
+        # (sorted, scatter, scatter, sorted)
         runs = {}
         for dtype in (torch.float32, torch.bfloat16):
             model = model_fn.build_model(cfg, dtype=dtype, brick=s)
@@ -2105,7 +2385,7 @@ def phase_feats(cfg, batch, b_caps, card):
                 torch.cuda.empty_cache()
         seconds = {'sorted': [], 'scatter': []}
         inside = {'sorted': [], 'scatter': []}
-        for feats in ('sorted', 'scatter', 'scatter', 'sorted') * 3:
+        for feats in ('sorted', 'scatter', 'scatter', 'sorted'):
             host_ms.clear()
             with route(feats):
                 torch.cuda.synchronize()
@@ -2128,6 +2408,7 @@ def phase_feats(cfg, batch, b_caps, card):
         readings[s]['bf16_host_ms_inside_the_reduction'] = inside
     log('feats', card=card, deterministic_algorithms=False,
         side4=readings[4], side2=readings[2], launches=launched,
+        kernels_a_call=launches_a_call,
         phase_seconds=time.perf_counter() - t_phase)
     _cli_reset()
     return readings, launched
@@ -3626,6 +3907,7 @@ def main():
 
     fwd, fwd32 = phase_forward(cfg, batch, b_caps, card)
     train, train32 = phase_train(cfg, b_caps, card)
+    repeat_launches = phase_repeat(cfg, card)
     fuse_launches = phase_fuse_norm(cfg, batch, b_caps, card)
     library, engine_launches = phase_engines(cfg, batch, b_caps, card,
                                              levels)
@@ -3679,9 +3961,11 @@ def main():
     # side-2 readings beside the side-4 ones of the same call
     add_brick_phase(rows, brick_launches, brick_timing)
     # the sorted point -> cell reduction: once in every forward (but phase
-    # feats' runs with the scatter route patched in)
+    # feats' runs with the scatter route patched in) and once in every
+    # backward, as the voxel -> point gather's
     by_phase = {
         'eval_forward': fwd['cell_mean'], 'train_steps': train['cell_mean'],
+        'repeat': sum(n['cell_mean'] for n in repeat_launches.values()),
         'fuse_norm': sum(n['cell_mean'] for n in fuse_launches.values()),
         'engines': sum(n['cell_mean'] for n in engine_launches.values()),
         'brick': sum(n['cell_mean'] for n in brick_launches.values()),
@@ -3705,6 +3989,10 @@ def main():
                    "'mean', include_self=False): two calls, the zero fill "
                    'included',
         **_build.resources('cell_mean'),
+        'gather_backward': {
+            'library': "index_select's autograd backward: the cotangent "
+                       'in the table\'s type, torch.zeros, index_add_',
+            **f4['gather_backward']},
         'brick2': {k: feats[2][k] for k in (
             'max_abs_err', 'ms', 'plain_ms', 'bound_ms', 'bound_by',
             'library_ms', 'scatter_route_ms', 'shape')}})

@@ -85,7 +85,11 @@ The point -> cell reduction in front of the input conv is the JAX
 package's default (``DODA_FEATS`` unset): each cell's run of the batch's
 (brick, cell)-sorted stream (``batch_stream``, from ``brickify``'s sort)
 summed by ``cell_reduce_sorted``, which uses no float atomics, so two
-forwards on one batch give the same bits.
+forwards on one batch give the same bits. The voxel -> point gather at
+the head (``gather_cells``) takes its backward from the same stream: each
+cell's point cotangents summed by ``cell_reduce_sorted`` (mode 3) in
+stream order, not by ``index_select``'s ``index_add_``, so two train or
+st steps on one batch give the same bits too.
 """
 
 from __future__ import annotations
@@ -237,6 +241,41 @@ def batch_stream(grid0: BrickGrid):
     cap0, cells = grid0.occ.shape[1:]
     return (_flat_ids(grid0.sort_cell, cap0 * cells),
             _flat_ids(grid0.sort_pos, grid0.sort_pos.shape[1]))
+
+
+class _GatherCells(torch.autograd.Function):
+    """``vox.index_select(0, index).float()`` whose backward sums each
+    cell's point cotangents over the sorted stream."""
+
+    @staticmethod
+    def forward(ctx, vox, index, sort_cell, sort_pos, cells):
+        ctx.save_for_backward(sort_cell, sort_pos)
+        ctx.cells, ctx.vox = cells, (vox.shape, vox.dtype)
+        return vox.index_select(0, index).float()
+
+    @staticmethod
+    def backward(ctx, grad):
+        sort_cell, sort_pos = ctx.saved_tensors
+        shape, dtype = ctx.vox
+        rows = shape[0] // ctx.cells
+        dvox = cell_reduce_sorted(grad.contiguous(), sort_cell, sort_pos,
+                                  rows, ctx.cells, 3, dtype)
+        return dvox.reshape(shape), None, None, None, None
+
+
+def gather_cells(vox: torch.Tensor, index: torch.Tensor,
+                 sort_cell: torch.Tensor, sort_pos: torch.Tensor,
+                 cells: int) -> torch.Tensor:
+    """The voxel -> point gather: vox (rows*cells, m) at the points' flat
+    cell ids ``index`` (clamped into range) -> (points, m) float32. Its
+    backward is ``cell_reduce_sorted`` (mode 3, in ``vox``'s type) of the
+    float32 cotangent over the stream (``batch_stream`` viewed as one
+    segment a scene), whose slots hold the same points at the same cells:
+    ``index_select``'s backward summed in stream order, with no atomics.
+    A point that the stream leaves out (a null id: padding, or a brick past
+    the cap) must have a zero cotangent, as the head's ``where`` gives
+    it."""
+    return _GatherCells.apply(vox, index, sort_cell, sort_pos, cells)
 
 
 # ---------------------------------------------------------------------------
@@ -590,11 +629,12 @@ class SparseConvNet(nn.Module):
         gives 'all' adds one launch of its forward route; one at a 'dots'
         level adds none on '2d' (its product comes back from the kept
         outputs), but a call of another engine's conv function, which
-        runs again around its kept products. The point -> cell reduction
-        launches ``cell_reduce_sorted`` once a forward, outside every
-        block, counted under 'cell_mean' (none in the backward)."""
+        runs again around its kept products. ``cell_reduce_sorted``,
+        outside every block, is counted under 'cell_mean': once a forward
+        (the point -> cell reduction) and once a backward (the voxel ->
+        point gather's, ``gather_cells``)."""
         counts = {'sm': 0, 'fused': 0, 'narrow': 0, 'f32': 0, 'padded': 0,
-                  'cell_mean': int(not backward)}
+                  'cell_mean': 1}
         if self.fuse_norm:
             counts['prologue'] = 0
         if self.conv_engine != '2d':
@@ -665,8 +705,10 @@ class SparseConvNet(nn.Module):
         miss = gidx >= cap0 * cells
         flat = _flat_ids(gidx, cap0 * cells)
 
+        # the batch's stream, one segment a scene
+        sort_cell, sort_pos = (t.view(bt, n) for t in batch_stream(plan.grid0))
         x = cell_reduce_sorted(point_feats.reshape(bt * n, -1).float(),
-                               *batch_stream(plan.grid0), bt * cap0, cells)
+                               sort_cell, sort_pos, bt * cap0, cells)
         x = _fsubm(x.to(self.dtype), levels[0], self.input_kernel,
                    self.dtype, self.sm_max_cin, self.conv_engine,
                    self.deep_xla_rows)
@@ -676,8 +718,8 @@ class SparseConvNet(nn.Module):
         o_scale, o_bias = self.output_norm(x, levels[0].occ, domain,
                                            fold=True)
         vox = x.reshape(bt * cap0 * cells, m)
-        gathered = vox.index_select(0, flat.clamp(max=vox.shape[0] - 1))
-        gathered = gathered.reshape(bt, n, m).float()
+        gathered = gather_cells(vox, flat.clamp(max=vox.shape[0] - 1),
+                                sort_cell, sort_pos, cells).reshape(bt, n, m)
         out_feats = torch.where(miss[..., None], 0,
                                 torch.relu(gathered * o_scale + o_bias))
         logits = self.linear(out_feats)

@@ -226,6 +226,19 @@ def _band_nonzero(side: int = BRICK):
     return tuple(np.nonzero(_band_np(side)))
 
 
+@functools.lru_cache(maxsize=None)
+def _band_by_tap(side: int = BRICK):
+    """``_band_nonzero``'s (plane, plane cell, slice cell) entries grouped
+    by tap: three (27, s^2) arrays, row k the s^2 band cells tap k was
+    placed at (each output cell of a slice reads each tap once)."""
+    i, q, r, k = _band_nonzero(side)
+    order = np.argsort(k, kind='stable')
+    per_tap = side * side
+    assert np.array_equal(np.bincount(k, minlength=27),
+                          np.full(27, per_tap)), 'a tap off the band'
+    return tuple(a[order].reshape(27, per_tap) for a in (i, q, r))
+
+
 def banded_weights(w: torch.Tensor, side: int = BRICK) -> torch.Tensor:
     """(27, cin, cout) raster (dx, dy, dz) -> (3, (s+2)^2*cin, s^2*cout)
     at brick side s ((3, 36*cin, 16*cout) at side 4).
@@ -461,12 +474,14 @@ def _dwb_to_dw(dwb: torch.Tensor, cin: int, cout: int,
                side: int = BRICK) -> torch.Tensor:
     """Banded dW (3, (s+2)^2*cin, s^2*cout) -> raster (27, cin, cout): the
     sum over the band cells each tap was placed at by
-    ``banded_weights``."""
+    ``banded_weights``, in a fixed order (a gather of each tap's s^2
+    entries and a sum over them, as the JAX package's 0/1 band einsum
+    sums in a fixed order; no atomics)."""
     g = geometry(side)
-    i, q, r, k = (torch.as_tensor(a, device=dwb.device)
-                  for a in _band_nonzero(side))
+    i, q, r = (torch.as_tensor(a, device=dwb.device)
+               for a in _band_by_tap(side))
     d5 = dwb.reshape(3, g.plane, cin, g.slice_cells, cout)
-    return dwb.new_zeros(27, cin, cout).index_add_(0, k, d5[i, q, :, r, :])
+    return d5[i, q, :, r, :].sum(1)
 
 
 def _subm_dw(rows6: torch.Tensor, g: torch.Tensor, compute_dtype, cin: int,

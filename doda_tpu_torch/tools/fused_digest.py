@@ -2,7 +2,7 @@
 bit for bit.
 
     python -m doda_tpu_torch.tools.fused_digest [--csrc DIR] [--brick 4]
-                               [--kernel fused|prologue|narrow|f32|sm]
+                      [--kernel fused|prologue|narrow|f32|sm|cell_mean]
 
 from the repo root, on the card. ``--kernel fused`` (the default) builds
 ``banded_conv_fused.cu`` from ``DIR`` (by default this checkout's
@@ -21,6 +21,12 @@ operands at the fused shapes and the input conv.
 bf16 operands to float32 and to bf16 and, where the source has its
 float32 kernel (``sm_taps_f32``), on float32 operands to float32 and to
 bf16.
+``--kernel cell_mean`` builds the sorted point -> cell reduction
+(``cell_mean.cu``) and runs it over the bench batch's level-0 stream on
+seeded features: C = 3 in modes 3 and 4 and C = 16 in mode 3 (the voxel
+-> point gather's backward), to float32 and, where the source has it, to
+bf16; a source from before the output type was an argument (its caller
+zero-fills a float32 output) is called through its own signature.
 Both in bricks of side ``--brick`` (4, or 2 for a source built for it).
 Prints one JSON line a shape with the sha256 of each output's bytes and
 the card's name and power limit; two builds that print the same digests
@@ -180,19 +186,69 @@ def sm_digests(csrc: Path, side: int, card: str) -> list:
     return out
 
 
+def cell_mean_digests(csrc: Path, side: int, card: str) -> list:
+    """The sorted point -> cell reduction on the bench batch's stream
+    (``unet.batch_stream``) at brick side ``side``."""
+    from ..models.unet import batch_stream
+    lib = ctypes.CDLL(str(_build._compiled(
+        csrc / 'cell_mean.cu', 'cell_mean', _build._nvcc, _build.NVCC_FLAGS,
+        report='.ptxas.txt')))
+    fn = lib.doda_cell_reduce_sorted
+    typed = hasattr(lib, 'doda_cell_reduce_max_c')   # rows, scenes, type
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_longlong, ctypes.c_int] \
+        + ([ctypes.c_longlong] + [ctypes.c_int] * 4 if typed else
+           [ctypes.c_longlong, ctypes.c_int]) + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    dev = torch.device('cuda')
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    batch = synth.make_batch(seed=0).to(dev)
+    caps = default_brick_caps(synth.BRICK_CAP, 7) if side == 4 \
+        else synth.BRICK_CAPS_SIDE2
+    grid0 = build_level_plan(batch.coords, batch.valid, caps[:1],
+                             brick=side).grid0
+    bt, cap0, cells = grid0.occ.shape
+    rows = bt * cap0
+    sc, sp = batch_stream(grid0)
+    g = torch.Generator(device=dev).manual_seed(3)
+    out = []
+    for c, modes in ((3, (3, 4)), (16, (3,))):
+        feats = torch.randn(sc.numel(), c, device=dev, generator=g)
+        digests = {}
+        for mode in modes:
+            for odt in (torch.float32, torch.bfloat16)[:1 + typed]:
+                y = torch.zeros(rows, cells * c, dtype=odt, device=dev)
+                head = (feats.data_ptr(), sc.data_ptr(), sp.data_ptr(),
+                        y.data_ptr(), sc.numel(), c)
+                err = fn(*head, rows, cells, bt, mode,
+                         int(odt == torch.bfloat16), stream) if typed \
+                    else fn(*head, rows * cells, mode, stream)
+                if err:
+                    raise RuntimeError(f'cell_mean C={c}: error {err}')
+                torch.cuda.synchronize(dev)
+                digests[f'mode{mode}_{str(odt)[6:]}'] = _sha(y)
+        line = {'card': card, 'csrc': str(csrc), 'kernel': 'cell_mean',
+                'brick': side, 'shape': [sc.numel(), c, rows, cells],
+                'sha256': digests}
+        print(json.dumps(line), flush=True)
+        out.append(line)
+    return out
+
+
 def main(argv=None) -> list:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument('--csrc', type=Path, default=_build.CSRC)
     ap.add_argument('--brick', type=int, choices=(2, 4), default=4)
     ap.add_argument('--kernel', default='fused',
-                    choices=('fused', 'prologue', 'narrow', 'f32', 'sm'))
+                    choices=('fused', 'prologue', 'narrow', 'f32', 'sm',
+                             'cell_mean'))
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit('fused_digest: needs a CUDA device')
     side = args.brick
-    if args.kernel == 'sm':
-        return sm_digests(args.csrc.resolve(), side,
-                          card_label(torch.device('cuda')))
+    if args.kernel in ('sm', 'cell_mean'):
+        digests = sm_digests if args.kernel == 'sm' else cell_mean_digests
+        return digests(args.csrc.resolve(), side,
+                       card_label(torch.device('cuda')))
     kernel = args.kernel
     fn = k1_entry(args.csrc.resolve(), kernel, side)
     dev = torch.device('cuda')
@@ -248,3 +304,7 @@ def main(argv=None) -> list:
         print(json.dumps(line), flush=True)
         out.append(line)
     return out
+
+
+if __name__ == '__main__':
+    main()

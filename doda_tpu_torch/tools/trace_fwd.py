@@ -48,7 +48,7 @@ BUCKETS = (
     ('banded_conv_narrow (K1, input conv)', r'narrow_tc'),
     ('banded_conv_f32 (K1, float32)', r'subm_f32'),
     ('banded_conv_sm_taps (K2)', r'sm_taps_tc|sm_taps_f32'),
-    ('cell_reduce_sorted (point -> cell)', r'cell_runs'),
+    ('cell_reduce_sorted (point -> cell)', r'cell_rows'),
     ('gemm (down/up/1x1/head)', r'gemm|cutlass|xmma|cublas|sm90_|nvjet'),
     ('sort / search', r'sort|radix|searchsorted|Scan|scan'),
     ('index / gather / scatter', r'index|gather|scatter|Indexing'),

@@ -38,13 +38,17 @@ def card_label(dev: torch.device) -> str:
 @contextlib.contextmanager
 def deterministic():
     """PyTorch's deterministic algorithms inside the block, for checks
-    that hold two runs bit for bit. An eval forward needs none: its
-    point -> cell reduction (``ops/cell_mean.py``) gives the same bits
-    without. What still sums with atomics in a varying order on the card
-    is ``index_add_``: the backward of the voxel -> point gather
-    (``index_select``) in every train and st step, and the plain
-    reduction ``ops/bricks.py::cell_feats_2d``. Ops without a
-    deterministic version warn instead of raising."""
+    that hold two runs bit for bit. No step of the CLIs needs them: the
+    eval forward and the train and st steps sum without atomics (the point
+    -> cell reduction and the voxel -> point gather's backward in
+    ``ops/cell_mean.py``'s kernel, dW's band fold in a fixed order), so
+    two runs from one state give the same bits without this block.
+    ``index_add_``, which sums in a varying order on the card, is left in
+    plain versions and references only (the float64 twin
+    ``cell_reduce_sorted_plain``, ``ops/bricks.py::cell_feats_2d``); the
+    checks that compare with them, or with another engine, use this
+    block. Ops without a deterministic version warn instead of
+    raising."""
     was, warn = (torch.are_deterministic_algorithms_enabled(),
                  torch.is_deterministic_algorithms_warn_only_enabled())
     torch.use_deterministic_algorithms(True, warn_only=True)

@@ -39,14 +39,15 @@ def bound(moved: float, ops: float, peak: float = PEAK_BF16) -> dict:
 
 
 def cell_mean_work(n_pts: int, n_valid: int, c: int, n_cells: int,
-                   n_runs: int) -> dict:
-    """The sorted point -> cell reduction (``ops/cell_mean.py``), mode 4,
-    float32: the stream's ids (every slot) and rows (the valid points'),
-    the valid points' features and the dense (n_cells, c) output moved
-    once; a float32 add a valid point and channel and a division a run and
-    channel."""
-    moved = 4 * (n_pts + n_valid + n_valid * c + n_cells * c)
-    ops = n_valid * c + n_runs * c
+                   n_runs: int, mode: int = 4, out_bytes: int = 4) -> dict:
+    """The sorted point -> cell reduction (``ops/cell_mean.py``): the
+    stream's ids (every slot) and rows (the valid points'), the valid
+    points' float32 features and the dense (n_cells, c) output of
+    ``out_bytes`` an element (4 float32, 2 bf16) moved once; a float32 add
+    a valid point and channel and, in mode 4 (the mean), a division a run
+    and channel."""
+    moved = 4 * (n_pts + n_valid + n_valid * c) + out_bytes * n_cells * c
+    ops = n_valid * c + (n_runs * c if mode == 4 else 0)
     return {'bytes': moved, 'flops': ops, **bound(moved, ops, PEAK_F32)}
 
 

@@ -68,7 +68,7 @@ def test_subm_route_sends_float32_to_f32():
                                    'f32': 53, 'padded': 0, 'cell_mean': 1}
     assert model.subm_routes(True) == {'sm': 0, 'fused': 0, 'narrow': 0,
                                        'f32': 52, 'padded': 0,
-                                       'cell_mean': 0}
+                                       'cell_mean': 1}
 
 
 def test_f32_route_forward_and_dx_equal_jax(monkeypatch):

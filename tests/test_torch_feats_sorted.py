@@ -163,7 +163,8 @@ def test_net_sorted_equals_scatter(monkeypatch):
     """A 3-level float32 net at sides 4 and 2 against the same net with
     the scatter route (``bricks.cell_feats_2d``, ``index_add_`` over each
     point's flat cell id) in the reduction's place: logits within 1e-5;
-    the launch rule counts one 'cell_mean' a forward, none a backward."""
+    the launch rule counts one 'cell_mean' a forward and one a backward
+    (the voxel -> point gather's)."""
     rng = np.random.default_rng(1)
     coords = rng.integers(0, 30, (2, 1500, 3)).astype(np.int32)
     valid = np.ones((2, 1500), bool)
@@ -190,7 +191,7 @@ def test_net_sorted_equals_scatter(monkeypatch):
                 want = model(feats, plan)
         assert calls == [2 * caps[0]]
         fwd, bwd = model.subm_routes(), model.subm_routes(True)
-        assert (fwd['cell_mean'], bwd['cell_mean']) == (1, 0)
+        assert (fwd['cell_mean'], bwd['cell_mean']) == (1, 1)
         assert torch.isfinite(got).all()
         err = (got - want).abs().max().item()
         assert err <= 1e-5 * max(1.0, want.abs().max().item())

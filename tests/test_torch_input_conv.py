@@ -84,7 +84,7 @@ def test_routing_rule_sends_the_input_conv_to_it():
     # its input needs no gradient: no dx conv of the input conv
     assert model.subm_routes(True) == {'sm': 0, 'fused': 52, 'narrow': 0,
                                        'f32': 0, 'padded': 0,
-                                       'cell_mean': 0}
+                                       'cell_mean': 1}
     model = tmf.build_model(cfg, device='cpu', dtype=f32)
     assert model.subm_routes() == {'sm': 0, 'fused': 0, 'narrow': 0,
                                    'f32': 53, 'padded': 0, 'cell_mean': 1}
